@@ -1,0 +1,144 @@
+"""Building blocks: Dense, masked BatchNorm, LayerNorm, MLP, DropPath, SubMConv.
+
+Port of `cdsegnet_tpu/models/modules.py`. Parameters are float32 and carry
+the flax names (``scale``/``bias`` for norms, ``weight`` (K, C_in, C_out)
+for convs); each module computes in its ``dtype`` exactly where the flax
+module does: Dense and conv cast inputs and weights to ``dtype``, norms take
+their statistics in float32 and cast the result back.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from cdsegnet_torch.ops.subm_conv import blocked_subm_conv_apply, subm_conv_apply
+
+
+class Dense(nn.Linear):
+    """flax ``nn.Dense(dtype=...)``: float32 parameters, computed in
+    ``dtype`` (weight is ``(out, in)``, the transpose of the flax kernel)."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(in_features, out_features, bias=bias)
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        b = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), b)
+
+
+class MaskedBatchNorm(nn.Module):
+    """BatchNorm over valid points (torch ``BatchNorm1d(eps=1e-3)``
+    semantics). Inference only: normalizes with the running statistics."""
+
+    def __init__(self, features: int, eps: float = 1e-3,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.eps = eps
+        self.dtype = dtype
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("mean", torch.zeros(features))
+        self.register_buffer("var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        del mask  # only the batch statistics of training mode read it
+        if self.training:
+            raise NotImplementedError(
+                "MaskedBatchNorm batch statistics come with the training port")
+        y = (x.float() - self.mean) * torch.rsqrt(self.var + self.eps)
+        return (y * self.scale + self.bias).to(self.dtype)
+
+
+class LayerNorm(nn.Module):
+    def __init__(self, features: int, eps: float = 1e-5,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.eps = eps
+        self.dtype = dtype
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        mean = xf.mean(dim=-1, keepdim=True)
+        var = (xf - mean).square().mean(dim=-1, keepdim=True)
+        y = (xf - mean) * torch.rsqrt(var + self.eps) * self.scale + self.bias
+        return y.to(self.dtype)
+
+
+class Mlp(nn.Module):
+    """Transformer FFN: fc1 -> exact GELU -> fc2."""
+
+    def __init__(self, in_features: int, hidden: int, out: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.fc1 = Dense(in_features, hidden, dtype=dtype)
+        self.fc2 = Dense(hidden, out, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(F.gelu(self.fc1(x)))
+
+
+def drop_path(x: torch.Tensor, rate: float, deterministic: bool = True,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Per-point stochastic depth; the identity when ``deterministic``."""
+    if deterministic or rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("stochastic depth needs an explicit torch.Generator")
+    keep = 1.0 - rate
+    m = torch.rand((x.shape[0], 1), generator=generator, device=x.device) < keep
+    return torch.where(m, x / keep, torch.zeros_like(x))
+
+
+def swish(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(x)
+
+
+def conv_weight(kernel_volume: int, c_in: int, c_out: int) -> nn.Parameter:
+    """A ``(K, C_in, C_out)`` conv weight; `utils.weights.init_weights`
+    fills it."""
+    return nn.Parameter(torch.empty(kernel_volume, c_in, c_out))
+
+
+class SubMConv(nn.Module):
+    """Submanifold conv over a precomputed neighbor table.
+
+    ``stem_mode`` picks the k125 formulation: ``"gather"`` (one (N, 125)
+    row gather), ``"blocked"`` (27 block-row gathers through the stride-2
+    parity structure; exact only without overflow) or ``"cond"`` (blocked
+    when ``no_overflow``, else gather). The blocked k27 form is not ported.
+    """
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_volume: int,
+                 use_bias: bool = True, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.kernel_volume = kernel_volume
+        self.dtype = dtype
+        self.weight = conv_weight(kernel_volume, in_channels, out_channels)
+        self.bias = nn.Parameter(torch.zeros(out_channels)) if use_bias else None
+
+    def forward(self, feat, neighbor_idx, blocked_geom=None,
+                no_overflow: Optional[bool] = None, stem_mode: str = "gather"):
+        f = feat.to(self.dtype)
+        mode = stem_mode if (blocked_geom is not None
+                             and self.kernel_volume in (27, 125)) else "gather"
+        if mode not in ("gather", "blocked", "cond"):
+            raise ValueError(f"unknown conv mode {mode!r}")
+        if mode != "gather" and self.kernel_volume == 27:
+            raise NotImplementedError("the blocked k27 xCPE is not ported")
+        if mode == "gather" or (mode == "cond" and not no_overflow):
+            return subm_conv_apply(f, neighbor_idx, self.weight, self.bias)
+        grid_coord, pmask, parent_inverse, child_nbr = blocked_geom
+        out = blocked_subm_conv_apply(
+            f, self.weight, grid_coord=grid_coord, mask=pmask,
+            parent_inverse=parent_inverse, child_nbr=child_nbr,
+        )
+        return out if self.bias is None else out + self.bias.to(out.dtype)

@@ -1,0 +1,94 @@
+"""Sorted-segment reductions with static capacity.
+
+Port of `cdsegnet_tpu/ops/segments.py`. Segment ids come from sorted keys by
+a boundary cumsum; reductions scatter into ``num_segments`` rows. Ids must lie
+in ``[0, num_segments)`` (callers clamp them, as the JAX package does).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+
+def sorted_segment_ids(keys_sorted: torch.Tensor) -> torch.Tensor:
+    """Segment index per sorted position: 0,0,1,1,1,2,... for equal-key runs."""
+    boundary = torch.ones_like(keys_sorted, dtype=torch.int64)
+    boundary[1:] = (keys_sorted[1:] != keys_sorted[:-1]).to(torch.int64)
+    return torch.cumsum(boundary, 0) - 1
+
+
+def _bc(valid: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    return valid.reshape(valid.shape + (1,) * (ref.dim() - valid.dim()))
+
+
+def segment_any(
+    valid: torch.Tensor, seg_ids: torch.Tensor, num_segments: int
+) -> torch.Tensor:
+    cnt = torch.zeros(num_segments, dtype=torch.int32, device=valid.device)
+    cnt.index_add_(0, seg_ids, valid.to(torch.int32))
+    return cnt > 0
+
+
+def segment_reduce(
+    values_sorted: torch.Tensor,
+    seg_ids: torch.Tensor,
+    num_segments: int,
+    reduce: str = "max",
+    valid: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Reduce ``values_sorted`` over segment ids into ``num_segments`` rows.
+
+    Invalid rows (``valid=False``) never contribute; empty segments yield 0.
+    """
+    shape = (num_segments,) + tuple(values_sorted.shape[1:])
+    if reduce == "max":
+        if valid is not None:
+            neutral = torch.finfo(values_sorted.dtype).min
+            values_sorted = torch.where(
+                _bc(valid, values_sorted), values_sorted,
+                torch.full((), neutral, dtype=values_sorted.dtype,
+                           device=values_sorted.device),
+            )
+        out = torch.zeros(shape, dtype=values_sorted.dtype,
+                          device=values_sorted.device)
+        idx = _bc(seg_ids.long(), values_sorted).expand_as(values_sorted)
+        # an empty segment keeps its initial 0 (include_self=False only
+        # reduces over the rows scattered into it)
+        out.scatter_reduce_(0, idx, values_sorted, "amax", include_self=False)
+        out = torch.where(torch.isfinite(out.float()), out, torch.zeros_like(out))
+        if valid is not None:
+            has = segment_any(valid, seg_ids, num_segments)
+            out = torch.where(_bc(has, out), out, torch.zeros_like(out))
+        return out
+    if reduce == "mean":
+        if valid is not None:
+            values_sorted = torch.where(
+                _bc(valid, values_sorted), values_sorted,
+                torch.zeros_like(values_sorted),
+            )
+        s = torch.zeros(shape, dtype=values_sorted.dtype,
+                        device=values_sorted.device)
+        s.index_add_(0, seg_ids, values_sorted)
+        ones = torch.ones(values_sorted.shape[:1], dtype=values_sorted.dtype,
+                          device=values_sorted.device)
+        if valid is not None:
+            ones = torch.where(valid, ones, torch.zeros_like(ones))
+        cnt = torch.zeros(num_segments, dtype=values_sorted.dtype,
+                          device=values_sorted.device)
+        cnt.index_add_(0, seg_ids, ones)
+        return s / _bc(torch.clamp(cnt, min=1), s)
+    raise ValueError(f"unsupported reduce {reduce!r}")
+
+
+def segment_first_position(
+    seg_ids: torch.Tensor, num_segments: int
+) -> torch.Tensor:
+    """First sorted position of each segment (its 'head'); n-1 for empty ones."""
+    n = seg_ids.shape[0]
+    pos = torch.arange(n, dtype=torch.int64, device=seg_ids.device)
+    out = torch.full((num_segments,), n - 1, dtype=torch.int64,
+                     device=seg_ids.device)
+    out.scatter_reduce_(0, seg_ids.long(), pos, "amin", include_self=True)
+    return out

@@ -1,0 +1,160 @@
+"""Submanifold sparse convolution as a neighbor gather plus one matmul.
+
+Port of `cdsegnet_tpu/ops/subm_conv.py`. Outputs exist only at input sites.
+The weight layout is ``(K, C_in, C_out)`` with K in `kernel_offsets` order;
+a missing neighbor (index N in the table) reads a zero row appended to the
+features, so no index ever falls outside the gathered tensor.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from cdsegnet_torch.models.structure import _parity_bits, _parity_select_tables
+
+
+def _gather_rows(feat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``feat[idx]`` where index ``len(feat)`` reads a zero row."""
+    padded = torch.cat([feat, feat.new_zeros((1,) + tuple(feat.shape[1:]))])
+    return padded[idx.reshape(-1)]
+
+
+def subm_conv_apply(
+    feat: torch.Tensor,
+    neighbor_idx: torch.Tensor,
+    weight: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Apply a submanifold conv.
+
+    Args:
+      feat: (N, C_in) features.
+      neighbor_idx: (N, K) int; value N marks missing neighbors.
+      weight: (K, C_in, C_out).
+      bias: optional (C_out,).
+
+    Returns:
+      (N, C_out) in ``feat.dtype`` (float32 accumulation).
+    """
+    n, c_in = feat.shape
+    k = neighbor_idx.shape[1]
+    if weight.shape[0] != k:
+        raise ValueError(f"weight taps {weight.shape[0]} != table width {k}")
+    g = _gather_rows(feat, neighbor_idx).reshape(n, k * c_in)
+    out = g @ weight.reshape(k * c_in, -1).to(feat.dtype)
+    if bias is not None:
+        out = out + bias.to(feat.dtype)
+    return out
+
+
+def _block_diagonal(weight_a, weight_b, dtype):
+    """(K, Ca, Coa), (K, Cb, Cob) -> (K, Ca+Cb, Coa+Cob) with zero
+    off-diagonal blocks."""
+    k, ca, coa = weight_a.shape
+    _, cb, cob = weight_b.shape
+    w = weight_a.new_zeros((k, ca + cb, coa + cob), dtype=dtype)
+    w[:, :ca, :coa] = weight_a.to(dtype)
+    w[:, ca:, coa:] = weight_b.to(dtype)
+    return w
+
+
+def dual_subm_conv_apply(
+    feat_a: torch.Tensor,
+    feat_b: torch.Tensor,
+    neighbor_idx: torch.Tensor,
+    weight_a: torch.Tensor,
+    weight_b: torch.Tensor,
+):
+    """Two submanifold convs over the SAME neighbor table with one gather:
+    concatenated channels and a block-diagonal weight."""
+    coa = weight_a.shape[2]
+    cat = torch.cat([feat_a, feat_b.to(feat_a.dtype)], dim=-1)
+    w = _block_diagonal(weight_a, weight_b, feat_a.dtype)
+    out = subm_conv_apply(cat, neighbor_idx, w)
+    return out[:, :coa], out[:, coa:]
+
+
+def _blocked_stem(cat, pb, row, nbr_rows, w_all, m):
+    """Gather + matmul core of the blocked conv: scatter features into an
+    (M+1, 8, C) cluster-member table (row M is the empty sentinel), gather
+    each point's R adjacent member rows, one matmul, then keep each point's
+    own parity slice of the 8 output groups."""
+    n, c = cat.shape
+    r = nbr_rows.shape[1]
+    co = w_all.shape[1] // 8
+    members = cat.new_zeros((m + 1, 8, c))
+    members[row, pb] = torch.where((row < m)[:, None], cat, torch.zeros_like(cat))
+    members[m] = 0  # re-arm the empty sentinel row
+    blocks = members.reshape(m + 1, 8 * c)[nbr_rows.reshape(-1)]
+    out_all = blocks.reshape(n, r * 8 * c) @ w_all
+    ar = torch.arange(n, device=cat.device)
+    return out_all.reshape(n, 8, co)[ar, pb]
+
+
+def blocked_subm_conv_apply(
+    feat: torch.Tensor,
+    weight: torch.Tensor,
+    *,
+    grid_coord: torch.Tensor,
+    mask: torch.Tensor,
+    parent_inverse: torch.Tensor,
+    child_nbr: torch.Tensor,
+) -> torch.Tensor:
+    """k5 (125-tap) submanifold conv via the stride-2 parity structure:
+    27 block-row gathers per point instead of 125 row gathers.
+
+    Exact under the same preconditions as the parity neighbor tables: no
+    pooled-level overflow and unique voxels per scene. Callers route
+    overflowed batches to the gather form.
+
+    Args:
+      feat: (N, C) features.
+      weight: (125, C, C_out), `kernel_offsets(5)` order.
+      grid_coord/mask: level-0 voxels.
+      parent_inverse: (N,) level-0 point -> level-1 cluster slot.
+      child_nbr: (M1, 27) the level-1 k3 table (missing = M1).
+    Returns: (N, C_out) in ``feat.dtype``.
+    """
+    sel = torch.as_tensor(_parity_select_tables(5), device=feat.device)
+    c, co = feat.shape[1], weight.shape[2]
+    m = child_nbr.shape[0]
+
+    pb = _parity_bits(grid_coord).long()
+    # overflow-cluster parents (slot m-1) and padding go to the trash row
+    row = torch.where(mask & (parent_inverse < m - 1), parent_inverse.long(), m)
+    nbr_rows = child_nbr[row.clamp(max=m - 1)].long()
+    nbr_rows = torch.where((row < m)[:, None], nbr_rows, m)  # (N, 27)
+
+    # parity-scatter the weight to the (216, C) block layout: slot
+    # sel[g, k] of parity class g holds kernel tap k
+    g_idx = torch.arange(8, device=feat.device).repeat_interleave(125)
+    k_idx = torch.arange(125, device=feat.device).repeat(8)
+    w_all = feat.new_zeros((216, c, 8, co))
+    w_all[sel.reshape(-1), :, g_idx, :] = weight.to(feat.dtype)[k_idx]
+    return _blocked_stem(feat, pb, row, nbr_rows,
+                         w_all.reshape(216 * c, 8 * co), m)
+
+
+def blocked_stem_apply(
+    feat_a: torch.Tensor,
+    feat_b: torch.Tensor,
+    weight_a: torch.Tensor,
+    weight_b: torch.Tensor,
+    *,
+    grid_coord: torch.Tensor,
+    mask: torch.Tensor,
+    parent_inverse: torch.Tensor,
+    child_nbr: torch.Tensor,
+):
+    """Dual-branch k5 stem via `blocked_subm_conv_apply`: concatenated
+    branch channels, block-diagonal weight, one shared block gather."""
+    coa = weight_a.shape[2]
+    cat = torch.cat([feat_a, feat_b.to(feat_a.dtype)], dim=-1)
+    w = _block_diagonal(weight_a, weight_b, cat.dtype)
+    out = blocked_subm_conv_apply(
+        cat, w, grid_coord=grid_coord, mask=mask,
+        parent_inverse=parent_inverse, child_nbr=child_nbr,
+    )
+    return out[:, :coa], out[:, coa:]

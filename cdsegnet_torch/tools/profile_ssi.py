@@ -1,0 +1,135 @@
+"""Profile CDSegNet single-step inference of the port on one GPU.
+
+Usage, from the root of a checkout::
+
+    python -m cdsegnet_torch.tools.profile_ssi --out DIR
+
+Builds the model of `configs/scannet/cdsegnet.py` (random weights from a
+seed) on the synthetic 104,448-point bench scene, then reports, for one SSI
+step:
+
+- host-clock times (median of 10 after 3 warm-ups, each ending in a
+  synchronize) of the geometry build alone, the forward on precomputed
+  geometry, and the whole step;
+- from `torch.profiler` over 3 steps: the device time per step summed over
+  all kernels, the device's idle share of the unprofiled step time, and the
+  device time by kernel family and by kernel.
+
+The full kernel table goes to ``<out>/profile_ssi.txt``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import runpy
+import statistics
+import subprocess
+import time
+
+import torch
+
+from cdsegnet_torch.models.builder import build_model
+from cdsegnet_torch.utils.synthetic import synthetic_point_batch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+NUM_POINTS = 104448  # the bench scene of the JAX package (bench.py)
+# kernel-name substrings -> family, first match wins
+FAMILIES = (
+    ("attention kernel", ("patch_attention_fwd",)),
+    ("sort", ("sort", "Sort", "radix", "Radix")),
+    ("matmul", ("gemm", "Gemm", "cutlass", "sm90_xmma", "cublas", "nvjet")),
+    ("gather/scatter", ("index", "Index", "gather", "Gather", "scatter", "Scatter")),
+    ("reduce", ("reduce", "Reduce")),
+)
+
+
+def family(name: str) -> str:
+    for fam, keys in FAMILIES:
+        if any(k in name for k in keys):
+            return fam
+    return "elementwise/other"
+
+
+def host_ms(fn, warmup: int = 3, iters: int = 10) -> float:
+    times = []
+    for i in range(warmup + iters):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        if i >= warmup:
+            times.append(time.perf_counter() - t0)
+    return statistics.median(times) * 1e3
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--out", required=True, help="directory for profile_ssi.txt")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_ssi needs a CUDA device")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
+
+    cfg = runpy.run_path(os.path.join(ROOT, "configs", "scannet", "cdsegnet.py"))["model"]
+    model = build_model(cfg, device="cuda", generator=torch.Generator().manual_seed(0))
+    point = synthetic_point_batch(NUM_POINTS, 1, depth=10, seed=0, device="cuda")
+    noise = torch.randn((NUM_POINTS, 6), device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(7))
+    n_valid = int(point.mask.sum().item())
+    geometry = model.backbone.precompute_geometry(point)
+
+    step = lambda: model.inference(point, noise=noise)
+    res = dict(
+        card=card, points=NUM_POINTS, n_valid=n_valid,
+        geometry_ms=host_ms(lambda: model.backbone.precompute_geometry(point)),
+        forward_ms=host_ms(lambda: model.inference(point, noise=noise,
+                                                   geometry=geometry)),
+        step_ms=host_ms(step),
+    )
+
+    steps = 3
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+
+    kernels = {}
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = evt.self_cuda_time_total
+        kernels[evt.key] = (us / 1e3 / steps, evt.count // steps)
+    device_ms = sum(ms for ms, _ in kernels.values())
+    fams = {}
+    for name, (ms, _) in kernels.items():
+        fams[family(name)] = fams.get(family(name), 0.0) + ms
+    # the profiler slows the host, not the kernels: the idle share is taken
+    # against the unprofiled step time, and also given under the profiler
+    res.update(profiled_wall_ms=wall_ms, device_ms=device_ms,
+               idle_share=max(0.0, 1.0 - device_ms / res["step_ms"]),
+               idle_share_profiled=max(0.0, 1.0 - device_ms / wall_ms),
+               kernel_launches=sum(c for _, c in kernels.values()),
+               families_ms=dict(sorted(fams.items(), key=lambda kv: -kv[1])))
+
+    os.makedirs(args.out, exist_ok=True)
+    ranked = sorted(kernels.items(), key=lambda kv: -kv[1][0])
+    with open(os.path.join(args.out, "profile_ssi.txt"), "w") as f:
+        f.write(f"{card}\n{json.dumps(res)}\n\nms/step  launches/step  family  kernel\n")
+        for name, (ms, cnt) in ranked:
+            f.write(f"{ms:9.4f}  {cnt:6d}  {family(name):18s}  {name}\n")
+    for name, (ms, cnt) in ranked[:15]:
+        print(f"profile kernel {ms:8.3f} ms  x{cnt:<5d} {family(name):18s} {name[:110]}")
+    print("profile " + json.dumps(res))
+
+
+if __name__ == "__main__":
+    main()

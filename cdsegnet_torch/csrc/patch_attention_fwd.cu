@@ -24,6 +24,11 @@
 // allowed key (only padding rows have none: a valid row always sees itself)
 // is written as zeros, so every output row is finite.
 //
+// Training passes `lse`, an f32 (N, H) array, and gets the row's natural
+// log-sum-exp of the scaled logits, (m + log2 l) * ln 2, from the running max
+// and sum; -inf on rows with no allowed key. The backward kernels
+// (patch_attention_bwd.cu) recompute p from it. Inference passes null.
+//
 // Plain C interface, loaded with ctypes; returns cudaGetLastError().
 
 #include <cuda_bf16.h>
@@ -35,6 +40,7 @@ namespace {
 constexpr int kQueryTile = 128;  // query rows per block, one per thread
 constexpr int kKeyTile = 64;     // keys per shared-memory tile
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ float load_f32(const float* p) { return __ldg(p); }
 __device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
@@ -51,8 +57,8 @@ patch_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v,
                            const int32_t* __restrict__ batch,
                            const uint8_t* __restrict__ valid,
-                           T* __restrict__ out, int heads, int patch,
-                           float scale_log2) {
+                           T* __restrict__ out, float* __restrict__ lse,
+                           int heads, int patch, float scale_log2) {
   __shared__ __align__(16) float k_tile[kKeyTile][D];
   __shared__ __align__(16) float v_tile[kKeyTile][D];
   __shared__ int32_t key_scene[kKeyTile];
@@ -155,50 +161,55 @@ patch_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     T* op = out + (qrow * heads + head) * D;
 #pragma unroll
     for (int e = 0; e < D; ++e) store_f32(op + e, acc[e] * inv);
+    if (lse != nullptr) {
+      lse[qrow * heads + head] = l > 0.f ? (m + log2f(l)) * kLn2 : -INFINITY;
+    }
   }
 }
 
 template <typename T, int D>
 void launch(const void* q, const void* k, const void* v, const void* batch,
-            const void* valid, void* out, int n, int heads, int patch,
-            float scale, cudaStream_t stream) {
+            const void* valid, void* out, float* lse, int n, int heads,
+            int patch, float scale, cudaStream_t stream) {
   const dim3 grid((patch + kQueryTile - 1) / kQueryTile, heads, n / patch);
   patch_attention_fwd_kernel<T, D><<<grid, kQueryTile, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int32_t*>(batch),
-      static_cast<const uint8_t*>(valid), static_cast<T*>(out), heads, patch,
-      scale * kLog2e);
+      static_cast<const uint8_t*>(valid), static_cast<T*>(out), lse, heads,
+      patch, scale * kLog2e);
 }
 
 }  // namespace
 
 // q, k, v, out: contiguous (n, heads, head_dim), float32 (is_bf16 = 0) or
 // bfloat16 (is_bf16 = 1). batch: int32 (n,) scene ids; valid: bool (n,).
-// n must be a positive multiple of patch; head_dim must be 16 or 32.
+// lse: null, or float32 (n, heads). n must be a positive multiple of patch;
+// head_dim must be 16 or 32.
 extern "C" int cdseg_patch_attention_fwd(const void* q, const void* k,
                                          const void* v, const void* batch,
-                                         const void* valid, void* out, int n,
-                                         int heads, int head_dim, int patch,
-                                         float scale, int is_bf16,
-                                         void* stream) {
+                                         const void* valid, void* out,
+                                         void* lse, int n, int heads,
+                                         int head_dim, int patch, float scale,
+                                         int is_bf16, void* stream) {
   if (n <= 0 || patch <= 0 || heads <= 0 || n % patch != 0 ||
       n / patch > 65535 || heads > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (is_bf16) {
     if (head_dim == 16) {
-      launch<__nv_bfloat16, 16>(q, k, v, batch, valid, out, n, heads, patch, scale, s);
+      launch<__nv_bfloat16, 16>(q, k, v, batch, valid, out, l, n, heads, patch, scale, s);
     } else if (head_dim == 32) {
-      launch<__nv_bfloat16, 32>(q, k, v, batch, valid, out, n, heads, patch, scale, s);
+      launch<__nv_bfloat16, 32>(q, k, v, batch, valid, out, l, n, heads, patch, scale, s);
     } else {
       return static_cast<int>(cudaErrorInvalidValue);
     }
   } else {
     if (head_dim == 16) {
-      launch<float, 16>(q, k, v, batch, valid, out, n, heads, patch, scale, s);
+      launch<float, 16>(q, k, v, batch, valid, out, l, n, heads, patch, scale, s);
     } else if (head_dim == 32) {
-      launch<float, 32>(q, k, v, batch, valid, out, n, heads, patch, scale, s);
+      launch<float, 32>(q, k, v, batch, valid, out, l, n, heads, patch, scale, s);
     } else {
       return static_cast<int>(cudaErrorInvalidValue);
     }

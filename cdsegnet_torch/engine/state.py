@@ -1,0 +1,64 @@
+"""The training step.
+
+Port of `make_train_step` in `cdsegnet_tpu/engine/state.py` for one device
+and one microbatch: forward in training mode, the loss, backward, then the
+optimizer update (keyword clip, AdamW with per-group schedules). The model
+and the optimizer hold the state that JAX's ``TrainState`` carries (the
+parameters and running statistics; the moments and the update count). Three
+generators, seeded once, take the place of the step's rng split: dropout
+and diffusion on the device, shuffle on the CPU. Microbatch accumulation
+and a device mesh are not ported and raise `NotImplementedError`.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional, Union
+
+import torch
+
+from cdsegnet_torch.engine.optimizer import KeywordAdamW
+from cdsegnet_torch.models.losses import Criteria
+from cdsegnet_torch.models.structure import PointBatch
+from cdsegnet_torch.utils.device import resolve_device
+
+
+def make_generators(seed: int, device: torch.device) -> Dict[str, torch.Generator]:
+    """The step's generators: ``dropout`` and ``diffusion`` on ``device``,
+    ``shuffle`` on the CPU, each seeded from ``seed``."""
+    return dict(dropout=torch.Generator(device).manual_seed(seed),
+                diffusion=torch.Generator(device).manual_seed(seed + 1),
+                shuffle=torch.Generator().manual_seed(seed + 2))
+
+
+def make_train_step(model: torch.nn.Module, criteria: Criteria,
+                    optimizer: KeywordAdamW, seed: int = 0,
+                    device: Optional[Union[str, torch.device]] = None,
+                    microbatch: int = 1, mesh=None) -> Callable[..., Dict]:
+    """The step ``step(point, **inject) -> metrics`` on ``device`` (the GPU
+    unless the caller names another; raises without one).
+
+    ``inject`` goes to the model's forward (``ts_scene``, ``noise``,
+    ``mse_valid`` replace the draws). The metrics are ``loss`` (a 0-d
+    tensor, detached), ``valid_points`` (a 0-d tensor) and ``dropped_l1``,
+    ..., one per pooled level: the valid points it lost to overflow.
+    """
+    device = resolve_device(device)
+    if microbatch != 1:
+        raise NotImplementedError("microbatch accumulation is not ported")
+    if mesh is not None:
+        raise NotImplementedError("a device mesh (data parallelism) is not ported")
+    generators = make_generators(seed, device)
+
+    def step(point: PointBatch, **inject) -> Dict:
+        model.train()
+        optimizer.zero_grad()
+        out = model(point, generators=generators, **inject)
+        loss = criteria(out, mode="train")
+        loss.backward()
+        optimizer.step()
+        metrics = dict(loss=loss.detach(), valid_points=point.mask.sum())
+        for i, d in enumerate(out["pyramid_dropped"]):
+            metrics[f"dropped_l{i + 1}"] = d
+        return metrics
+
+    return step

@@ -3,7 +3,8 @@
 Port of the `DefaultSegmentorV2`, `DefaultSegmentor` and `PT-v3m1` entries of
 `cdsegnet_tpu/models/builder.py`: reference-style config dicts (such as the
 ``model`` dict of `configs/scannet/cdsegnet.py`) map to module fields with
-the same kwarg translation.
+the same kwarg translation. `build_model_criteria` builds the losses named
+in the same dict.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from typing import Any, Dict, Optional, Union
 
 import torch
 
+from cdsegnet_torch.models.losses import Criteria, build_criteria
 from cdsegnet_torch.models.ptv3 import PointTransformerV3
 from cdsegnet_torch.models.segmentor import CNFSegmentor, PlainSegmentor
 from cdsegnet_torch.utils.device import resolve_device
@@ -74,6 +76,11 @@ def _build(cfg: Dict[str, Any]) -> torch.nn.Module:
     if kind == "DefaultSegmentorV2":
         backbone = _build(cfg.pop("backbone"))
         kwargs = {k: v for k, v in cfg.items() if k in _SEGMENTOR_KEYS}
+        # the reference puts batch_sample_point on MSELoss; the mask is drawn
+        # in the forward, so it is lifted from the criteria cfg
+        for loss_cfg in cfg.get("criteria", []) or []:
+            if loss_cfg.get("type") == "MSELoss" and "batch_sample_point" in loss_cfg:
+                kwargs["batch_sample_point"] = loss_cfg["batch_sample_point"]
         return CNFSegmentor(backbone=backbone, t_dim=cfg.get("T_dim", 128),
                             **kwargs)
     if kind == "DefaultSegmentor":
@@ -94,3 +101,10 @@ def build_model(cfg: Dict[str, Any],
         generator = torch.Generator().manual_seed(0)
     init_weights(model, generator)
     return model.to(device).eval()
+
+
+def build_model_criteria(cfg: Dict[str, Any]) -> Criteria:
+    """The losses of a model config dict: its ``criteria`` list combined by
+    ``loss_type`` ("EW" when absent) over ``task_num`` tasks."""
+    return build_criteria(cfg.get("criteria"), loss_type=cfg.get("loss_type", "EW"),
+                          task_num=cfg.get("task_num", 2))

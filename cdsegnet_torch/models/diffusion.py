@@ -1,7 +1,7 @@
 """Diffusion schedules and timestep embeddings.
 
 Port of the parts of `cdsegnet_tpu/models/diffusion.py` that single-step
-inference needs. Quirk preserved: the "cosine" schedule evaluates ``t =
+inference and the CNF training step need. Quirk preserved: the "cosine" schedule evaluates ``t =
 linspace(start, stop, T+1) / T`` with (start, stop) taken from the *beta*
 config values; CDSegNet configs use beta_start=0, beta_end=1000, so t spans
 [0, 1].
@@ -75,6 +75,13 @@ class DiffusionSchedule:
             snr = np.clip(snr, None, min_snr)
         f32 = lambda x: x.astype(np.float32)
         return cls(T, f32(betas), f32(alphas), f32(alpha_bar), f32(sigma), f32(snr))
+
+    def q_sample(self, x0: torch.Tensor, t: torch.Tensor,
+                 noise: torch.Tensor) -> torch.Tensor:
+        """x_t = sqrt(ab_t) x0 + sqrt(1 - ab_t) eps, per row of ``t``."""
+        ab = torch.as_tensor(self.alpha_bar, device=x0.device)[t.long()]
+        ab = ab.reshape(ab.shape + (1,) * (x0.dim() - ab.dim()))
+        return torch.sqrt(ab) * x0 + torch.sqrt(1.0 - ab) * noise
 
 
 def calc_t_emb(ts: torch.Tensor, t_emb_dim: int) -> torch.Tensor:

@@ -1,0 +1,195 @@
+"""Masked losses and the Criteria combiner (EW / GLS).
+
+Port of the parts of `cdsegnet_tpu/models/losses.py` that the CNF training
+step uses. Every loss takes explicit validity masks instead of boolean
+indexing, as in JAX, so shapes stay static. GLS for CDSegNet is
+``loss = sqrt(MSE * (CE + Lovasz))`` with task_num=2.
+
+Loss kinds no CDSegNet config uses (focal, binary focal, dice, CAC
+distillation, D3PM KL, PointGroup offsets) are not ported: `Criteria` raises
+`NotImplementedError` for them.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+
+def masked_mean(x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    v = valid.to(x.dtype)
+    v = v.reshape(v.shape + (1,) * (x.dim() - v.dim()))
+    return (x * v).sum() / torch.clamp(v.sum() * (x.numel() // v.numel()), min=1.0)
+
+
+def mse_loss(pred: torch.Tensor, target: torch.Tensor, valid: torch.Tensor,
+             snr_weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Masked MSE on the noise branch; ``valid`` encodes ``ignore_index``
+    and padding."""
+    err = (pred.float() - target.float()).square()
+    if snr_weight is not None:
+        err = err * snr_weight[:, None].float()
+    return masked_mean(err, valid)
+
+
+def cross_entropy_loss(logits: torch.Tensor, target: torch.Tensor,
+                       valid: torch.Tensor, label_smoothing: float = 0.0,
+                       weight=None) -> torch.Tensor:
+    """Masked CE, mean over valid points (weighted mean with ``weight``)."""
+    num_classes = logits.shape[-1]
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    tgt = target.long().clamp(0, num_classes - 1)
+    if label_smoothing > 0.0:
+        onehot = F.one_hot(tgt, num_classes).float()
+        onehot = onehot * (1 - label_smoothing) + label_smoothing / num_classes
+        nll = -(onehot * logp).sum(-1)
+    else:
+        nll = -logp.gather(1, tgt[:, None])[:, 0]
+    if weight is not None:
+        w = torch.as_tensor(weight, dtype=torch.float32, device=logits.device)[tgt]
+        v = valid.float()
+        return (nll * w * v).sum() / torch.clamp((w * v).sum(), min=1e-8)
+    return masked_mean(nll, valid)
+
+
+def _lovasz_grad_masked(fg_sorted: torch.Tensor,
+                        valid_sorted: torch.Tensor) -> torch.Tensor:
+    """Jaccard-extension gradient along the last axis, with invalid rows
+    excluded from the cumulative union."""
+    gts = fg_sorted.sum(-1, keepdim=True)
+    inter = gts - torch.cumsum(fg_sorted, -1)
+    union = gts + torch.cumsum(valid_sorted * (1.0 - fg_sorted), -1)
+    jacc = 1.0 - inter / torch.clamp(union, min=1e-8)
+    return torch.cat([jacc[..., :1], jacc[..., 1:] - jacc[..., :-1]], -1)
+
+
+def lovasz_softmax_loss(logits: torch.Tensor, target: torch.Tensor,
+                        valid: torch.Tensor) -> torch.Tensor:
+    """Masked multiclass Lovasz-Softmax over the classes present. All
+    classes at once (JAX maps over them); errors are sorted in descending
+    order, stably, as JAX's ``argsort(-errors)`` does."""
+    num_classes = logits.shape[-1]
+    probas = torch.softmax(logits.float(), dim=-1)
+    v = valid.float()
+    classes = torch.arange(num_classes, device=logits.device)
+    fg = (target[None, :] == classes[:, None]).float() * v  # (C, N)
+    errors = (fg - probas.t()).abs() * v  # invalid rows contribute 0
+    err_s, order = torch.sort(errors, dim=-1, descending=True, stable=True)
+    grad = _lovasz_grad_masked(fg.gather(1, order), v[order])
+    losses = (err_s * grad).sum(-1)
+    present = (fg.sum(-1) > 0).float()
+    return (losses * present).sum() / torch.clamp(present.sum(), min=1.0)
+
+
+def subsample_valid(valid: torch.Tensor, batch: torch.Tensor, num_scenes: int,
+                    per_scene: int,
+                    generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Keep about ``per_scene`` valid points per scene: Bernoulli thinning
+    at rate per_scene / count, with uniforms drawn from ``generator`` (on
+    ``valid``'s device)."""
+    scene = batch.long().clamp(0, num_scenes - 1)
+    cnt = torch.zeros(num_scenes, dtype=torch.float32, device=valid.device)
+    cnt.index_add_(0, scene, valid.float())
+    rate = torch.clamp(per_scene / torch.clamp(cnt, min=1.0), 0.0, 1.0)
+    u = torch.rand(valid.shape, generator=generator, device=valid.device)
+    return valid & (u < rate[scene])
+
+
+# cfg keys each loss type accepts; anything else is a config error (a silently
+# dropped `ignore_index=`/`mode=` kwarg would mask a typo'd recipe)
+_ALLOWED_KEYS = {
+    "MSELoss": {"type", "loss_weight", "pred", "target", "valid",
+                "batch_sample_point", "ignore_index"},
+    "CrossEntropyLoss": {"type", "loss_weight", "pred", "target",
+                         "label_smoothing", "weight", "ignore_index"},
+    "LovaszLoss": {"type", "loss_weight", "pred", "target", "mode",
+                   "ignore_index"},
+    "FocalLoss": {"type", "loss_weight", "gamma", "alpha", "ignore_index"},
+    "SmoothCELoss": {"type", "loss_weight", "smoothing_ratio"},
+    "BinaryFocalLoss": {"type", "loss_weight", "gamma", "alpha"},
+    "DiceLoss": {"type", "loss_weight", "smooth", "exponent", "ignore_index"},
+    "D3PMKLLoss": {"type", "loss_weight", "pred", "target"},
+    "CACDistillLoss": {"type", "loss_weight", "pred", "soft", "smoothness",
+                       "eps"},
+    "OffsetL1Loss": {"type", "loss_weight"},
+    "OffsetCosineLoss": {"type", "loss_weight"},
+}
+_PORTED = ("MSELoss", "CrossEntropyLoss", "LovaszLoss", "SmoothCELoss")
+
+
+class Criteria:
+    """Loss combiner. ``loss_type``: "EW" sums the terms; "GLS" (train
+    only) computes ``(MSE * (CE + Lovasz)) ** (1 / task_num)``.
+
+    Each loss cfg may override the output-dict keys it reads with ``pred=``
+    and ``target=``; a loss whose pred key is absent contributes nothing.
+    """
+
+    def __init__(self, loss_cfgs=None, loss_type: str = "EW", task_num: int = 2):
+        self.loss_cfgs = loss_cfgs or []
+        self.loss_type = loss_type
+        self.task_num = task_num
+        for cfg in self.loss_cfgs:
+            kind = cfg["type"]
+            if kind not in _ALLOWED_KEYS:
+                raise NotImplementedError(kind)
+            unknown = set(cfg) - _ALLOWED_KEYS[kind]
+            if unknown:
+                raise ValueError(
+                    f"{kind}: unknown config keys {sorted(unknown)} "
+                    f"(allowed: {sorted(_ALLOWED_KEYS[kind])})")
+            if kind not in _PORTED:
+                raise NotImplementedError(f"{kind} is not ported")
+
+    def _terms(self, out: Dict[str, torch.Tensor]):
+        terms = []
+        for cfg in self.loss_cfgs:
+            kind = cfg["type"]
+            w = cfg.get("loss_weight", 1.0)
+            if kind == "MSELoss":
+                pk = cfg.get("pred", "c_pred")
+                if pk not in out:
+                    continue
+                valid = out.get(cfg.get("valid", "mse_valid"), out["seg_valid"])
+                terms.append(w * mse_loss(out[pk], out[cfg.get("target", "c_target")],
+                                          valid, out.get("snr_loss_weight")))
+            elif kind in ("CrossEntropyLoss", "SmoothCELoss"):
+                pk = cfg.get("pred", "n_pred")
+                if pk not in out:
+                    continue
+                smoothing = (cfg.get("label_smoothing", 0.0) if kind == "CrossEntropyLoss"
+                             else cfg.get("smoothing_ratio", 0.1))
+                terms.append(w * cross_entropy_loss(
+                    out[pk], out[cfg.get("target", "n_target")], out["seg_valid"],
+                    label_smoothing=smoothing, weight=cfg.get("weight")))
+            else:  # LovaszLoss
+                pk = cfg.get("pred", "n_pred")
+                if pk not in out:
+                    continue
+                terms.append(w * lovasz_softmax_loss(
+                    out[pk], out[cfg.get("target", "n_target")], out["seg_valid"]))
+        return terms
+
+    def __call__(self, out: Dict[str, torch.Tensor], mode: str = "train"):
+        terms = self._terms(out)
+        if not terms:
+            if "loss" in out:
+                return out["loss"]
+            return torch.zeros((), dtype=torch.float32)
+        if mode == "eval" or self.loss_type == "EW":
+            return sum(terms)
+        if self.loss_type == "GLS":
+            if self.task_num == 1 and len(terms) >= 2:
+                loss = terms[0] + terms[1]
+            elif self.task_num == 2 and len(terms) == 3:
+                loss = terms[0] * (terms[1] + terms[2])  # MSE * (CE + Lovasz)
+            else:
+                loss = torch.prod(torch.stack(terms))
+            return torch.pow(torch.clamp(loss, min=1e-12), 1.0 / self.task_num)
+        raise ValueError(self.loss_type)
+
+
+def build_criteria(cfg, loss_type: str = "EW", task_num: int = 2) -> Criteria:
+    return Criteria(cfg, loss_type=loss_type, task_num=task_num)

@@ -34,13 +34,21 @@ class Dense(nn.Linear):
 
 
 class MaskedBatchNorm(nn.Module):
-    """BatchNorm over valid points (torch ``BatchNorm1d(eps=1e-3)``
-    semantics). Inference only: normalizes with the running statistics."""
+    """BatchNorm over valid points only, with running statistics (torch
+    ``BatchNorm1d(eps=1e-3, momentum=0.01)`` semantics).
 
-    def __init__(self, features: int, eps: float = 1e-3,
+    In training mode it normalizes with the float32 batch statistics of the
+    rows where ``mask`` is set, and updates the running statistics once per
+    call, without grad: ``running = (1 - momentum) * running + momentum *
+    batch_stat``, with the unbiased variance ``var * cnt / max(cnt - 1, 1)``.
+    In eval mode it normalizes with the running statistics.
+    """
+
+    def __init__(self, features: int, eps: float = 1e-3, momentum: float = 0.01,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.dtype = dtype
         self.scale = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
@@ -48,11 +56,19 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(features))
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        del mask  # only the batch statistics of training mode read it
+        xf = x.float()
         if self.training:
-            raise NotImplementedError(
-                "MaskedBatchNorm batch statistics come with the training port")
-        y = (x.float() - self.mean) * torch.rsqrt(self.var + self.eps)
+            m = mask.float()[:, None]
+            cnt = torch.clamp(m.sum(), min=1.0)
+            mean = (xf * m).sum(0) / cnt
+            var = ((xf - mean).square() * m).sum(0) / cnt
+            with torch.no_grad():
+                unbiased = var * cnt / torch.clamp(cnt - 1.0, min=1.0)
+                self.mean.mul_(1 - self.momentum).add_(self.momentum * mean)
+                self.var.mul_(1 - self.momentum).add_(self.momentum * unbiased)
+        else:
+            mean, var = self.mean, self.var
+        y = (xf - mean) * torch.rsqrt(var + self.eps)
         return (y * self.scale + self.bias).to(self.dtype)
 
 
@@ -88,14 +104,18 @@ class Mlp(nn.Module):
 
 def drop_path(x: torch.Tensor, rate: float, deterministic: bool = True,
               generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """Per-point stochastic depth; the identity when ``deterministic``."""
+    """Per-point stochastic depth; the identity when ``deterministic`` or at
+    rate 0. The keep mask is drawn from ``generator`` (on ``x``'s device)."""
     if deterministic or rate == 0.0:
         return x
     if generator is None:
         raise ValueError("stochastic depth needs an explicit torch.Generator")
-    keep = 1.0 - rate
-    m = torch.rand((x.shape[0], 1), generator=generator, device=x.device) < keep
-    return torch.where(m, x / keep, torch.zeros_like(x))
+    # the keep probability in float32, rounded to x's dtype for the rescale,
+    # as in JAX (host scalars: nothing is copied to the device)
+    keep = torch.tensor(1.0, dtype=torch.float32) - rate
+    m = torch.rand((x.shape[0], 1), generator=generator, device=x.device) < keep.item()
+    return torch.where(m, x / keep.to(x.dtype).item(),
+                       torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def swish(x: torch.Tensor) -> torch.Tensor:

@@ -7,6 +7,11 @@ xCPE and stem as submanifold convs over per-level neighbor tables, and the
 flax names (``n_enc0_block0``, ``tm_dec0``, ...) so that checkpoints map by
 name (`cdsegnet_torch.utils.weights`).
 
+In training mode (``nn.Module.train()``) the norms take batch statistics,
+stochastic depth draws its masks from an explicit dropout generator, and the
+pyramid's curves are shuffled with permutations drawn from a shuffle
+generator, as the JAX module does with its ``dropout`` and ``shuffle`` rngs.
+
 Layout knobs of the JAX module that only reschedule the same computation
 (``scan_blocks``, ``fuse_dual_gathers``, ``remat_*``, ``pad_narrow_gathers``)
 are accepted and ignored. The paths not ported yet raise
@@ -108,16 +113,18 @@ class Block(nn.Module):
         self.mlp = Mlp(c, int(c * mlp_ratio), c, dtype=dtype)
 
     def forward(self, feat: torch.Tensor, point: PointBatch,
-                t_emb: Optional[torch.Tensor] = None) -> torch.Tensor:
+                t_emb: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``generator`` draws the stochastic-depth masks in training."""
         det = not self.training
         f = self.cpe_norm(self.cpe_fc(self.cpe_conv(feat, point.neighbor_idx)))
         feat = feat + f
         if self.t_mlp is not None and t_emb is not None:
             feat = feat + self.t_mlp(t_emb)
         f = self.attn(self.norm1(feat), point)
-        feat = feat + drop_path(f, self.drop_path_rate, det)
+        feat = feat + drop_path(f, self.drop_path_rate, det, generator)
         f = self.mlp(self.norm2(feat))
-        return feat + drop_path(f, self.drop_path_rate, det)
+        return feat + drop_path(f, self.drop_path_rate, det, generator)
 
 
 class Embedding(nn.Module):
@@ -284,7 +291,8 @@ class CrossBlock(nn.Module):
         self.q_norm2 = LayerNorm(qc, dtype=dtype)
         self.mlp = Mlp(qc, int(qc * mlp_ratio), qc, dtype=dtype)
 
-    def forward(self, q_feat, q_point: PointBatch, kv_feat, kv_point: PointBatch):
+    def forward(self, q_feat, q_point: PointBatch, kv_feat, kv_point: PointBatch,
+                generator: Optional[torch.Generator] = None):
         det = not self.training
         q_short = q_feat + self.q_cpe_norm(self.q_cpe_fc(
             self.q_cpe_conv(q_feat, q_point.neighbor_idx)))
@@ -292,9 +300,10 @@ class CrossBlock(nn.Module):
             self.kv_cpe_conv(kv_feat, kv_point.neighbor_idx)))
         kn = self.kv_norm1(kv_feat)
         a = self.attn(self.q_norm1(q_short), q_point, kn, kv_point)
-        q_feat = q_short + self.tm_feat * drop_path(a, self.drop_path_rate, det)
+        q_feat = q_short + self.tm_feat * drop_path(a, self.drop_path_rate, det,
+                                                    generator)
         f = self.mlp(self.q_norm2(q_feat))
-        q_feat = q_feat + drop_path(f, self.drop_path_rate, det)
+        q_feat = q_feat + drop_path(f, self.drop_path_rate, det, generator)
         # the kv branch leaves with its xCPE and norm1 applied, as the
         # reference mutates it in place
         return q_feat, kn
@@ -310,8 +319,9 @@ class TransferModule(nn.Module):
         self.cross_block2 = CrossBlock(q_channels, kv_channels, q_num_heads,
                                        patch_size, **kw)
 
-    def forward(self, c_feat, c_point, n_feat, n_point):
-        n_feat, c_feat = self.cross_block2(n_feat, n_point, c_feat, c_point)
+    def forward(self, c_feat, c_point, n_feat, n_point, generator=None):
+        n_feat, c_feat = self.cross_block2(n_feat, n_point, c_feat, c_point,
+                                           generator)
         return c_feat, n_feat
 
 
@@ -398,11 +408,10 @@ class PointTransformerV3(nn.Module):
         if xcpe_mode != "gather":
             raise NotImplementedError(f"xcpe_mode={xcpe_mode!r} is not ported")
         if proj_drop != 0.0:
-            raise NotImplementedError("proj_drop (dropout) is a training path")
+            raise NotImplementedError("proj_drop (dropout) is not ported")
         if len(n_enc_depths) != len(n_stride) + 1:
             raise ValueError("n_enc_depths needs one more stage than n_stride")
-        # shuffle_orders permutes curves only in training
-        del shuffle_orders
+        self.shuffle_orders = shuffle_orders  # permutes curves in training
         self.orders = tuple(orders)
         self.n_stride, self.c_stride = tuple(n_stride), tuple(c_stride)
         self.n_enc_depths, self.c_enc_depths = tuple(n_enc_depths), tuple(c_enc_depths)
@@ -492,31 +501,49 @@ class PointTransformerV3(nn.Module):
                        patch_size=c_dec_patch_size[s], t_dim=t_dim)
             self.c_head = Dense(c_dec_ch[0], c_in_channels)
 
-    def precompute_geometry(self, point: PointBatch, exactness: str = "cond"):
+    def precompute_geometry(self, point: PointBatch, exactness: str = "cond",
+                            perms=None):
         """``(levels, stem_nbr)``: the geometry pyramid, a function of the
-        point coordinates alone (see `pyramid.build_pyramid`)."""
+        point coordinates alone (see `pyramid.build_pyramid`); ``perms``
+        shuffles each level's curves (`shuffle_perms`)."""
         n0 = point.num_points
         patch = max(self.n_enc_patch_size)
         caps = [pyr.round_up(max(n0 // d, patch), patch)
                 for d in self.capacity_div[1:]]
         return pyr.build_pyramid(point, strides=self.n_stride, capacities=caps,
                                  orders=self.orders, stem_kernel=5,
-                                 exactness=exactness)
+                                 exactness=exactness, perms=perms)
 
-    def _blocks(self, name, depth, feat, point, t_emb=None):
+    def shuffle_perms(self, generator: Optional[torch.Generator]):
+        """One permutation of the curves per pyramid level, drawn from
+        ``generator`` (a CPU generator), when training with
+        ``shuffle_orders``; None (no shuffle) otherwise or without a
+        generator, as JAX shuffles only when it has a ``shuffle`` rng."""
+        if not (self.training and self.shuffle_orders) or generator is None:
+            return None
+        return [torch.randperm(len(self.orders), generator=generator).tolist()
+                for _ in range(len(self.n_stride) + 1)]
+
+    def _blocks(self, name, depth, feat, point, t_emb=None, generator=None):
         for i in range(depth):
-            feat = getattr(self, f"{name}{i}")(feat, point, t_emb)
+            feat = getattr(self, f"{name}{i}")(feat, point, t_emb, generator)
         return feat
 
     def forward(self, n_point: PointBatch, c_feat: Optional[torch.Tensor] = None,
                 t_emb: Optional[torch.Tensor] = None, geometry=None,
-                return_c: bool = True):
+                return_c: bool = True,
+                generator: Optional[torch.Generator] = None,
+                shuffle_generator: Optional[torch.Generator] = None):
         """Returns ``(c_out, n_logits)`` with the c-branch (``c_out`` is None
         when ``return_c`` is False: the c-decoder is skipped), or
         ``n_logits`` alone without it. ``geometry`` optionally supplies a
-        precomputed ``(levels, stem_nbr)``."""
+        precomputed ``(levels, stem_nbr)``; otherwise it is built here, with
+        its curves shuffled from ``shuffle_generator`` in training. In
+        training, ``generator`` (on the features' device) draws the
+        stochastic-depth masks."""
         levels, stem_nbr = (geometry if geometry is not None
-                            else self.precompute_geometry(n_point))
+                            else self.precompute_geometry(
+                                n_point, perms=self.shuffle_perms(shuffle_generator)))
 
         t = None
         if self.condition and self.t_dim != -1 and t_emb is not None:
@@ -547,7 +574,7 @@ class PointTransformerV3(nn.Module):
                 n_feat = getattr(self, f"n_enc{s}_down")(
                     n_feat, levels, lo, hi, levels[hi].point.mask)
             n_feat = self._blocks(f"n_enc{s}_block", depth, n_feat,
-                                  levels[self.n_shifts[s]].point)
+                                  levels[self.n_shifts[s]].point, generator=generator)
             if s < len(self.n_enc_depths) - 1:
                 n_skips.append(n_feat)
 
@@ -564,13 +591,13 @@ class PointTransformerV3(nn.Module):
                         for lv in range(lo + 1, hi + 1):
                             c_t = pyr.pool_head_gather(c_t, levels[lv])
                 c_feat = self._blocks(f"c_enc{s}_block", depth, c_feat,
-                                      levels[self.c_shifts[s]].point, c_t)
+                                      levels[self.c_shifts[s]].point, c_t, generator)
                 if s < len(self.c_enc_depths) - 1:
                     c_skips.append(c_feat)
             # ---- transfer module at the bottleneck ----
             c_feat, n_feat = self.tm_dec0(
                 c_feat, levels[self.c_shifts[-1]].point,
-                n_feat, levels[self.n_shifts[-1]].point)
+                n_feat, levels[self.n_shifts[-1]].point, generator)
 
         # ---- n decoder ----
         for s in reversed(range(len(self.n_enc_depths) - 1)):
@@ -578,7 +605,7 @@ class PointTransformerV3(nn.Module):
             n_feat = getattr(self, f"n_dec{s}_up")(
                 n_feat, n_skips[s], levels, hi, lo, levels[lo].point.mask)
             n_feat = self._blocks(f"n_dec{s}_block", self.n_dec_depths[s],
-                                  n_feat, levels[lo].point)
+                                  n_feat, levels[lo].point, generator=generator)
         n_logits = self.n_head(n_feat.float())
         if not self.condition:
             return n_logits
@@ -596,5 +623,5 @@ class PointTransformerV3(nn.Module):
                 for lv in range(1, lo + 1):
                     c_t = pyr.pool_head_gather(c_t, levels[lv])
             c_feat = self._blocks(f"c_dec{s}_block", self.c_dec_depths[s],
-                                  c_feat, levels[lo].point, c_t)
+                                  c_feat, levels[lo].point, c_t, generator)
         return self.c_head(c_feat.float()), n_logits

@@ -56,17 +56,20 @@ def round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
-def build_level0(point: PointBatch, orders: Tuple[str, ...]) -> Level:
-    """Level 0: the serialized input points (neighbor tables come later,
-    from `build_pyramid`)."""
-    return Level(point=serialize(point, orders=orders))
+def build_level0(point: PointBatch, orders: Tuple[str, ...],
+                 perm: Optional[Sequence[int]] = None) -> Level:
+    """Level 0: the serialized input points, curves shuffled by ``perm``
+    (neighbor tables come later, from `build_pyramid`)."""
+    return Level(point=serialize(point, orders=orders, perm=perm))
 
 
-def build_pooled_level(parent: Level, stride: int, capacity: int) -> Level:
+def build_pooled_level(parent: Level, stride: int, capacity: int,
+                       perm: Optional[Sequence[int]] = None) -> Level:
     """Derive the coarse level geometry from ``parent`` (no features): cluster
-    by the first order's code right-shifted 3*log2(stride) bits, take head
-    grid coords and mean coords, re-serialize at reduced depth on the
-    parent's curves. Neighbor tables come later, from `build_pyramid`."""
+    by the first (possibly shuffled) order's code right-shifted
+    3*log2(stride) bits, take head grid coords and mean coords, re-serialize
+    at reduced depth on the parent's curves, then shuffle those by ``perm``.
+    Neighbor tables come later, from `build_pyramid`."""
     pd = (stride - 1).bit_length()  # log2(stride)
     pp = parent.point
     mp = pp.num_points
@@ -109,6 +112,10 @@ def build_pooled_level(parent: Level, stride: int, capacity: int) -> Level:
     order = torch.cat([iota_m[None], order_t])
     inverse = torch.cat([iota_m[None], _inverse(order_t)])
     codes_sorted = torch.cat([codes[:1], cs_t])
+    if perm is not None:
+        perm = list(perm)
+        codes, order, inverse, codes_sorted = (
+            codes[perm], order[perm], inverse[perm], codes_sorted[perm])
 
     child = PointBatch(
         coord=coord,
@@ -174,6 +181,7 @@ def build_pyramid(
     orders: Tuple[str, ...],
     stem_kernel: int = 5,
     exactness: str = "cond",
+    perms: Optional[Sequence[Sequence[int]]] = None,
 ) -> Tuple[List[Level], torch.Tensor]:
     """Full geometry pyramid and the level-0 stem neighbor table.
 
@@ -186,12 +194,20 @@ def build_pyramid(
     when nothing dropped and the sorted builds otherwise; ``"parity"`` and
     ``"sorted"`` force one side. After the build every pooled level's
     ``dropped`` is a Python int.
+
+    ``perms`` (training's curve shuffle) gives one permutation of the orders
+    per level, level 0 first, as JAX's ``jax.random.permutation`` of
+    ``jax.random.split(shuffle_key, len(strides) + 1)[i]`` does.
     """
     if exactness not in ("cond", "parity", "sorted"):
         raise ValueError(f"unknown exactness {exactness!r}")
-    levels = [build_level0(point, orders)]
-    for s, cap in zip(strides, capacities):
-        levels.append(build_pooled_level(levels[-1], s, cap))
+    if perms is None:
+        perms = [None] * (len(strides) + 1)
+    elif len(perms) != len(strides) + 1:
+        raise ValueError(f"need {len(strides) + 1} permutations, got {len(perms)}")
+    levels = [build_level0(point, orders, perms[0])]
+    for s, cap, perm in zip(strides, capacities, perms[1:]):
+        levels.append(build_pooled_level(levels[-1], s, cap, perm))
     n_pool = len(levels) - 1
     if n_pool:
         drops = torch.stack([lv.dropped for lv in levels[1:]]).tolist()
@@ -231,7 +247,9 @@ def pool_features(feat: torch.Tensor, level: Level, reduce: str = "max") -> torc
 
 def pool_head_gather(x: torch.Tensor, level: Level) -> torch.Tensor:
     """Gather a parent per-point array at each cluster's head (e.g. t_emb)."""
-    out = x[level.parent_head]
+    # index_select: its backward scatters with index_add_, so the many empty
+    # slots that share one head index do not form a serial run
+    out = x.index_select(0, level.parent_head)
     return torch.where(level.point.mask[:, None], out, torch.zeros_like(out))
 
 
@@ -239,4 +257,4 @@ def unpool_features(feat: torch.Tensor, level: Level) -> torch.Tensor:
     """Broadcast level features (M, C) back to parent points (Mp, C); the
     overflow/trash slot is zeroed so dropped points receive no signal."""
     safe = torch.where(level.point.mask[:, None], feat, torch.zeros_like(feat))
-    return safe[level.parent_inverse]
+    return safe.index_select(0, level.parent_inverse)  # many-to-one, as above

@@ -1,9 +1,18 @@
 """Segmentor wrappers: plain PTv3 and the CNF (CDSegNet) diffusion wrapper.
 
-Port of `cdsegnet_tpu/models/segmentor.py`, inference only. SSI (single-step
-inference) feeds the c-branch N(0, 1) noise at t = T-1, runs one forward
-pass and reads the n-branch logits; the c-decoder is skipped because SSI
-never reads its output.
+Port of `cdsegnet_tpu/models/segmentor.py`: the training forward and SSI.
+SSI (single-step inference) feeds the c-branch N(0, 1) noise at t = T-1,
+runs one forward pass and reads the n-branch logits; the c-decoder is
+skipped because SSI never reads its output. The training forward
+(`CNFSegmentor.forward`) draws one timestep per scene, noises the c-branch
+input with `DiffusionSchedule.q_sample` and returns the predictions and
+targets that `models.losses.Criteria` reads.
+
+Randomness comes from explicit generators, a dict with the keys of the JAX
+rngs: ``"dropout"`` (stochastic depth) and ``"diffusion"`` (MSE subsampling,
+timesteps, noise) on the data's device, and ``"shuffle"`` (curve order
+permutations) on the CPU. Tests inject the draws instead (``ts_scene``,
+``noise``, ``mse_valid``).
 """
 
 from __future__ import annotations
@@ -14,7 +23,10 @@ import torch
 from torch import nn
 
 from cdsegnet_torch.models.diffusion import DiffusionSchedule, calc_t_emb
+from cdsegnet_torch.models.losses import subsample_valid
 from cdsegnet_torch.models.structure import PointBatch
+
+Generators = Optional[Dict[str, torch.Generator]]
 
 
 def _seg_valid(point: PointBatch) -> torch.Tensor:
@@ -30,9 +42,12 @@ class PlainSegmentor(nn.Module):
         super().__init__()
         self.backbone = backbone
 
-    @torch.no_grad()
-    def forward(self, point: PointBatch, geometry=None) -> Dict[str, Any]:
-        return dict(n_pred=self.backbone(point, geometry=geometry),
+    def forward(self, point: PointBatch, geometry=None,
+                generators: Generators = None) -> Dict[str, Any]:
+        gens = generators or {}
+        return dict(n_pred=self.backbone(point, geometry=geometry,
+                                         generator=gens.get("dropout"),
+                                         shuffle_generator=gens.get("shuffle")),
                     n_target=point.segment, seg_valid=_seg_valid(point))
 
 
@@ -44,7 +59,7 @@ class CNFSegmentor(nn.Module):
                  noise_schedule: str = "cosine", t_dim: int = 128,
                  dm: bool = True, dm_input: str = "xt", dm_target: str = "noise",
                  dm_min_snr: Optional[float] = None, condition: bool = True,
-                 c_in_channels: int = 6):
+                 c_in_channels: int = 6, batch_sample_point: int = 8192):
         super().__init__()
         self.backbone = backbone
         self.num_classes = num_classes
@@ -54,7 +69,10 @@ class CNFSegmentor(nn.Module):
         self.dm_input = dm_input
         self.dm_target = dm_target
         self.condition = condition
+        self.dm_min_snr = dm_min_snr
         self.c_in_channels = c_in_channels
+        # per-scene random MSE subsampling; <= 0 disables
+        self.batch_sample_point = batch_sample_point
         self.schedule = (DiffusionSchedule.create(noise_schedule, beta_start,
                                                   beta_end, T, dm_min_snr)
                          if dm else None)
@@ -69,6 +87,65 @@ class CNFSegmentor(nn.Module):
         """Broadcast per-scene step embeddings to points (pads clipped)."""
         emb = calc_t_emb(ts_scene, self.t_dim)
         return emb[batch.clamp(0, ts_scene.shape[0] - 1)]
+
+    def forward(self, point: PointBatch, generators: Generators = None,
+                ts_scene: Optional[torch.Tensor] = None,
+                noise: Optional[torch.Tensor] = None,
+                mse_valid: Optional[torch.Tensor] = None) -> Dict[str, Any]:
+        """The training forward (``model.train()``; in eval mode the norms
+        use running statistics and the MSE mask is not drawn).
+
+        ``ts_scene`` (num_scenes,) int, ``noise`` (N, C) and ``mse_valid``
+        (N,) bool replace the draws from ``generators``. Returns the dict
+        that `Criteria` reads, plus ``pyramid_dropped``: the number of valid
+        points each pooled level lost to overflow.
+        """
+        gens = generators or {}
+        train = self.training
+        bb = self.backbone
+        levels, stem_nbr = bb.precompute_geometry(
+            point, perms=bb.shuffle_perms(gens.get("shuffle")))
+        out: Dict[str, Any] = dict(
+            pyramid_dropped=[int(lv.dropped) for lv in levels[1:]])
+        seg_valid = _seg_valid(point)
+        if not self.condition:
+            out.update(n_pred=bb(point, geometry=(levels, stem_nbr),
+                                 generator=gens.get("dropout")),
+                       n_target=point.segment, seg_valid=seg_valid)
+            return out
+
+        c_x0 = self._c_x0(point)
+        c_target = c_x0
+        c_feat = c_x0
+        t_emb = None
+        if train and self.batch_sample_point > 0:
+            out["mse_valid"] = (mse_valid if mse_valid is not None else subsample_valid(
+                seg_valid, point.batch, point.num_scenes, self.batch_sample_point,
+                gens.get("diffusion")))
+        if self.dm:
+            dev = c_x0.device
+            if ts_scene is None:
+                ts_scene = torch.randint(0, self.T, (point.num_scenes,),
+                                         generator=gens.get("diffusion"), device=dev)
+            ts_scene = ts_scene.to(device=dev, dtype=torch.int32)
+            ts_pt = ts_scene[point.batch.long().clamp(0, point.num_scenes - 1)]
+            if self.t_dim != -1:
+                t_emb = self._scene_t_emb(ts_scene, point.batch)
+            if noise is None:
+                noise = torch.randn(c_x0.shape, generator=gens.get("diffusion"),
+                                    dtype=torch.float32, device=dev)
+            c_feat = self.schedule.q_sample(c_x0, ts_pt, noise)
+            if self.dm_target == "noise":
+                c_target = noise
+            if self.dm_min_snr is not None:
+                out["snr_loss_weight"] = torch.as_tensor(
+                    self.schedule.snr, device=dev)[ts_pt.long()]
+
+        c_out, n_logits = bb(point, c_feat, t_emb=t_emb, geometry=(levels, stem_nbr),
+                             generator=gens.get("dropout"))
+        out.update(c_pred=c_out, c_target=c_target, n_pred=n_logits,
+                   n_target=point.segment, seg_valid=seg_valid)
+        return out
 
     @torch.no_grad()
     def inference(self, point: PointBatch, noise: Optional[torch.Tensor] = None,

@@ -12,7 +12,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import warnings
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -102,13 +102,18 @@ def _inverse(order: torch.Tensor) -> torch.Tensor:
 def serialize(
     point: PointBatch,
     orders: Tuple[str, ...] = ("z", "z-trans", "hilbert", "hilbert-trans"),
+    perm: Optional[Sequence[int]] = None,
 ) -> PointBatch:
     """Per-order codes, sort orders and inverses. Pads carry the sentinel
-    scene id, so they sort to the tail of every order."""
+    scene id, so they sort to the tail of every order. ``perm``, a
+    permutation of ``range(len(orders))``, shuffles the curves (training's
+    ``shuffle_orders``; JAX draws it with ``jax.random.permutation``)."""
     codes = torch.stack([
         ser.encode(point.grid_coord, point.batch, depth=point.depth, order=o)
         for o in orders
     ])
+    if perm is not None:
+        codes = codes[list(perm)]
     key_bits = 3 * point.depth + max(point.num_scenes.bit_length(), 1)
     order, codes_sorted = map(torch.stack, zip(*(packed_sort(c, key_bits)
                                                  for c in codes)))

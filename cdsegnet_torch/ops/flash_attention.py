@@ -1,10 +1,15 @@
-"""Masked patch attention forward as a hand-written CUDA kernel.
+"""Masked patch attention as hand-written CUDA kernels, forward and backward.
 
-Port of `cdsegnet_tpu/ops/pallas/flash_attention.py` (forward only; the
-backward kernel comes with training). The kernel is
-`cdsegnet_torch/csrc/patch_attention_fwd.cu`; this module checks its inputs,
-launches it on the current stream and counts the launches. On a CPU tensor
-the wrapper runs the plain version, `ops.attention.patch_attention`.
+Port of `cdsegnet_tpu/ops/pallas/flash_attention.py`. The forward kernel is
+`cdsegnet_torch/csrc/patch_attention_fwd.cu`; the backward is two kernels in
+`cdsegnet_torch/csrc/patch_attention_bwd.cu` (dq with the row sums delta,
+then dk and dv). `patch_attention_fwd` is the drop-in for the plain
+`ops.attention.patch_attention`: on a CUDA tensor that needs a gradient it
+runs the forward kernel with the row log-sum-exp inside a
+`torch.autograd.Function` whose backward launches the two backward kernels;
+otherwise it launches the forward kernel alone. Each wrapper checks its
+inputs, launches on the current stream and counts its launches. On a CPU
+tensor the plain version runs instead, under ordinary autograd.
 """
 
 from __future__ import annotations
@@ -19,27 +24,39 @@ from cdsegnet_torch.ops.attention import patch_attention
 from cdsegnet_torch.utils.cuda_build import load_library
 
 KERNEL = "patch_attention_fwd"
+BWD_KERNEL = "patch_attention_bwd"
+SOURCES = (KERNEL, BWD_KERNEL)
 HEAD_DIMS = (16, 32)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_P, _I = ctypes.c_void_p, ctypes.c_int
 
 
-@functools.lru_cache(maxsize=None)
-def _kernel():
-    fn = load_library(KERNEL).cdseg_patch_attention_fwd
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
-    ]
+def _bind(source: str, symbol: str, n_ptrs: int):
+    fn = getattr(load_library(source), symbol)
+    fn.argtypes = [_P] * n_ptrs + [_I] * 4 + [ctypes.c_float, _I, _P]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _check(q, k, v, batch_sorted, valid_sorted, patch_size):
+@functools.lru_cache(maxsize=None)
+def _kernel(symbol: str):
+    if symbol == "fwd":
+        return _bind(KERNEL, "cdseg_patch_attention_fwd", 7)
+    return _bind(BWD_KERNEL, f"cdseg_patch_attention_bwd_{symbol}", 10)
+
+
+def _check(q, k, v, batch_sorted, valid_sorted, patch_size, *more):
+    """Raise on inputs the kernels do not take. ``more`` are further
+    ``(name, tensor)`` pairs that must match q (o and g in the backward)."""
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k, v must all be float32 or bfloat16, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q, k, v must share one (N, H, D) shape, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    for name, t in more:
+        if t.dtype != q.dtype or t.shape != q.shape:
+            raise ValueError(f"{name} must match q: {t.dtype} {tuple(t.shape)}")
     n, h, d = q.shape
     if d not in HEAD_DIMS:
         raise ValueError(f"head dim {d} not supported (built for {HEAD_DIMS})")
@@ -53,11 +70,96 @@ def _check(q, k, v, batch_sorted, valid_sorted, patch_size):
     if valid_sorted.dtype != torch.bool or valid_sorted.shape != (n,):
         raise TypeError("valid_sorted must be bool of shape (N,)")
     for name, t in (("q", q), ("k", k), ("v", v), ("batch_sorted", batch_sorted),
-                    ("valid_sorted", valid_sorted)):
+                    ("valid_sorted", valid_sorted)) + tuple(more):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: CUDA error {err}")
+
+
+def _launch_fwd(q, k, v, batch_sorted, valid_sorted, patch_size, scale,
+                with_lse: bool):
+    """The forward kernel: ``(out, lse)``, lse (N, H) f32 or None."""
+    n, h, d = q.shape
+    out = torch.empty_like(v)
+    lse = torch.empty((n, h), dtype=torch.float32, device=q.device) if with_lse else None
+    _raise_on(_kernel("fwd")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), batch_sorted.data_ptr(),
+        valid_sorted.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), n, h, d, patch_size,
+        float(scale), _DTYPES[q.dtype], _stream(q)), KERNEL)
+    patch_attention_fwd.launches += 1
+    patch_attention_fwd.lse_launches += int(with_lse)
+    return out, lse
+
+
+def patch_attention_bwd_dq(q, k, v, out, g, lse, batch_sorted, valid_sorted,
+                           patch_size: int, scale: float):
+    """The dq kernel: ``(dq, delta)`` with delta = rowsum(g * out), (N, H)
+    f32. CUDA tensors only."""
+    _check(q, k, v, batch_sorted, valid_sorted, patch_size, ("out", out), ("g", g))
+    n, h, d = q.shape
+    dq = torch.empty_like(q)
+    delta = torch.empty((n, h), dtype=torch.float32, device=q.device)
+    _raise_on(_kernel("dq")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), g.data_ptr(),
+        lse.data_ptr(), batch_sorted.data_ptr(), valid_sorted.data_ptr(),
+        dq.data_ptr(), delta.data_ptr(), n, h, d, patch_size, float(scale),
+        _DTYPES[q.dtype], _stream(q)), "patch_attention_bwd_dq")
+    patch_attention_bwd_dq.launches += 1
+    return dq, delta
+
+
+def patch_attention_bwd_dkdv(q, k, v, g, lse, delta, batch_sorted, valid_sorted,
+                             patch_size: int, scale: float):
+    """The dk/dv kernel, after `patch_attention_bwd_dq`: ``(dk, dv)``. CUDA
+    tensors only."""
+    _check(q, k, v, batch_sorted, valid_sorted, patch_size, ("g", g))
+    n, h, d = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _raise_on(_kernel("dkdv")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), batch_sorted.data_ptr(), valid_sorted.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), n, h, d, patch_size, float(scale),
+        _DTYPES[q.dtype], _stream(q)), "patch_attention_bwd_dkdv")
+    patch_attention_bwd_dkdv.launches += 1
+    return dk, dv
+
+
+for _fn in (patch_attention_bwd_dq, patch_attention_bwd_dkdv):
+    _fn.launches = 0
+
+
+class _PatchAttention(torch.autograd.Function):
+    """Forward kernel with the row log-sum-exp; backward kernels for the
+    gradients of q, k and v."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, batch_sorted, valid_sorted, patch_size, scale):
+        out, lse = _launch_fwd(q, k, v, batch_sorted, valid_sorted, patch_size,
+                               scale, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse, batch_sorted, valid_sorted)
+        ctx.patch_size, ctx.scale = patch_size, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse, batch_sorted, valid_sorted = ctx.saved_tensors
+        g = g.contiguous()
+        dq, delta = patch_attention_bwd_dq(q, k, v, out, g, lse, batch_sorted,
+                                           valid_sorted, ctx.patch_size, ctx.scale)
+        dk, dv = patch_attention_bwd_dkdv(q, k, v, g, lse, delta, batch_sorted,
+                                          valid_sorted, ctx.patch_size, ctx.scale)
+        return dq, dk, dv, None, None, None, None
 
 
 def patch_attention_fwd(
@@ -70,12 +172,15 @@ def patch_attention_fwd(
     scale: float,
     upcast_softmax: bool = True,
 ) -> torch.Tensor:
-    """Drop-in for `patch_attention` (same contract).
+    """Drop-in for `patch_attention` (same contract), differentiable.
 
-    On a CUDA tensor it launches the kernel, which computes the softmax in
-    float32 whatever ``upcast_softmax`` says (as the TPU kernel does) and
-    writes zeros on rows that have no allowed key; it raises on inputs the
-    kernel does not take. On a CPU tensor it runs `patch_attention`.
+    On a CUDA tensor it launches the kernels, which compute the softmax in
+    float32 whatever ``upcast_softmax`` says (as the TPU kernels do) and
+    treat rows that have no allowed key as zeros (forward) with zero
+    gradient (backward); it raises on inputs the kernels do not take. When
+    autograd needs a gradient of q, k or v, the forward also writes the row
+    log-sum-exp for the backward kernels. On a CPU tensor it runs
+    `patch_attention` under ordinary autograd.
     """
     if q.device.type == "cpu":
         return patch_attention(q, k, v, batch_sorted, valid_sorted,
@@ -86,23 +191,22 @@ def patch_attention_fwd(
     _check(q, k, v, batch_sorted, valid_sorted, patch_size)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        raise RuntimeError("patch_attention_fwd has no backward kernel yet; "
-                           "call it under torch.no_grad()")
-    n, h, d = q.shape
-    out = torch.empty_like(v)
-    err = _kernel()(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), batch_sorted.data_ptr(),
-        valid_sorted.data_ptr(), out.data_ptr(), n, h, d, patch_size,
-        float(scale), _DTYPES[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"patch_attention_fwd launch failed: CUDA error {err}")
-    patch_attention_fwd.launches += 1
-    return out
+        return _PatchAttention.apply(q, k, v, batch_sorted, valid_sorted,
+                                     patch_size, float(scale))
+    return _launch_fwd(q, k, v, batch_sorted, valid_sorted, patch_size, scale,
+                       with_lse=False)[0]
 
 
 patch_attention_fwd.launches = 0
+patch_attention_fwd.lse_launches = 0
+
+
+def reset_launch_counts() -> None:
+    """Set every kernel's launch count to 0."""
+    patch_attention_fwd.launches = 0
+    patch_attention_fwd.lse_launches = 0
+    patch_attention_bwd_dq.launches = 0
+    patch_attention_bwd_dkdv.launches = 0
 
 
 def attention_impl(use_pallas: Optional[bool] = None):

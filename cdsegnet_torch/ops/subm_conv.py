@@ -15,10 +15,44 @@ import torch
 from cdsegnet_torch.models.structure import _parity_bits, _parity_select_tables
 
 
+class _GatherRows(torch.autograd.Function):
+    """``table.index_select(0, idx)`` for a table whose row ``skip`` is a
+    constant (the zero row that missing neighbors read). The backward
+    scatters with `index_add_` and drops the entries that read ``skip``:
+    they are most of a sparse table's entries, and autograd's own backward
+    of ``table[idx]`` sums each run of equal indices serially on the GPU,
+    which made the training step some 75 times slower (PERF.md, PR 2)."""
+
+    @staticmethod
+    def forward(ctx, table, idx, skip):
+        ctx.save_for_backward(idx)
+        ctx.rows, ctx.skip = table.shape[0], skip
+        return table.index_select(0, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        keep = idx != ctx.skip
+        # a dropped entry adds zero to a row of its own choosing, so no row
+        # collects a long run; the sums are taken in float32
+        spread = torch.arange(idx.numel(), device=idx.device) % ctx.rows
+        target = torch.where(keep, idx.long(), spread)
+        vals = torch.where(keep.reshape((-1,) + (1,) * (g.dim() - 1)), g.float(), 0.0)
+        out = torch.zeros((ctx.rows,) + tuple(g.shape[1:]), dtype=torch.float32,
+                          device=g.device).index_add_(0, target, vals)
+        return out.to(g.dtype), None, None
+
+
+def gather_rows(table: torch.Tensor, idx: torch.Tensor, skip: int) -> torch.Tensor:
+    """``table[idx]`` for 1-d ``idx``, where row ``skip`` of ``table`` is a
+    constant that receives no gradient."""
+    return _GatherRows.apply(table, idx, skip)
+
+
 def _gather_rows(feat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``feat[idx]`` where index ``len(feat)`` reads a zero row."""
     padded = torch.cat([feat, feat.new_zeros((1,) + tuple(feat.shape[1:]))])
-    return padded[idx.reshape(-1)]
+    return gather_rows(padded, idx.reshape(-1), len(feat))
 
 
 def subm_conv_apply(
@@ -87,7 +121,7 @@ def _blocked_stem(cat, pb, row, nbr_rows, w_all, m):
     members = cat.new_zeros((m + 1, 8, c))
     members[row, pb] = torch.where((row < m)[:, None], cat, torch.zeros_like(cat))
     members[m] = 0  # re-arm the empty sentinel row
-    blocks = members.reshape(m + 1, 8 * c)[nbr_rows.reshape(-1)]
+    blocks = gather_rows(members.reshape(m + 1, 8 * c), nbr_rows.reshape(-1), m)
     out_all = blocks.reshape(n, r * 8 * c) @ w_all
     ar = torch.arange(n, device=cat.device)
     return out_all.reshape(n, 8, co)[ar, pb]

@@ -15,7 +15,8 @@ step:
   all kernels, the device's idle share of the unprofiled step time, and the
   device time by kernel family and by kernel.
 
-The full kernel table goes to ``<out>/profile_ssi.txt``.
+The full kernel table, and the host operators by self CPU time, go to
+``<out>/profile_ssi.txt``. `profile_train` shares this code.
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ NUM_POINTS = 104448  # the bench scene of the JAX package (bench.py)
 # kernel-name substrings -> family, first match wins
 FAMILIES = (
     ("attention kernel", ("patch_attention_fwd",)),
+    ("attention backward kernels", ("patch_attention_bwd",)),
     ("sort", ("sort", "Sort", "radix", "Radix")),
     ("matmul", ("gemm", "Gemm", "cutlass", "sm90_xmma", "cublas", "nvjet")),
     ("gather/scatter", ("index", "Index", "gather", "Gather", "scatter", "Scatter")),
@@ -63,15 +65,20 @@ def host_ms(fn, warmup: int = 3, iters: int = 10) -> float:
     return statistics.median(times) * 1e3
 
 
+def card_name() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", required=True, help="directory for profile_ssi.txt")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_ssi needs a CUDA device")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
+    card = card_name()
 
     cfg = runpy.run_path(os.path.join(ROOT, "configs", "scannet", "cdsegnet.py"))["model"]
     model = build_model(cfg, device="cuda", generator=torch.Generator().manual_seed(0))
@@ -90,7 +97,16 @@ def main() -> None:
         step_ms=host_ms(step),
     )
 
-    steps = 3
+    profile_steps(step, 3, res, os.path.join(args.out, "profile_ssi.txt"))
+
+
+def profile_steps(step, steps: int, res: dict, path: str) -> None:
+    """Run ``step`` ``steps`` times under `torch.profiler` and add to ``res``
+    the device time per step, the device's idle share against the
+    unprofiled ``res["step_ms"]`` (the profiler slows the host, not the
+    kernels) and under the profiler, launches per step and the time by
+    kernel family; write the kernel table and the host operators with the
+    most self CPU time to ``path``."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
@@ -100,10 +116,13 @@ def main() -> None:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
 
-    kernels = {}
+    kernels, host = {}, {}
     for evt in prof.key_averages():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
+            host[evt.key] = (evt.self_cpu_time_total / 1e3 / steps, evt.count // steps)
             continue
+        if getattr(evt, "is_user_annotation", False):
+            continue  # a range on the device's timeline (the optimizer step), not a kernel
         us = getattr(evt, "self_device_time_total", None)
         if us is None:
             us = evt.self_cuda_time_total
@@ -112,22 +131,26 @@ def main() -> None:
     fams = {}
     for name, (ms, _) in kernels.items():
         fams[family(name)] = fams.get(family(name), 0.0) + ms
-    # the profiler slows the host, not the kernels: the idle share is taken
-    # against the unprofiled step time, and also given under the profiler
     res.update(profiled_wall_ms=wall_ms, device_ms=device_ms,
                idle_share=max(0.0, 1.0 - device_ms / res["step_ms"]),
                idle_share_profiled=max(0.0, 1.0 - device_ms / wall_ms),
                kernel_launches=sum(c for _, c in kernels.values()),
                families_ms=dict(sorted(fams.items(), key=lambda kv: -kv[1])))
 
-    os.makedirs(args.out, exist_ok=True)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     ranked = sorted(kernels.items(), key=lambda kv: -kv[1][0])
-    with open(os.path.join(args.out, "profile_ssi.txt"), "w") as f:
-        f.write(f"{card}\n{json.dumps(res)}\n\nms/step  launches/step  family  kernel\n")
+    ranked_host = sorted(host.items(), key=lambda kv: -kv[1][0])
+    with open(path, "w") as f:
+        f.write(f"{res['card']}\n{json.dumps(res)}\n\nms/step  launches/step  family  kernel\n")
         for name, (ms, cnt) in ranked:
             f.write(f"{ms:9.4f}  {cnt:6d}  {family(name):18s}  {name}\n")
+        f.write("\nself CPU ms/step  calls/step  host operator\n")
+        for name, (ms, cnt) in ranked_host:
+            f.write(f"{ms:9.4f}  {cnt:6d}  {name}\n")
     for name, (ms, cnt) in ranked[:15]:
         print(f"profile kernel {ms:8.3f} ms  x{cnt:<5d} {family(name):18s} {name[:110]}")
+    for name, (ms, cnt) in ranked_host[:10]:
+        print(f"profile host {ms:8.3f} ms  x{cnt:<5d} {name[:110]}")
     print("profile " + json.dumps(res))
 
 

@@ -52,24 +52,36 @@ def build_log(name: str) -> str:
     return log.read_text() if log.exists() else ""
 
 
-def build(name: str) -> float:
-    """Compile ``csrc/<name>.cu`` unless it is built already. Returns the
-    seconds the build took (0 when nothing was built)."""
-    out = library_path(name)
-    if out.exists():
-        return 0.0
-    BUILD_DIR.mkdir(exist_ok=True)
+def build(*names: str) -> Dict[str, float]:
+    """Compile each ``csrc/<name>.cu`` that is not built yet, one ``nvcc``
+    per source, all started together. Returns the seconds each build took
+    (0 for a source that was built already)."""
     start = time.perf_counter()
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}:\n{proc.stdout}")
-    out.with_suffix(".log").write_text(proc.stdout)
-    os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
-    return time.perf_counter() - start
+    running = {}
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        BUILD_DIR.mkdir(exist_ok=True)
+        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+        proc = subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        running[name] = (proc, tmp, out)
+    took = {name: 0.0 for name in names}
+    failed = []
+    for name, (proc, tmp, out) in running.items():
+        log = proc.communicate()[0]
+        took[name] = time.perf_counter() - start
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {name}:\n{log}")
+            continue
+        out.with_suffix(".log").write_text(log)
+        os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return took
 
 
 def load_library(name: str) -> ctypes.CDLL:

@@ -5,16 +5,31 @@ Run from the root of a checkout, with no arguments: ``python3 chip_smoke.py``.
 Phases, each fatal on failure:
 
 1. card: the GPU's name and power limit, as nvidia-smi reports them;
-2. build: compile the kernel of the SSI path from the checkout's source;
-3. kernels: each kernel against its plain PyTorch version on the GPU, at
-   every shape the SSI path gives it, in bf16 and f32, plus padded
+2. build: compile every kernel source from the checkout (one nvcc per
+   source, all started together) and print each kernel's registers and
+   spills;
+3. kernels: the forward kernel against its plain PyTorch version on the
+   GPU, at every shape the SSI path gives it, in bf16 and f32, plus padded
    multi-scene batches; every output row must be finite. Times (CUDA
    events) beside the bound and the time of the equivalent library call;
 4. ssi: CDSegNet single-step inference at the full width of
    `configs/scannet/cdsegnet.py` (random weights from a seed) on a
    104,448-point synthetic scene: launches counted, checked against the
    plain attention route (as shipped, with the softmax in f32 on both routes,
-   and with the whole model in f32), and timed (3 warm-ups, median of 10).
+   and with the whole model in f32), and timed (3 warm-ups, median of 10);
+5. train kernels: the forward kernel with its log-sum-exp and the two
+   backward kernels against autograd through the plain version, at every
+   shape the training step gives them (on each level's real scene ids and
+   validity, g zero on invalid rows), in bf16 and f32, timed beside their
+   bounds, the plain version and `scaled_dot_product_attention`;
+6. train: the CNF training step of the same config at its bucket (2 scenes,
+   204,800 slots, serialization depth 12; bf16, shuffled curves, drop_path
+   0.3, MSE subsampling, GLS, AdamW + OneCycle with the "block" group):
+   launches per step counted, loss, gradients, drops, running statistics
+   and both parameter groups checked; timed (3 warm-ups, median of 5);
+7. train route gap: one step's loss and gradients through the kernels
+   against the plain attention route on one 32,768-slot scene, in f32 and
+   as shipped (bf16).
 
 The last three lines are a JSON summary of the kernels, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``. Without a GPU, or
@@ -38,6 +53,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 NUM_POINTS = 104448  # the bench scene of the JAX package (bench.py)
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # H100 SXM, dense
 PEAK_BYTES = 3.35e12
+SFU_EXP_PER_S = 16 * 132 * 1.98e9  # exp2 per clock per SM x SMs x boost clock
 # kernel vs plain version on the same inputs: f32 is f32 arithmetic on both
 # sides; in bf16 the plain version rounds p to bf16 before p.v
 TOL_F32 = 1e-4            # max abs error
@@ -50,6 +66,12 @@ TOL_BF16 = 2e-2           # max abs error / max |o|
 # model in f32, which isolates the kernel from bf16 rounding
 TOL_SSI = {"shipped": (0.053, 0.967), "f32_softmax": (0.047, 0.968),
            "float32": (3.5e-6, 0.9999)}
+# training step, kernel route vs plain route on one scene (loss gap / loss,
+# max |dg| / max |g| over all parameters), about 3x the gaps read on an H100
+# (f32: 9.6e-8, one ulp of the loss, and 2.5e-6; shipped: 1.07e-4 and 0.0123)
+TOL_TRAIN = {"float32": (3e-7, 8e-6), "shipped": (3.2e-4, 0.037)}
+GAP_POINTS = 32768  # one scene: the plain route keeps P*H*K*K probabilities
+TRAIN_TOTAL_STEPS = 1000  # OneCycle length; the smoke takes the first steps
 
 
 def fail(msg: str) -> None:
@@ -79,10 +101,11 @@ def cuda_ms(torch, fn, warmup: int = 3, iters: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
-def attention_launches(backbone_cfg: dict):
+def attention_launches(backbone_cfg: dict, c_decoder: bool = False):
     """``(level, curve order, heads, head dim)`` of every launch of the
-    patch-attention kernel in one SSI forward: the n-encoder, n-decoder and
-    c-encoder blocks (SSI skips the c-decoder)."""
+    patch-attention kernel in one forward: the n-encoder, n-decoder and
+    c-encoder blocks, and the c-decoder's when ``c_decoder`` (training runs
+    it; SSI skips it)."""
     from cdsegnet_torch.models.ptv3 import _cumshift
 
     b = backbone_cfg
@@ -95,6 +118,9 @@ def attention_launches(backbone_cfg: dict):
                for s, d in enumerate(b["n_dec_depths"])]
     stages += [(c_shift[s], b["c_enc_num_head"][s], b["c_enc_channels"][s], d)
                for s, d in enumerate(b["c_enc_depths"])]
+    if c_decoder:
+        stages += [(c_shift[s], b["c_dec_num_head"][s], b["c_dec_channels"][s], d)
+                   for s, d in enumerate(b["c_dec_depths"])]
     return [(level, i % n_orders, h, c // h)
             for level, h, c, depth in stages for i in range(depth)]
 
@@ -283,7 +309,293 @@ def phase_ssi(torch, cfg, model, point, n_launches, card):
     return result
 
 
+def shape_bound(flops, nbytes, dtype_name):
+    ops_ms = flops / PEAK_FLOPS[dtype_name] * 1e3
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    return dict(bound_ms=max(ops_ms, bytes_ms), ops_ms=ops_ms, bytes_ms=bytes_ms,
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def check_train_case(torch, batch, valid, h, d, patch, dtype, gen):
+    """The forward kernel with its log-sum-exp and the two backward kernels
+    against autograd through the plain version, on random q, k, v and an
+    output gradient that is zero on invalid rows; then the times of each
+    direction beside its bound, the plain version and SDPA."""
+    import torch.nn.functional as F
+
+    from cdsegnet_torch.ops import flash_attention as fa
+    from cdsegnet_torch.ops.attention import patch_attention
+
+    n = batch.shape[0]
+    name = str(dtype).replace("torch.", "")
+    scale = d ** -0.5
+    q, k, v, g = (torch.randn((n, h, d), generator=gen, device=batch.device)
+                  for _ in range(4))
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    g = torch.where(valid[:, None, None], g, 0.0).to(dtype)
+
+    out, lse = fa._launch_fwd(q, k, v, batch, valid, patch, scale, with_lse=True)
+    dq, delta = fa.patch_attention_bwd_dq(q, k, v, out, g, lse, batch, valid,
+                                          patch, scale)
+    dk, dv = fa.patch_attention_bwd_dkdv(q, k, v, g, lse, delta, batch, valid,
+                                         patch, scale)
+    torch.cuda.synchronize()
+    leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    ref_out = patch_attention(*leaves, batch, valid, patch, scale,
+                              upcast_softmax=True)
+    ref = torch.autograd.grad(ref_out, leaves, g, retain_graph=True)
+
+    p = n // patch
+    bp = batch.view(p, patch)
+    allowed = (bp[:, :, None] == bp[:, None, :]) & valid.view(p, 1, patch)
+    pairs = int(allowed.sum().item())  # (query, key) pairs this data needs
+    with torch.no_grad():
+        s4 = torch.einsum("pihd,pjhd->phij", q.float().view(p, patch, h, d),
+                          k.float().view(p, patch, h, d)) * scale
+        want_lse = torch.logsumexp(s4.masked_fill(~allowed[:, None], float("-inf")),
+                                   -1).permute(0, 2, 1).reshape(n, h)
+        del s4
+    errs = dict(lse=(lse - want_lse)[valid].abs().max().item(),
+                o=(out.float() - ref_out.float())[valid].abs().max().item())
+    refs = dict(o=ref_out.float()[valid].abs().max().item())
+    for nm, a, w in (("dq", dq, ref[0]), ("dk", dk, ref[1]), ("dv", dv, ref[2])):
+        if not torch.isfinite(a.float()).all():
+            fail(f"{nm} has non-finite rows at {(n, h, d)} {name}")
+        errs[nm] = (a.float() - w.float()).abs().max().item()
+        refs[nm] = w.float().abs().max().item()
+    for nm, err in errs.items():
+        tol = 1e-4 if (nm == "lse" or dtype == torch.float32) else TOL_BF16 * refs[nm]
+        if err > tol:
+            fail(f"{nm} of the kernels disagrees with autograd through the "
+                 f"plain version at {(n, h, d)} {name}: max abs err {err:.3e} "
+                 f"(max |ref| {refs.get(nm, 0.0):.3e})")
+    if not torch.isfinite(lse[valid]).all():
+        fail(f"lse is not finite on valid rows at {(n, h, d)} {name}")
+
+    to4 = lambda x: x.view(p, patch, h, d).transpose(1, 2).contiguous()
+    q4, k4, v4 = (to4(x).requires_grad_(True) for x in (q, k, v))
+    g4, m4 = to4(g), allowed[:, None]
+    sdpa = lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=m4, scale=scale)
+    o4 = sdpa()
+    fwd = dict(
+        ms=cuda_ms(torch, lambda: fa._launch_fwd(q, k, v, batch, valid, patch, scale,
+                                                 with_lse=True), 2, 5),
+        plain_ms=cuda_ms(torch, lambda: patch_attention(
+            q, k, v, batch, valid, patch, scale, upcast_softmax=True), 2, 5),
+        library_ms=cuda_ms(torch, lambda: sdpa().detach(), 2, 5),
+        **shape_bound(4.0 * d * h * pairs,
+                      4.0 * n * h * d * q.element_size() + 4.0 * n * h + 5.0 * n, name))
+
+    # each backward kernel beside the plain version's and SDPA's gradients
+    # of the same tensors (autograd computes only what they need)
+    row_bytes = 6.0 * n * h * d * q.element_size() + 8.0 * n * h + 5.0 * n
+    dq_ = dict(
+        ms=cuda_ms(torch, lambda: fa.patch_attention_bwd_dq(
+            q, k, v, out, g, lse, batch, valid, patch, scale), 2, 5),
+        plain_ms=cuda_ms(torch, lambda: torch.autograd.grad(
+            ref_out, leaves[:1], g, retain_graph=True), 2, 5),
+        library_ms=cuda_ms(torch, lambda: torch.autograd.grad(
+            o4, (q4,), g4, retain_graph=True), 2, 5),
+        **shape_bound(6.0 * d * h * pairs, row_bytes, name))
+    dkdv = dict(
+        ms=cuda_ms(torch, lambda: fa.patch_attention_bwd_dkdv(
+            q, k, v, g, lse, delta, batch, valid, patch, scale), 2, 5),
+        plain_ms=cuda_ms(torch, lambda: torch.autograd.grad(
+            ref_out, leaves[1:], g, retain_graph=True), 2, 5),
+        library_ms=cuda_ms(torch, lambda: torch.autograd.grad(
+            o4, (k4, v4), g4, retain_graph=True), 2, 5),
+        **shape_bound(8.0 * d * h * pairs, row_bytes, name))
+    # the whole backward: 10 D FLOPs per pair (s, dp, dv, dq, dk); q, k, v,
+    # o, g read and dq, dk, dv written once; plain and SDPA computing all three
+    bwd = dict(
+        ms=dq_["ms"] + dkdv["ms"],
+        plain_ms=cuda_ms(torch, lambda: torch.autograd.grad(
+            ref_out, leaves, g, retain_graph=True), 2, 5),
+        library_ms=cuda_ms(torch, lambda: torch.autograd.grad(
+            o4, (q4, k4, v4), g4, retain_graph=True), 2, 5),
+        **shape_bound(10.0 * d * h * pairs,
+                      8.0 * n * h * d * q.element_size() + 4.0 * n * h + 5.0 * n, name))
+    return dict(shape=[n, h, d], patch=patch, dtype=name, max_abs_err=errs,
+                max_abs_ref=refs, exps=h * pairs, fwd=fwd, dq=dq_, dkdv=dkdv,
+                bwd=bwd, valid_rows=int(valid.sum().item()))
+
+
+def phase_train_kernels(torch, levels, launches, patch):
+    """Every training-step shape (level, heads, head dim), on that level's
+    real scene ids and validity (the same for every curve: scenes sort
+    whole, padding last), in bf16 and f32. Returns the rows, each with its
+    launches per step; prints the bf16 sums per step."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    counts: dict = {}
+    for level, _, h, d in launches:
+        counts[(level, h, d)] = counts.get((level, h, d), 0) + 1
+    rows = []
+    for (level, h, d), count in counts.items():
+        pt = levels[level].point
+        for dtype in (torch.bfloat16, torch.float32):
+            r = check_train_case(torch, pt.batch_sorted[0], pt.mask_sorted[0],
+                                 h, d, patch, dtype, gen)
+            r.update(level=level, launches_per_step=count)
+            rows.append(r)
+            print("train kernels " + json.dumps(r), flush=True)
+    for dtype in ("bfloat16", "float32"):
+        for direction in ("fwd", "dq", "dkdv", "bwd"):
+            tot = {key: sum(r[direction][key] * r["launches_per_step"]
+                            for r in rows if r["dtype"] == dtype)
+                   for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                               "ops_ms", "bytes_ms")}
+            # one exponential per allowed pair in each kernel (two in the
+            # backward), at the SFU's published rate: a ceiling computed,
+            # not measured
+            tot["exps"] = (2 if direction == "bwd" else 1) * sum(
+                r["exps"] * r["launches_per_step"] for r in rows if r["dtype"] == dtype)
+            tot["sfu_ms"] = tot["exps"] / SFU_EXP_PER_S * 1e3
+            print(f"train kernels per step {dtype} {direction} " + json.dumps(tot),
+                  flush=True)
+    return rows
+
+
+def train_setup(torch, conf, cfg, device="cuda", **backbone):
+    """Model (random weights from seed 0, training mode), criteria and
+    optimizer of the config, with backbone fields overridden."""
+    from cdsegnet_torch.engine.optimizer import build_optimizer
+    from cdsegnet_torch.models.builder import build_model, build_model_criteria
+
+    c = copy.deepcopy(cfg)
+    c["backbone"].update(backbone)
+    model = build_model(c, device=device, generator=torch.Generator().manual_seed(0))
+    model.train()
+    opt = build_optimizer(dict(conf["optimizer"]), model, dict(conf["scheduler"]),
+                          total_steps=TRAIN_TOTAL_STEPS,
+                          param_dicts=[dict(p) for p in conf["param_dicts"]],
+                          clip_keywords=conf.get("gredient_clip", []), device=device)
+    return model, build_model_criteria(c), opt
+
+
+def phase_train(torch, conf, cfg, point, n_launches, card):
+    from cdsegnet_torch.engine.state import make_train_step
+    from cdsegnet_torch.ops import flash_attention as fa
+
+    model, criteria, opt = train_setup(torch, conf, cfg)
+    step = make_train_step(model, criteria, opt, seed=0, device="cuda")
+    named = dict(model.named_parameters())
+    probe = {g: next(n for n, lab in opt.labels.items() if lab == g)
+             for g in set(opt.labels.values())}
+    before = {n: named[n].detach().clone() for n in probe.values()}
+    stats0 = {n: b.clone() for n, b in model.named_buffers()}
+
+    fa.reset_launch_counts()
+    metrics = step(point)
+    torch.cuda.synchronize()
+    counts = dict(fwd=fa.patch_attention_fwd.launches,
+                  fwd_lse=fa.patch_attention_fwd.lse_launches,
+                  bwd_dq=fa.patch_attention_bwd_dq.launches,
+                  bwd_dkdv=fa.patch_attention_bwd_dkdv.launches)
+    print(f"train kernel launches per step {json.dumps(counts)} "
+          f"(expected {n_launches} each)", flush=True)
+    if any(c != n_launches for c in counts.values()):
+        fail(f"the training step launched the kernels {counts} times, "
+             f"expected {n_launches} each")
+    loss = metrics["loss"].item()
+    drops = [metrics[f"dropped_l{i}"] for i in range(1, 5)]
+    bad = [n for n, p in named.items() if p.grad is None or not torch.isfinite(p.grad).all()]
+    moved = {g: not torch.equal(named[n], before[n]) for g, n in probe.items()}
+    stats_moved = sum(not torch.equal(b, stats0[n]) for n, b in model.named_buffers())
+    print(f"train first step: loss {loss:.6f}, dropped per level {drops}, "
+          f"parameters without a finite gradient {len(bad)}, groups moved {moved}, "
+          f"running statistics changed {stats_moved} of {len(stats0)}", flush=True)
+    if not np.isfinite(loss) or bad or drops != [0, 0, 0, 0]:
+        fail(f"training step: loss {loss}, non-finite or missing gradients "
+             f"{bad[:5]}, drops {drops}")
+    if not all(moved.values()) or stats_moved != len(stats0):
+        fail(f"training step: parameter groups moved {moved}, running "
+             f"statistics changed {stats_moved} of {len(stats0)}")
+
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    for i in range(8):  # 3 warm-ups, then 5 timed steps
+        t0 = time.perf_counter()
+        m = step(point)
+        torch.cuda.synchronize()
+        losses.append(m["loss"].item())
+        if i >= 3:
+            times.append(time.perf_counter() - t0)
+    if not np.isfinite(losses).all():
+        fail(f"non-finite training loss {losses}")
+    n_valid = int(point.mask.sum().item())
+    step_ms = statistics.median(times) * 1e3
+    result = dict(step_ms=step_ms, step_ms_all=[t * 1e3 for t in times],
+                  points_per_s=n_valid / (step_ms / 1e3), n_valid=n_valid,
+                  slots=point.num_points, launches=counts, losses=[loss] + losses,
+                  peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                  lrs=opt.lrs(), card=card)
+    print("train " + json.dumps(result), flush=True)
+    return result
+
+
+def phase_train_gap(torch, conf, cfg):
+    """One step's loss and gradients, kernel route against plain route, on
+    one scene: drop_path 0, no shuffle, the same t, noise and MSE mask."""
+    from cdsegnet_torch.utils.synthetic import synthetic_point_batch
+
+    point = synthetic_point_batch(GAP_POINTS, 1, depth=12, seed=1, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    inject = dict(ts_scene=torch.tensor([321], device="cuda"),
+                  noise=torch.randn((GAP_POINTS, 6), generator=gen, device="cuda"),
+                  mse_valid=point.mask & (torch.rand(GAP_POINTS, generator=gen,
+                                                     device="cuda") < 0.25))
+
+    def grads(dtype, use_pallas):
+        model, criteria, _ = train_setup(torch, conf, cfg, drop_path=0.0,
+                                         shuffle_orders=False, dtype=dtype,
+                                         use_pallas=use_pallas)
+        loss = criteria(model(point, **inject), mode="train")
+        params = [p for _, p in model.named_parameters()]
+        gs = torch.autograd.grad(loss, params)
+        return loss.item(), [g.float() for g in gs]
+
+    gaps = {}
+    for name, dtype in (("float32", "float32"), ("shipped", cfg["backbone"]["dtype"])):
+        lk, gk = grads(dtype, None)
+        lp, gp = grads(dtype, False)
+        max_g = max(g.abs().max().item() for g in gp)
+        max_dg = max((a - b).abs().max().item() for a, b in zip(gk, gp))
+        worst = max((a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+                    for a, b in zip(gk, gp))
+        gaps[name] = dict(loss_kernel=lk, loss_plain=lp,
+                          loss_gap=abs(lk - lp) / abs(lp), max_abs_dg=max_dg,
+                          max_abs_g=max_g, dg_rel=max_dg / max_g,
+                          worst_tensor_dg_rel=worst,
+                          finite=all(torch.isfinite(g).all().item() for g in gk))
+        del gk, gp
+        torch.cuda.empty_cache()
+        print(f"train route gap {name} " + json.dumps(gaps[name]), flush=True)
+    for name, g in gaps.items():
+        tol_loss, tol_dg = TOL_TRAIN[name]
+        if not g["finite"] or g["loss_gap"] > tol_loss or g["dg_rel"] > tol_dg:
+            fail(f"training step, kernel route disagrees with the plain route ({name})")
+    return gaps
+
+
+def kernel_entry(name, source, replaces, launches, rows, direction):
+    """One entry of the kernels line: bf16 sums per training step over the
+    main path's launches, each timed on its level's real scene ids and
+    validity."""
+    main = [r for r in rows if r["dtype"] == "bfloat16"]
+    per_step = lambda key: sum(r[direction][key] * r["launches_per_step"] for r in main)
+    errs = {"fwd": ("o", "lse"), "dq": ("dq",), "dkdv": ("dk", "dv")}[direction]
+    return dict(
+        name=name, route="cuda", source=source, replaces=replaces, launches=launches,
+        max_abs_err=max(r["max_abs_err"][e] for r in main for e in errs),
+        ms=per_step("ms"), plain_ms=per_step("plain_ms"),
+        bound_ms=per_step("bound_ms"),
+        bound_by="operations" if per_step("ops_ms") >= per_step("bytes_ms") else "bytes",
+        library_ms=per_step("library_ms"),
+    )
+
+
 def main() -> int:
+    start = time.perf_counter()
     try:
         import torch
     except ImportError:
@@ -293,11 +605,12 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     config = os.path.join(ROOT, "configs", "scannet", "cdsegnet.py")
+    runtime = os.path.join(ROOT, "configs", "_base_", "default_runtime.py")
     if not os.path.isdir(os.path.join(ROOT, "cdsegnet_torch")) or not os.path.isfile(config):
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
-    from cdsegnet_torch.ops.flash_attention import KERNEL
+    from cdsegnet_torch.ops.flash_attention import BWD_KERNEL, KERNEL, SOURCES
     from cdsegnet_torch.utils import cuda_build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -306,17 +619,18 @@ def main() -> int:
     card = card_line()
     print(f"card {card}", flush=True)
 
-    t0 = time.perf_counter()
-    cuda_build.build(KERNEL)
-    print(f"build {KERNEL} in {time.perf_counter() - t0:.1f} s", flush=True)
-    for line in cuda_build.build_log(KERNEL).splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"build ptxas {line.strip()}", flush=True)
+    took = cuda_build.build(*SOURCES)
+    for name in SOURCES:
+        print(f"build {name} in {took[name]:.1f} s", flush=True)
+        for line in cuda_build.build_log(name).splitlines():
+            if "registers" in line or "spill" in line or "entry function" in line:
+                print(f"build ptxas {name}: {line.strip()}", flush=True)
 
     from cdsegnet_torch.models.builder import build_model
     from cdsegnet_torch.utils.synthetic import synthetic_point_batch
 
-    cfg = runpy.run_path(config)["model"]
+    conf = runpy.run_path(config)
+    cfg = conf["model"]
     model = build_model(cfg, device="cuda",
                         generator=torch.Generator().manual_seed(0))
     point = synthetic_point_batch(NUM_POINTS, 1, depth=10, seed=0, device="cuda")
@@ -328,27 +642,55 @@ def main() -> int:
     if drops != [0, 0, 0, 0] or n_valid != 94003:
         fail("the bench scene is not the expected one")
 
+    patch = max(cfg["backbone"]["n_enc_patch_size"])
     launches = attention_launches(cfg["backbone"])
-    rows = phase_kernels(torch, levels, launches,
-                         max(cfg["backbone"]["n_enc_patch_size"]))
+    rows = phase_kernels(torch, levels, launches, patch)
     ssi = phase_ssi(torch, cfg, model, point, len(launches), card)
-
     main_rows = [r for r in rows if r["dtype"] == "bfloat16"]
     per_ssi = lambda key: sum(r[key] * r["launches_per_ssi"] for r in main_rows)
-    kernel = dict(
-        name="patch_attention_fwd", route="cuda",
-        source="cdsegnet_torch/csrc/patch_attention_fwd.cu",
-        replaces="cdsegnet_tpu/ops/pallas/flash_attention.py:45",
-        launches=ssi["launches"],
-        max_abs_err=max(r["max_abs_err"] for r in main_rows),
-        # per SSI forward: summed over the main path's launches, each timed
-        # on its level's real scene ids and validity
-        ms=per_ssi("ms"), plain_ms=per_ssi("plain_ms"),
-        bound_ms=per_ssi("bound_ms"),
-        bound_by="operations" if per_ssi("ops_ms") >= per_ssi("bytes_ms") else "bytes",
-        library_ms=per_ssi("library_ms"),
-    )
-    print(json.dumps({"kernels": [kernel]}))
+    # per SSI forward: summed over the path's launches, each timed on its
+    # level's real scene ids and validity
+    print("ssi kernel per forward " + json.dumps(dict(
+        launches=ssi["launches"], max_abs_err=max(r["max_abs_err"] for r in main_rows),
+        ms=per_ssi("ms"), plain_ms=per_ssi("plain_ms"), bound_ms=per_ssi("bound_ms"),
+        library_ms=per_ssi("library_ms"))), flush=True)
+    del model, levels
+    torch.cuda.empty_cache()
+
+    # the training bucket: scenes_per_device x num_points_per_scene slots at
+    # the runtime's serialization depth
+    depth = runpy.run_path(runtime)["serialization_depth"]
+    n_train, n_scenes = conf["bucket_num_points"], conf["scenes_per_device"]
+    train_point = synthetic_point_batch(n_train, n_scenes, depth=depth, seed=0,
+                                        device="cuda")
+    train_model = build_model(cfg, device="cuda",
+                              generator=torch.Generator().manual_seed(0))
+    train_levels, _ = train_model.backbone.precompute_geometry(train_point)
+    print(f"train bucket {n_train} slots, {n_scenes} scenes, depth {depth}, "
+          f"{int(train_point.mask.sum().item())} valid, level sizes "
+          f"{[lv.size for lv in train_levels]}, dropped per level "
+          f"{[lv.dropped for lv in train_levels[1:]]}", flush=True)
+    train_launches = attention_launches(cfg["backbone"], c_decoder=True)
+    train_rows = phase_train_kernels(torch, train_levels, train_launches, patch)
+    del train_model, train_levels
+    torch.cuda.empty_cache()
+    train = phase_train(torch, conf, cfg, train_point, len(train_launches), card)
+    del train_point
+    torch.cuda.empty_cache()
+    phase_train_gap(torch, conf, cfg)
+
+    tpu = "cdsegnet_tpu/ops/pallas/flash_attention.py"
+    bwd_src = f"cdsegnet_torch/csrc/{BWD_KERNEL}.cu"
+    kernels = [
+        kernel_entry("patch_attention_fwd", f"cdsegnet_torch/csrc/{KERNEL}.cu",
+                     f"{tpu}:45", train["launches"]["fwd"], train_rows, "fwd"),
+        kernel_entry("patch_attention_bwd_dq", bwd_src, f"{tpu}:146",
+                     train["launches"]["bwd_dq"], train_rows, "dq"),
+        kernel_entry("patch_attention_bwd_dkdv", bwd_src, f"{tpu}:146",
+                     train["launches"]["bwd_dkdv"], train_rows, "dkdv"),
+    ]
+    print(f"wall time {time.perf_counter() - start:.1f} s", flush=True)
+    print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -150,6 +150,34 @@ def test_pyramid_matches_jax(case, exactness):
                 assert_same(getattr(b, f), getattr(a, f), f"L{i}.{f}")
 
 
+@pytest.mark.parametrize("case", ["no_drop", "overflow"])
+def test_shuffled_pyramid_matches_jax(case):
+    """Training's curve shuffle: one permutation of the orders per level,
+    taken from JAX's own split and permutation of one key."""
+    import jax
+
+    make, strides, caps, _ = CASES[case]
+    pt = make()
+    key = jax.random.PRNGKey(7)
+    perms = [np.asarray(jax.random.permutation(k, len(ORDERS))).tolist()
+             for k in jax.random.split(key, len(strides) + 1)]
+    assert any(p != sorted(p) for p in perms)
+    jl, js = jpyr.build_pyramid(pt, strides=strides, capacities=caps, orders=ORDERS,
+                                shuffle_key=key, stem_kernel=5)
+    tl, ts = tpyr.build_pyramid(to_port(pt), strides=strides, capacities=caps,
+                                orders=ORDERS, stem_kernel=5, perms=perms)
+    assert_same(ts, js, "stem_nbr")
+    for i, (a, b) in enumerate(zip(jl, tl)):
+        for f in POINT_FIELDS:
+            assert_same(getattr(b.point, f), getattr(a.point, f), f"L{i}.{f}")
+        for f in LEVEL_FIELDS:
+            if getattr(a, f) is not None:
+                assert_same(getattr(b, f), getattr(a, f), f"L{i}.{f}")
+    with pytest.raises(ValueError, match="permutations"):
+        tpyr.build_pyramid(to_port(pt), strides=strides, capacities=caps,
+                           orders=ORDERS, perms=perms[:1])
+
+
 def test_pool_and_unpool_match_jax():
     pt = _surface_batch()
     jl, _ = jpyr.build_pyramid(pt, strides=(2, 2), capacities=(256, 128),

@@ -14,6 +14,9 @@ torch = pytest.importorskip("torch")
 from cdsegnet_torch.ops.attention import patch_attention  # noqa: E402
 from cdsegnet_torch.ops.flash_attention import (  # noqa: E402
     _check,
+    _launch_fwd,
+    patch_attention_bwd_dkdv,
+    patch_attention_bwd_dq,
     patch_attention_fwd,
 )
 
@@ -101,9 +104,85 @@ def test_kernel_matches_plain_on_gpu(cuda_device, case, dtype):
     assert err <= tol
 
 
+def plain_grads(q, k, v, b, m, patch, g):
+    """Autograd through the plain version: the output and the gradients of
+    q, k, v for output gradient ``g``."""
+    leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    out = patch_attention(*leaves, b, m, patch, q.shape[-1] ** -0.5,
+                          upcast_softmax=True)
+    return (out.detach(),) + torch.autograd.grad(out, leaves, g)
+
+
+def test_wrapper_backward_is_autograd_of_the_plain_version_on_cpu():
+    n, h, d, patch, sizes = CASES[0]
+    q, k, v, b, m = attention_inputs(n, h, d, patch, sizes)
+    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(1))
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    out = patch_attention_fwd(*leaves, b, m, patch, d ** -0.5)
+    got = torch.autograd.grad(out, leaves, g)
+    want = plain_grads(q, k, v, b, m, patch, g)[1:]
+    for a, w in zip(got, want):
+        assert torch.equal(a, w)
+
+
 @pytest.mark.cuda
-def test_kernel_refuses_gradients(cuda_device):
-    q, k, v, b, m = attention_inputs(512, 2, 16, 128, [400], device=cuda_device)
-    q.requires_grad_(True)
-    with pytest.raises(RuntimeError, match="no backward kernel"):
-        patch_attention_fwd(q, k, v, b, m, 128, 0.25)
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_backward_kernels_match_autograd_on_gpu(cuda_device, case, dtype):
+    n, h, d, patch, sizes = case
+    q, k, v, b, m = attention_inputs(n, h, d, patch, sizes, device=cuda_device)
+    dt = getattr(torch, dtype)
+    q, k, v = q.to(dt), k.to(dt), v.to(dt)
+    # g is zero on rows with no allowed key (padding), as in the model:
+    # there the kernels give zeros and the plain version the uniform mean
+    g = torch.randn(q.shape, device=cuda_device,
+                    generator=torch.Generator(cuda_device).manual_seed(1))
+    g = torch.where(m[:, None, None], g, 0.0).to(dt)
+    counts = (patch_attention_fwd.lse_launches, patch_attention_bwd_dq.launches,
+              patch_attention_bwd_dkdv.launches)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    out = patch_attention_fwd(*leaves, b, m, patch, d ** -0.5)
+    got = torch.autograd.grad(out, leaves, g)
+    torch.cuda.synchronize()
+    assert (patch_attention_fwd.lse_launches, patch_attention_bwd_dq.launches,
+            patch_attention_bwd_dkdv.launches) == tuple(c + 1 for c in counts)
+    want = plain_grads(q, k, v, b, m, patch, g)[1:]
+    for name, a, w in zip("qkv", got, want):
+        a, w = a.float(), w.float()
+        assert torch.isfinite(a).all(), name
+        assert (a[~m] == 0).all(), name  # padding rows get no gradient
+        err = (a - w).abs().max().item()
+        # f32: f32 arithmetic on both sides, sums in another order; bf16:
+        # the plain version rounds p to bf16, the kernels take delta from
+        # the bf16 output and round the gradients to bf16
+        tol = 1e-4 if dtype == "float32" else 2e-2 * w.abs().max().item()
+        assert err <= tol, (name, err)
+
+
+@pytest.mark.cuda
+def test_forward_log_sum_exp_on_gpu(cuda_device):
+    n, h, d, patch, sizes = CASES[0]
+    q, k, v, b, m = attention_inputs(n, h, d, patch, sizes, device=cuda_device)
+    with torch.no_grad():
+        _, lse = _launch_fwd(q, k, v, b, m, patch, d ** -0.5, with_lse=True)
+    p = n // patch
+    qp, kp = q.view(p, patch, h, d), k.view(p, patch, h, d)
+    s = torch.einsum("pihd,pjhd->phij", qp, kp) * d ** -0.5
+    bp = b.view(p, patch)
+    allowed = (bp[:, :, None] == bp[:, None, :]) & m.view(p, 1, patch)
+    s = s.masked_fill(~allowed[:, None], float("-inf"))
+    want = torch.logsumexp(s, -1).permute(0, 2, 1).reshape(n, h)
+    assert torch.isneginf(lse[~m]).all()
+    assert (lse[m] - want[m]).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_backward_wrappers_check_inputs_on_gpu(cuda_device):
+    n, h, d, patch, sizes = CASES[0]
+    q, k, v, b, m = attention_inputs(n, h, d, patch, sizes, device=cuda_device)
+    lse = torch.zeros((n, h), device=cuda_device)
+    with pytest.raises(ValueError, match="g must match"):
+        patch_attention_bwd_dq(q, k, v, q, q.bfloat16(), lse, b, m, patch, 0.25)
+    with pytest.raises(ValueError, match="contiguous"):
+        patch_attention_bwd_dkdv(q, k, v, q.transpose(0, 1).contiguous()
+                                 .transpose(0, 1), lse, lse, b, m, patch, 0.25)

@@ -204,7 +204,7 @@ def test_plain_segmentor_matches_jax(ref):
     want = np.asarray(jax.jit(lambda v, p: jm.apply(v, p)["n_pred"])(variables, pt))
     m = tbuild(copy.deepcopy(cfg), device="cpu")
     load_jax_variables(m, as_numpy(variables))
-    got = m(to_port(pt))["n_pred"].numpy()
+    got = m(to_port(pt))["n_pred"].detach().numpy()  # the forward trains too
     valid = np.asarray(pt.mask)
     assert np.abs(got - want)[valid].max() <= 1e-4 * np.abs(want[valid]).max() + 1e-5
 
@@ -262,6 +262,19 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
         synthetic_point_batch(256, 1, depth=6)
     assert resolve_device("cpu") == torch.device("cpu")
     assert synthetic_point_batch(256, 1, depth=6, device="cpu").mask.device.type == "cpu"
+    # the training entry points, on a model the caller put on the CPU
+    from cdsegnet_torch.engine.optimizer import build_optimizer
+    from cdsegnet_torch.engine.state import make_train_step
+    from cdsegnet_torch.models.builder import build_model_criteria
+
+    m = tbuild(tiny_cfg(), device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_optimizer(dict(type="AdamW", lr=1e-3), m)
+    opt = build_optimizer(dict(type="AdamW", lr=1e-3), m, device="cpu")
+    crit = build_model_criteria(tiny_cfg())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_train_step(m, crit, opt)
+    make_train_step(m, crit, opt, device="cpu")
 
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "cdsegnet_tpu")
@@ -281,6 +294,9 @@ def test_port_imports_no_jax():
     for d, _, names in os.walk(os.path.join(REPO, "cdsegnet_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     assert len(files) > 10
+    for module in ("engine/state.py", "engine/optimizer.py", "models/losses.py",
+                   "tools/profile_train.py"):
+        assert os.path.join(REPO, "cdsegnet_torch", module) in files, module
     bad = [(f, m) for f in files for m in _imports(f)
            if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad

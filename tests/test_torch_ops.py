@@ -59,6 +59,30 @@ def test_patch_attention_matches_jax(route, patch):
         np.testing.assert_allclose(got[ms], want[ms], rtol=2e-4, atol=2e-5)
 
 
+@pytest.mark.parametrize("patch", [64, 128])
+def test_patch_attention_gradient_matches_pallas_backward(patch):
+    """The port's gradient of q, k and v (the wrapper, which on the CPU runs
+    the plain version under autograd) against the TPU kernel's own backward,
+    `jax.vjp` through the Pallas kernel in interpret mode; the output
+    gradient is zero on invalid rows, as `test_pallas_attention.py` has it."""
+    import jax
+
+    q, k, v, bs, ms = _attn_inputs(seed=3)
+    g = np.random.RandomState(4).randn(*q.shape).astype(np.float32)
+    g[~ms] = 0.0
+    scale = 16 ** -0.5
+    _, vjp = jax.vjp(lambda a, b, c: flash_patch_attention(
+        a, b, c, jnp.asarray(bs), jnp.asarray(ms), patch, scale, interpret=True),
+        *map(jnp.asarray, (q, k, v)))
+    want = vjp(jnp.asarray(g))
+    leaves = [T(x).requires_grad_(True) for x in (q, k, v)]
+    out = patch_attention_fwd(*leaves, T(bs), T(ms), patch, scale)
+    got = torch.autograd.grad(out, leaves, T(g))
+    for name, a, w in zip("qkv", got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(w), rtol=5e-4, atol=5e-5,
+                                   err_msg=name)
+
+
 def test_cross_patch_attention_matches_jax():
     q, k, v, bs, ms = _attn_inputs(seed=1)
     rng = np.random.RandomState(2)

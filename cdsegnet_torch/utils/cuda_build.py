@@ -11,6 +11,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -82,6 +83,26 @@ def build(*names: str) -> Dict[str, float]:
     if failed:
         raise RuntimeError("\n".join(failed))
     return took
+
+
+def sass_counts(name: str, opcode: str) -> Dict[str, int]:
+    """Instructions with ``opcode`` (e.g. ``HMMA``, the tensor-core product)
+    in each kernel of the built ``csrc/<name>.cu``, from ``cuobjdump -sass``:
+    mangled kernel name -> count."""
+    tool = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(library_path(name))], check=True,
+                          capture_output=True, text=True, timeout=300).stdout
+    counts: Dict[str, int] = {}
+    fn = None
+    pattern = re.compile(rf"\b{re.escape(opcode)}\b")
+    for line in sass.splitlines():
+        line = line.strip()
+        if line.startswith("Function : "):
+            fn = line[len("Function : "):]
+            counts[fn] = 0
+        elif fn is not None and pattern.search(line):
+            counts[fn] += 1
+    return counts
 
 
 def load_library(name: str) -> ctypes.CDLL:

@@ -6,8 +6,9 @@ Phases, each fatal on failure:
 
 1. card: the GPU's name and power limit, as nvidia-smi reports them;
 2. build: compile every kernel source from the checkout (one nvcc per
-   source, all started together) and print each kernel's registers and
-   spills;
+   source, all started together), print each kernel's registers and spills
+   (none allowed) and each backward kernel's count of tensor-core
+   instructions (HMMA, from cuobjdump; the bf16 ones must have some);
 3. kernels: the forward kernel against its plain PyTorch version on the
    GPU, at every shape the SSI path gives it, in bf16 and f32, plus padded
    multi-scene batches; every output row must be finite. Times (CUDA
@@ -21,7 +22,9 @@ Phases, each fatal on failure:
    backward kernels against autograd through the plain version, at every
    shape the training step gives them (on each level's real scene ids and
    validity, g zero on invalid rows), in bf16 and f32, timed beside their
-   bounds, the plain version and `scaled_dot_product_attention`;
+   bounds, the plain version and `scaled_dot_product_attention`; then
+   boundary layouts (scenes and patches that cut the kernels' tiles at odd
+   offsets, padding rows, D = 32); every backward run twice, bit-equal;
 6. train: the CNF training step of the same config at its bucket (2 scenes,
    204,800 slots, serialization depth 12; bf16, shuffled curves, drop_path
    0.3, MSE subsampling, GLS, AdamW + OneCycle with the "block" group):
@@ -41,6 +44,7 @@ from __future__ import annotations
 import copy
 import json
 import os
+import re
 import runpy
 import statistics
 import subprocess
@@ -70,6 +74,14 @@ TOL_SSI = {"shipped": (0.053, 0.967), "f32_softmax": (0.047, 0.968),
 # max |dg| / max |g| over all parameters), about 3x the gaps read on an H100
 # (f32: 9.6e-8, one ulp of the loss, and 2.5e-6; shipped: 1.07e-4 and 0.0123)
 TOL_TRAIN = {"float32": (3e-7, 8e-6), "shipped": (3.2e-4, 0.037)}
+# phase 5's boundary layouts (N, H, D, patch, scene sizes): scenes crossing
+# patches and the backward's 16-row and 8-column fragments at offsets that
+# are not multiples of 8, padding rows at the tail; D = 32; patches that are
+# not a multiple of the streamed tiles (128 rows) or of 16
+TRAIN_EXTRA = ((8192, 2, 16, 1024, [2500, 3100, 1772]),
+               (2048, 4, 32, 512, [922, 921]),
+               (6000, 2, 16, 200, [1234, 2345, 1500]),
+               (1920, 2, 32, 96, [333, 700, 501]))
 GAP_POINTS = 32768  # one scene: the plain route keeps P*H*K*K probabilities
 TRAIN_TOTAL_STEPS = 1000  # OneCycle length; the smoke takes the first steps
 
@@ -316,11 +328,12 @@ def shape_bound(flops, nbytes, dtype_name):
                 bound_by="operations" if ops_ms >= bytes_ms else "bytes")
 
 
-def check_train_case(torch, batch, valid, h, d, patch, dtype, gen):
+def check_train_case(torch, batch, valid, h, d, patch, dtype, gen, timed=True):
     """The forward kernel with its log-sum-exp and the two backward kernels
     against autograd through the plain version, on random q, k, v and an
-    output gradient that is zero on invalid rows; then the times of each
-    direction beside its bound, the plain version and SDPA."""
+    output gradient that is zero on invalid rows, and a second backward run
+    bit-equal to the first; then, when ``timed``, the times of each direction
+    beside its bound, the plain version and SDPA."""
     import torch.nn.functional as F
 
     from cdsegnet_torch.ops import flash_attention as fa
@@ -339,7 +352,15 @@ def check_train_case(torch, batch, valid, h, d, patch, dtype, gen):
                                           patch, scale)
     dk, dv = fa.patch_attention_bwd_dkdv(q, k, v, g, lse, delta, batch, valid,
                                          patch, scale)
+    dq2, delta2 = fa.patch_attention_bwd_dq(q, k, v, out, g, lse, batch, valid,
+                                            patch, scale)
+    dk2, dv2 = fa.patch_attention_bwd_dkdv(q, k, v, g, lse, delta2, batch, valid,
+                                           patch, scale)
     torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in
+               ((dq, dq2), (delta, delta2), (dk, dk2), (dv, dv2))):
+        fail(f"two backward runs differ at {(n, h, d)} patch {patch} {name}")
+    del dq2, delta2, dk2, dv2
     leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
     ref_out = patch_attention(*leaves, batch, valid, patch, scale,
                               upcast_softmax=True)
@@ -371,6 +392,9 @@ def check_train_case(torch, batch, valid, h, d, patch, dtype, gen):
                  f"(max |ref| {refs.get(nm, 0.0):.3e})")
     if not torch.isfinite(lse[valid]).all():
         fail(f"lse is not finite on valid rows at {(n, h, d)} {name}")
+    if not timed:
+        return dict(shape=[n, h, d], patch=patch, dtype=name, max_abs_err=errs,
+                    max_abs_ref=refs, valid_rows=int(valid.sum().item()))
 
     to4 = lambda x: x.view(p, patch, h, d).transpose(1, 2).contiguous()
     q4, k4, v4 = (to4(x).requires_grad_(True) for x in (q, k, v))
@@ -438,6 +462,11 @@ def phase_train_kernels(torch, levels, launches, patch):
             r.update(level=level, launches_per_step=count)
             rows.append(r)
             print("train kernels " + json.dumps(r), flush=True)
+    for n, h, d, p, sizes in TRAIN_EXTRA:
+        batch, valid = scene_layout(torch, n, sizes, "cuda")
+        for dtype in (torch.bfloat16, torch.float32):
+            r = check_train_case(torch, batch, valid, h, d, p, dtype, gen, timed=False)
+            print("train kernels extra " + json.dumps(r), flush=True)
     for dtype in ("bfloat16", "float32"):
         for direction in ("fwd", "dq", "dkdv", "bwd"):
             tot = {key: sum(r[direction][key] * r["launches_per_step"]
@@ -625,6 +654,14 @@ def main() -> int:
         for line in cuda_build.build_log(name).splitlines():
             if "registers" in line or "spill" in line or "entry function" in line:
                 print(f"build ptxas {name}: {line.strip()}", flush=True)
+            if re.search(r"[1-9]\d* bytes spill", line):
+                fail(f"{name} spills registers: {line.strip()}")
+    hmma = cuda_build.sass_counts(BWD_KERNEL, "HMMA")
+    for fn, count in sorted(hmma.items()):
+        print(f"build sass {BWD_KERNEL}: HMMA {count} in {fn}", flush=True)
+    for kernel in ("bwd_dq_mma_kernel", "bwd_dkdv_mma_kernel"):
+        if not any(kernel in fn and count > 0 for fn, count in hmma.items()):
+            fail(f"the bf16 {kernel} has no tensor-core instruction")
 
     from cdsegnet_torch.models.builder import build_model
     from cdsegnet_torch.utils.synthetic import synthetic_point_batch

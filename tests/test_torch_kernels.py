@@ -39,6 +39,16 @@ def attention_inputs(n, h, d, patch, scene_sizes, seed=0, device="cpu"):
 
 
 CASES = [(2048, 2, 16, 512, [700, 900, 250]), (1024, 4, 32, 256, [500, 421])]
+# Layouts for the tensor-core backward's tiers of masking, on the GPU only:
+# scenes crossing patches and the 16-row and 8-column fragments at odd
+# offsets, padding rows at the tail; a patch of 64 (less than one streamed
+# tile); a patch that is not a multiple of 16 (a ragged tail in every warp
+# and tile).
+BOUNDARY_CASES = [(8192, 2, 16, 1024, [2500, 3100, 1772]),
+                  (2048, 4, 32, 512, [922, 921]),
+                  (1024, 2, 16, 64, [101, 333, 451]),
+                  (1000, 2, 32, 200, [333, 401])]
+GPU_CASES = CASES + BOUNDARY_CASES
 
 
 @pytest.mark.parametrize("case", CASES)
@@ -81,7 +91,7 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("case", GPU_CASES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_kernel_matches_plain_on_gpu(cuda_device, case, dtype):
     n, h, d, patch, sizes = case
@@ -126,7 +136,7 @@ def test_wrapper_backward_is_autograd_of_the_plain_version_on_cpu():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("case", GPU_CASES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_backward_kernels_match_autograd_on_gpu(cuda_device, case, dtype):
     n, h, d, patch, sizes = case
@@ -186,3 +196,24 @@ def test_backward_wrappers_check_inputs_on_gpu(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         patch_attention_bwd_dkdv(q, k, v, q.transpose(0, 1).contiguous()
                                  .transpose(0, 1), lse, lse, b, m, patch, 0.25)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BOUNDARY_CASES[:2])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_backward_kernels_are_deterministic_on_gpu(cuda_device, case, dtype):
+    n, h, d, patch, sizes = case
+    q, k, v, b, m = attention_inputs(n, h, d, patch, sizes, device=cuda_device)
+    dt = getattr(torch, dtype)
+    q, k, v = q.to(dt), k.to(dt), v.to(dt)
+    g = torch.randn(q.shape, device=cuda_device,
+                    generator=torch.Generator(cuda_device).manual_seed(2)).to(dt)
+    scale = d ** -0.5
+    out, lse = _launch_fwd(q, k, v, b, m, patch, scale, with_lse=True)
+    runs = []
+    for _ in range(2):
+        dq, delta = patch_attention_bwd_dq(q, k, v, out, g, lse, b, m, patch, scale)
+        runs.append((dq, delta) + patch_attention_bwd_dkdv(q, k, v, g, lse, delta,
+                                                           b, m, patch, scale))
+    for name, a, w in zip(("dq", "delta", "dk", "dv"), *runs):
+        assert torch.equal(a, w), name

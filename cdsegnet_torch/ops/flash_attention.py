@@ -3,7 +3,8 @@
 Port of `cdsegnet_tpu/ops/pallas/flash_attention.py`. The forward kernel is
 `cdsegnet_torch/csrc/patch_attention_fwd.cu`; the backward is two kernels in
 `cdsegnet_torch/csrc/patch_attention_bwd.cu` (dq with the row sums delta,
-then dk and dv; bf16 on the tensor cores, f32 on the CUDA cores).
+then dk and dv). Each takes bf16 on the tensor cores and f32 on the CUDA
+cores, chosen by dtype.
 `patch_attention_fwd` is the drop-in for the plain
 `ops.attention.patch_attention`: on a CUDA tensor that needs a gradient it
 runs the forward kernel with the row log-sum-exp inside a

@@ -2,8 +2,8 @@
 
 Each ``cdsegnet_torch/csrc/<name>.cu`` has a plain C interface and compiles
 into ``cdsegnet_torch/_build/<name>-<hash>.so``, where the hash covers the
-source and the compiler flags, so an edited source builds anew. Builds happen
-at first use.
+source, the shared headers (``csrc/*.cuh``) and the compiler flags, so an
+edited source or header builds anew. Builds happen at first use.
 """
 
 from __future__ import annotations
@@ -41,9 +41,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    """Where ``csrc/<name>.cu`` builds to: the hash covers the source, every
+    shared header ``csrc/*.cuh`` and the compiler flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_log(name: str) -> str:

@@ -7,12 +7,13 @@ Phases, each fatal on failure:
 1. card: the GPU's name and power limit, as nvidia-smi reports them;
 2. build: compile every kernel source from the checkout (one nvcc per
    source, all started together), print each kernel's registers and spills
-   (none allowed) and each backward kernel's count of tensor-core
-   instructions (HMMA, from cuobjdump; the bf16 ones must have some);
+   (none allowed) and count of tensor-core instructions (HMMA, from
+   cuobjdump; the bf16 forward, dq and dk/dv kernels must have some);
 3. kernels: the forward kernel against its plain PyTorch version on the
    GPU, at every shape the SSI path gives it, in bf16 and f32, plus padded
-   multi-scene batches; every output row must be finite. Times (CUDA
-   events) beside the bound and the time of the equivalent library call;
+   multi-scene batches; every output row must be finite, and a second run
+   bit-equal to the first. Times (CUDA events) beside the bound and the
+   time of the equivalent library call;
 4. ssi: CDSegNet single-step inference at the full width of
    `configs/scannet/cdsegnet.py` (random weights from a seed) on a
    104,448-point synthetic scene: launches counted, checked against the
@@ -24,7 +25,8 @@ Phases, each fatal on failure:
    validity, g zero on invalid rows), in bf16 and f32, timed beside their
    bounds, the plain version and `scaled_dot_product_attention`; then
    boundary layouts (scenes and patches that cut the kernels' tiles at odd
-   offsets, padding rows, D = 32); every backward run twice, bit-equal;
+   offsets, padding rows, D = 32); every forward and backward run twice,
+   bit-equal;
 6. train: the CNF training step of the same config at its bucket (2 scenes,
    204,800 slots, serialization depth 12; bf16, shuffled curves, drop_path
    0.3, MSE subsampling, GLS, AdamW + OneCycle with the "block" group):
@@ -163,9 +165,13 @@ def check_kernel_case(torch, batch, valid, h, d, patch, dtype, gen):
                for _ in range(3))
     scale = d ** -0.5
     out = patch_attention_fwd(q, k, v, batch, valid, patch, scale)
+    again = patch_attention_fwd(q, k, v, batch, valid, patch, scale)
     torch.cuda.synchronize()
     want = patch_attention(q, k, v, batch, valid, patch, scale, upcast_softmax=True)
     name = str(dtype).replace("torch.", "")
+    if not torch.equal(out, again):
+        fail(f"two forward runs differ at {(n, h, d)} patch {patch} {name}")
+    del again
     if not torch.isfinite(out.float()).all():
         fail(f"kernel output has non-finite rows at {(n, h, d)} {name}")
     err = (out.float() - want.float())[valid].abs().max().item()
@@ -331,9 +337,9 @@ def shape_bound(flops, nbytes, dtype_name):
 def check_train_case(torch, batch, valid, h, d, patch, dtype, gen, timed=True):
     """The forward kernel with its log-sum-exp and the two backward kernels
     against autograd through the plain version, on random q, k, v and an
-    output gradient that is zero on invalid rows, and a second backward run
-    bit-equal to the first; then, when ``timed``, the times of each direction
-    beside its bound, the plain version and SDPA."""
+    output gradient that is zero on invalid rows, and a second forward and
+    backward run bit-equal to the first; then, when ``timed``, the times of
+    each direction beside its bound, the plain version and SDPA."""
     import torch.nn.functional as F
 
     from cdsegnet_torch.ops import flash_attention as fa
@@ -348,6 +354,7 @@ def check_train_case(torch, batch, valid, h, d, patch, dtype, gen, timed=True):
     g = torch.where(valid[:, None, None], g, 0.0).to(dtype)
 
     out, lse = fa._launch_fwd(q, k, v, batch, valid, patch, scale, with_lse=True)
+    out2, lse2 = fa._launch_fwd(q, k, v, batch, valid, patch, scale, with_lse=True)
     dq, delta = fa.patch_attention_bwd_dq(q, k, v, out, g, lse, batch, valid,
                                           patch, scale)
     dk, dv = fa.patch_attention_bwd_dkdv(q, k, v, g, lse, delta, batch, valid,
@@ -357,10 +364,12 @@ def check_train_case(torch, batch, valid, h, d, patch, dtype, gen, timed=True):
     dk2, dv2 = fa.patch_attention_bwd_dkdv(q, k, v, g, lse, delta2, batch, valid,
                                            patch, scale)
     torch.cuda.synchronize()
+    if not (torch.equal(out, out2) and torch.equal(lse, lse2)):
+        fail(f"two forward runs differ at {(n, h, d)} patch {patch} {name}")
     if not all(torch.equal(a, b) for a, b in
                ((dq, dq2), (delta, delta2), (dk, dk2), (dv, dv2))):
         fail(f"two backward runs differ at {(n, h, d)} patch {patch} {name}")
-    del dq2, delta2, dk2, dv2
+    del out2, lse2, dq2, delta2, dk2, dv2
     leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
     ref_out = patch_attention(*leaves, batch, valid, patch, scale,
                               upcast_softmax=True)
@@ -656,10 +665,12 @@ def main() -> int:
                 print(f"build ptxas {name}: {line.strip()}", flush=True)
             if re.search(r"[1-9]\d* bytes spill", line):
                 fail(f"{name} spills registers: {line.strip()}")
-    hmma = cuda_build.sass_counts(BWD_KERNEL, "HMMA")
-    for fn, count in sorted(hmma.items()):
-        print(f"build sass {BWD_KERNEL}: HMMA {count} in {fn}", flush=True)
-    for kernel in ("bwd_dq_mma_kernel", "bwd_dkdv_mma_kernel"):
+    hmma = {}
+    for name in SOURCES:
+        for fn, count in sorted(cuda_build.sass_counts(name, "HMMA").items()):
+            print(f"build sass {name}: HMMA {count} in {fn}", flush=True)
+            hmma[fn] = count
+    for kernel in ("fwd_mma_kernel", "bwd_dq_mma_kernel", "bwd_dkdv_mma_kernel"):
         if not any(kernel in fn and count > 0 for fn, count in hmma.items()):
             fail(f"the bf16 {kernel} has no tensor-core instruction")
 

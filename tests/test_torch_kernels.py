@@ -6,6 +6,8 @@ Tests marked ``cuda`` need a GPU and skip without one; the others check the
 wrappers' CPU route and input validation.
 """
 
+import shutil
+
 import numpy as np
 import pytest
 
@@ -13,12 +15,14 @@ torch = pytest.importorskip("torch")
 
 from cdsegnet_torch.ops.attention import patch_attention  # noqa: E402
 from cdsegnet_torch.ops.flash_attention import (  # noqa: E402
+    SOURCES,
     _check,
     _launch_fwd,
     patch_attention_bwd_dkdv,
     patch_attention_bwd_dq,
     patch_attention_fwd,
 )
+from cdsegnet_torch.utils import cuda_build  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -48,7 +52,10 @@ BOUNDARY_CASES = [(8192, 2, 16, 1024, [2500, 3100, 1772]),
                   (2048, 4, 32, 512, [922, 921]),
                   (1024, 2, 16, 64, [101, 333, 451]),
                   (1000, 2, 32, 200, [333, 401])]
-GPU_CASES = CASES + BOUNDARY_CASES
+# one scene, every row valid: only the tensor-core kernels' open path (no
+# per-element mask test) runs
+OPEN_CASE = (4096, 2, 16, 1024, [4096])
+GPU_CASES = CASES + BOUNDARY_CASES + [OPEN_CASE]
 
 
 @pytest.mark.parametrize("case", CASES)
@@ -81,6 +88,24 @@ def test_kernel_inputs_are_checked(bad, error):
         q = q.transpose(0, 1).contiguous().transpose(0, 1)
     with pytest.raises(error):
         _check(q, k, v, b, m, patch)
+
+
+def test_build_hash_covers_the_shared_headers(tmp_path, monkeypatch):
+    """A kernel builds anew when a shared header changes or is added, not
+    only when its own .cu does; a file that is neither leaves it be."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(cuda_build.CSRC, csrc)
+    monkeypatch.setattr(cuda_build, "CSRC", csrc)
+    paths = lambda: [cuda_build.library_path(name) for name in SOURCES]  # noqa: E731
+    before = paths()
+    (csrc / "notes.txt").write_text("not a source\n")
+    assert paths() == before
+    header = csrc / "attention_tiles.cuh"
+    header.write_text(header.read_text() + "// edited\n")
+    edited = paths()
+    assert all(a != b for a, b in zip(before, edited))
+    (csrc / "more.cuh").write_text("#pragma once\n")
+    assert all(a != b for a, b in zip(edited, paths()))
 
 
 @pytest.fixture
@@ -170,20 +195,42 @@ def test_backward_kernels_match_autograd_on_gpu(cuda_device, case, dtype):
 
 
 @pytest.mark.cuda
-def test_forward_log_sum_exp_on_gpu(cuda_device):
-    n, h, d, patch, sizes = CASES[0]
+@pytest.mark.parametrize("case", GPU_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_forward_log_sum_exp_on_gpu(cuda_device, case, dtype):
+    n, h, d, patch, sizes = case
     q, k, v, b, m = attention_inputs(n, h, d, patch, sizes, device=cuda_device)
+    dt = getattr(torch, dtype)
+    q, k, v = q.to(dt), k.to(dt), v.to(dt)
     with torch.no_grad():
         _, lse = _launch_fwd(q, k, v, b, m, patch, d ** -0.5, with_lse=True)
     p = n // patch
-    qp, kp = q.view(p, patch, h, d), k.view(p, patch, h, d)
+    qp, kp = q.float().view(p, patch, h, d), k.float().view(p, patch, h, d)
     s = torch.einsum("pihd,pjhd->phij", qp, kp) * d ** -0.5
     bp = b.view(p, patch)
     allowed = (bp[:, :, None] == bp[:, None, :]) & m.view(p, 1, patch)
     s = s.masked_fill(~allowed[:, None], float("-inf"))
     want = torch.logsumexp(s, -1).permute(0, 2, 1).reshape(n, h)
     assert torch.isneginf(lse[~m]).all()
+    # bf16 too: products of bf16 values are exact in the f32 accumulators,
+    # and the row sum adds the f32 probabilities
     assert (lse[m] - want[m]).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", GPU_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_forward_kernel_is_deterministic_on_gpu(cuda_device, case, dtype):
+    n, h, d, patch, sizes = case
+    q, k, v, b, m = attention_inputs(n, h, d, patch, sizes, device=cuda_device)
+    dt = getattr(torch, dtype)
+    q, k, v = q.to(dt), k.to(dt), v.to(dt)
+    for with_lse in (False, True):
+        first, second = (_launch_fwd(q, k, v, b, m, patch, d ** -0.5, with_lse)
+                         for _ in range(2))
+        assert torch.equal(first[0], second[0])
+        if with_lse:
+            assert torch.equal(first[1], second[1])
 
 
 @pytest.mark.cuda

@@ -60,6 +60,28 @@ def test_patch_attention_matches_jax(route, patch):
 
 
 @pytest.mark.parametrize("patch", [64, 128])
+def test_patch_attention_bf16_matches_pallas(patch):
+    """The port's plain version on bf16 inputs with the softmax in f32, the
+    contract `chip_smoke.py` holds the bf16 kernel to, against the TPU kernel
+    in interpret mode on the same bf16 inputs. Both round p to bf16 before
+    p.v, but from f32 logits and sums that round differently (mask constants
+    -1e9 and -1e30, other orders of summation), so a p can land on the other
+    side of a bf16 rounding boundary: valid rows agree within 2e-2 of max
+    |o|, the kernels' bf16 gate on the card."""
+    q, k, v, bs, ms = _attn_inputs(seed=5)
+    scale = 16 ** -0.5
+    want = flash_patch_attention(*(jnp.asarray(x, dtype=jnp.bfloat16) for x in (q, k, v)),
+                                 jnp.asarray(bs), jnp.asarray(ms), patch, scale,
+                                 interpret=True)
+    assert want.dtype == jnp.bfloat16
+    got = tattn.patch_attention(*(T(x).to(torch.bfloat16) for x in (q, k, v)), T(bs), T(ms),
+                                patch, scale, upcast_softmax=True)
+    assert got.dtype == torch.bfloat16
+    got, want = got.float().numpy()[ms], np.asarray(want.astype(jnp.float32))[ms]
+    assert np.abs(got - want).max() <= 2e-2 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("patch", [64, 128])
 def test_patch_attention_gradient_matches_pallas_backward(patch):
     """The port's gradient of q, k and v (the wrapper, which on the CPU runs
     the plain version under autograd) against the TPU kernel's own backward,

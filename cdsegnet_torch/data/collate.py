@@ -1,0 +1,94 @@
+"""Static-shape batch collation.
+
+Port of `collate_scenes` and `pick_bucket` of `cdsegnet_tpu/data/collate.py`:
+scenes are concatenated into a fixed ``num_points`` bucket with a validity
+mask and per-point scene ids, the layout `models.structure.PointBatch`
+takes. The bucket size also sets the pyramid's per-level capacities
+(``capacity_div``), so the same buckets as the JAX package keep the same
+drops. Mix3D, paired views and per-device stacks come with the trainer.
+"""
+
+from __future__ import annotations
+
+import sys
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+
+
+def collate_scenes(
+    scenes: List[Dict],
+    num_points: int,
+    num_scenes: Optional[int] = None,
+    feat_dim: Optional[int] = None,
+    extra_float_keys: Sequence[str] = (),
+) -> Dict[str, np.ndarray]:
+    """Pack scenes into one static bucket.
+
+    Returns numpy arrays: coord (N,3) f32, grid_coord (N,3) i32, feat (N,C)
+    f32, segment (N,) i32, batch (N,) i32, mask (N,) bool. Scenes overflowing
+    the bucket are truncated tail-first (with a stderr warning).
+    """
+    num_scenes = num_scenes or len(scenes)
+    assert len(scenes) <= num_scenes, (len(scenes), num_scenes)
+    if feat_dim is None:
+        feat_dim = scenes[0]["feat"].shape[-1]
+    coord = np.zeros((num_points, 3), np.float32)
+    grid = np.zeros((num_points, 3), np.int32)
+    feat = np.zeros((num_points, feat_dim), np.float32)
+    segment = np.full((num_points,), -1, np.int32)
+    batch = np.full((num_points,), num_scenes, np.int32)
+    mask = np.zeros((num_points,), bool)
+    has_inst = any("instance" in s for s in scenes)
+    instance = np.full((num_points,), -1, np.int32) if has_inst else None
+    centroid = np.zeros((num_points, 3), np.float32) if has_inst else None
+    extras = {
+        k: np.zeros((num_points, scenes[0][k].shape[-1]), np.float32)
+        for k in extra_float_keys
+    }
+    pos = 0
+    inst_base = 0  # keep instance ids unique across scenes in the bucket
+    for i, s in enumerate(scenes):
+        n = s["coord"].shape[0]
+        room = num_points - pos
+        if n > room:
+            print(f"collate_scenes: truncating scene {i} ({n} -> {room} points)",
+                  file=sys.stderr)
+            n = room
+        if n <= 0:
+            break
+        sl = slice(pos, pos + n)
+        coord[sl] = s["coord"][:n]
+        if "grid_coord" in s:
+            grid[sl] = s["grid_coord"][:n]
+        feat[sl] = s["feat"][:n]
+        if "segment" in s:
+            segment[sl] = np.asarray(s["segment"][:n]).reshape(-1)
+        if has_inst and "instance" in s:
+            inst = np.asarray(s["instance"][:n]).reshape(-1).astype(np.int32)
+            instance[sl] = np.where(inst >= 0, inst + inst_base, -1)
+            inst_base += int(inst.max()) + 1 if inst.size and inst.max() >= 0 else 0
+            if "instance_centroid" in s:
+                centroid[sl] = s["instance_centroid"][:n]
+        for k in extra_float_keys:
+            extras[k][sl] = s[k][:n]
+        batch[sl] = i
+        mask[sl] = True
+        pos += n
+    out = dict(
+        coord=coord, grid_coord=grid, feat=feat, segment=segment,
+        batch=batch, mask=mask,
+    )
+    if has_inst:
+        out["instance"] = instance
+        out["instance_centroid"] = centroid
+    out.update(extras)
+    return out
+
+
+def pick_bucket(n: int, buckets: Sequence[int]) -> int:
+    """Smallest bucket that fits n points (largest bucket if none fit)."""
+    for b in sorted(buckets):
+        if n <= b:
+            return b
+    return max(buckets)

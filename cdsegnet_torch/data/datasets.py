@@ -1,0 +1,244 @@
+"""Datasets: the base dataset, ScanNet and ScanNet200.
+
+Port of `DefaultDataset`, `ScanNetDataset`, `ScanNet200Dataset` and
+`build_dataset` of `cdsegnet_tpu/data/datasets.py` (reference
+`pointcept/datasets/{defaults,scannet}.py`): plain indexable objects whose
+``get(idx, rng)`` runs the transform pipeline with an explicit numpy
+generator; in test mode it expands every test-time augmentation into
+fragments. Scene files are Pointcept `.pth` archives or per-field `.npy`
+directories. The shared decode cache (``cache=True``) and the other
+datasets of the JAX package are not ported.
+"""
+
+from __future__ import annotations
+
+import glob
+import os
+from copy import deepcopy
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from cdsegnet_torch.data.transforms import TRANSFORMS, Compose
+from cdsegnet_torch.utils.registry import Registry
+
+DATASETS = Registry("datasets")
+
+
+def _load_scene(path: str) -> Dict:
+    if os.path.isdir(path):
+        data = {}
+        for f in glob.glob(os.path.join(path, "*.npy")):
+            data[os.path.splitext(os.path.basename(f))[0]] = np.load(f)
+        data["scene_id"] = os.path.basename(path)
+        return data
+    # Pointcept archives hold numpy arrays, which weights_only refuses
+    data = torch.load(path, map_location="cpu", weights_only=False)
+    return {
+        k: (v.numpy() if hasattr(v, "numpy") else v) for k, v in data.items()
+    }
+
+
+@DATASETS.register_module()
+class DefaultDataset:
+    """Reference `DefaultDataset` (`defaults.py:21-181`)."""
+
+    def __init__(
+        self,
+        split: str = "train",
+        data_root: str = "data/dataset",
+        transform=None,
+        test_mode: bool = False,
+        test_cfg: Optional[Dict] = None,
+        loop: int = 1,
+        ignore_index: int = -1,
+        cache: bool = False,
+    ):
+        if cache:
+            raise NotImplementedError("the shared decode cache is not ported")
+        self.split = split
+        self.data_root = data_root
+        self.transform = Compose(transform)
+        self.test_mode = test_mode
+        self.test_cfg = test_cfg if test_mode else None
+        self.loop = loop if not test_mode else 1
+        self.ignore_index = ignore_index
+        if test_mode:
+            tc = dict(test_cfg or {})
+            self.test_voxelize = (
+                TRANSFORMS.build(dict(tc["voxelize"])) if tc.get("voxelize") else None
+            )
+            if tc.get("crop"):
+                raise NotImplementedError("test-time crops (SphereCrop) are not ported")
+            self.post_transform = Compose(tc.get("post_transform"))
+            self.aug_transform = [Compose(a) for a in tc.get("aug_transform", [[]])]
+        self.data_list = self.get_data_list()
+
+    def get_data_list(self) -> List[str]:
+        if isinstance(self.split, str):
+            splits = [self.split]
+        else:
+            splits = list(self.split)
+        out = []
+        for s in splits:
+            out += sorted(glob.glob(os.path.join(self.data_root, s, "*")))
+        return out
+
+    def get_data(self, idx: int) -> Dict:
+        data = _load_scene(self.data_list[idx % len(self.data_list)])
+        coord = np.asarray(data["coord"], np.float32)
+        out = dict(coord=coord)
+        for k in ("color", "normal", "strength"):
+            if k in data:
+                out[k] = np.asarray(data[k], np.float32)
+        if "semantic_gt" in data:
+            out["segment"] = np.asarray(data["semantic_gt"]).reshape(-1).astype(np.int64)
+        elif "segment" in data:
+            out["segment"] = np.asarray(data["segment"]).reshape(-1).astype(np.int64)
+        else:
+            out["segment"] = np.full((coord.shape[0],), self.ignore_index, np.int64)
+        for k in ("instance_gt", "instance"):
+            if k in data:
+                out["instance"] = np.asarray(data[k]).reshape(-1).astype(np.int64)
+                break
+        return out
+
+    def get_data_name(self, idx: int) -> str:
+        return os.path.splitext(
+            os.path.basename(self.data_list[idx % len(self.data_list)])
+        )[0]
+
+    def prepare_train_data(self, idx: int, rng: np.random.Generator) -> Dict:
+        return self.transform(self.get_data(idx), rng)
+
+    def prepare_test_data(self, idx: int, rng: np.random.Generator) -> Dict:
+        """Per-TTA-aug fragment expansion (reference `defaults.py:115-155`)."""
+        data = self.get_data(idx)
+        segment = data.pop("segment")
+        result = dict(segment=segment, name=self.get_data_name(idx))
+        if "category" in data:
+            result["category"] = int(data.pop("category"))
+        data = self.transform(data, rng)
+        fragment_list = []
+        for aug in self.aug_transform:
+            aug_data = aug(deepcopy(data), rng)
+            if self.test_voxelize is not None:
+                parts = self.test_voxelize(aug_data, rng)
+            else:
+                aug_data["index"] = np.arange(aug_data["coord"].shape[0])
+                parts = [aug_data]
+            fragment_list += parts
+        result["fragment_list"] = [
+            self.post_transform(f, rng) for f in fragment_list
+        ]
+        return result
+
+    def get(self, idx: int, rng: Optional[np.random.Generator] = None) -> Dict:
+        rng = rng or np.random.default_rng()
+        if self.test_mode:
+            return self.prepare_test_data(idx, rng)
+        return self.prepare_train_data(idx, rng)
+
+    def __len__(self):
+        return len(self.data_list) * self.loop
+
+
+# ScanNet v2 semantic-20 valid class ids (reference
+# `preprocessing/scannet/meta_data/scannet200_constants.py`).
+VALID_CLASS_IDS_20 = (
+    1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 14, 16, 24, 28, 33, 34, 36, 39,
+)
+
+SCANNET20_NAMES = [
+    "wall", "floor", "cabinet", "bed", "chair", "sofa", "table", "door",
+    "window", "bookshelf", "picture", "counter", "desk", "curtain",
+    "refridgerator", "shower curtain", "toilet", "sink", "bathtub",
+    "otherfurniture",
+]
+
+
+@DATASETS.register_module()
+class ScanNetDataset(DefaultDataset):
+    """ScanNet 20-class (reference `scannet.py:26-185`)."""
+
+    segment_key = "semantic_gt20"
+    class2id = np.array(VALID_CLASS_IDS_20)
+
+    def __init__(self, lr_file=None, la_file=None, **kwargs):
+        self.lr_file = lr_file
+        self.la_file = la_file
+        super().__init__(**kwargs)
+        self.la = None
+        if la_file:
+            self.la = torch.load(la_file, weights_only=False)
+
+    def get_data_list(self):
+        if self.lr_file:
+            return [
+                os.path.join(self.data_root, "train", name + ".pth")
+                for name in np.loadtxt(self.lr_file, dtype=str)
+            ]
+        return super().get_data_list()
+
+    def get_data(self, idx: int) -> Dict:
+        data = _load_scene(self.data_list[idx % len(self.data_list)])
+        coord = np.asarray(data["coord"], np.float32)
+        out = dict(
+            coord=coord,
+            color=np.asarray(data["color"], np.float32),
+            normal=np.asarray(data["normal"], np.float32),
+        )
+        if self.segment_key in data:
+            seg = np.asarray(data[self.segment_key]).reshape(-1).astype(np.int64)
+        elif "segment20" in data:
+            seg = np.asarray(data["segment20"]).reshape(-1).astype(np.int64)
+        else:
+            seg = np.full((coord.shape[0],), -1, np.int64)
+        out["segment"] = seg
+        if "instance_gt" in data:
+            out["instance"] = (
+                np.asarray(data["instance_gt"]).reshape(-1).astype(np.int64)
+            )
+        elif "instance" in data:
+            out["instance"] = (
+                np.asarray(data["instance"]).reshape(-1).astype(np.int64)
+            )
+        if self.la is not None:
+            sampled = self.la[self.get_data_name(idx)]
+            mask = np.ones_like(seg, bool)
+            mask[sampled] = False
+            seg[mask] = self.ignore_index
+            out["segment"] = seg
+            out["sampled_index"] = sampled
+        return out
+
+
+# ScanNet200 benchmark valid class ids (reference
+# `preprocessing/scannet/meta_data/scannet200_constants.py:91`).
+VALID_CLASS_IDS_200 = (
+    1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 13, 14, 15, 16, 17, 18, 19, 21, 22,
+    23, 24, 26, 27, 28, 29, 31, 32, 33, 34, 35, 36, 38, 39, 40, 41, 42, 44,
+    45, 46, 47, 48, 49, 50, 51, 52, 54, 55, 56, 57, 58, 59, 62, 63, 64, 65,
+    66, 67, 68, 69, 70, 71, 72, 73, 74, 75, 76, 77, 78, 79, 80, 82, 84, 86,
+    87, 88, 89, 90, 93, 95, 96, 97, 98, 99, 100, 101, 102, 103, 104, 105,
+    106, 107, 110, 112, 115, 116, 118, 120, 121, 122, 125, 128, 130, 131,
+    132, 134, 136, 138, 139, 140, 141, 145, 148, 154, 155, 156, 157, 159,
+    161, 163, 165, 166, 168, 169, 170, 177, 180, 185, 188, 191, 193, 195,
+    202, 208, 213, 214, 221, 229, 230, 232, 233, 242, 250, 261, 264, 276,
+    283, 286, 300, 304, 312, 323, 325, 331, 342, 356, 370, 392, 395, 399,
+    408, 417, 488, 540, 562, 570, 572, 581, 609, 748, 776, 1156, 1163, 1164,
+    1165, 1166, 1167, 1168, 1169, 1170, 1171, 1172, 1173, 1174, 1175, 1176,
+    1178, 1179, 1180, 1181, 1182, 1183, 1184, 1185, 1186, 1187, 1188, 1189,
+    1190, 1191,
+)
+
+
+@DATASETS.register_module()
+class ScanNet200Dataset(ScanNetDataset):
+    segment_key = "semantic_gt200"
+    class2id = np.array(VALID_CLASS_IDS_200)
+
+
+def build_dataset(cfg: Dict):
+    return DATASETS.build(dict(cfg))

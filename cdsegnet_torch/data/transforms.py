@@ -1,0 +1,304 @@
+"""Host-side (numpy) data transforms.
+
+Port of the transforms of `cdsegnet_tpu/data/transforms.py` that the shipped
+test and val pipelines use (reference `pointcept/datasets/transform.py`),
+with the same two conventions:
+
+- every transform takes ``(data_dict, rng)`` with an explicit
+  `numpy.random.Generator`, so the whole pipeline is reproducible per sample
+  and draws what the JAX package draws for the same seed;
+- point-wise keys are subset generically via `take()`.
+
+`GridSample` keeps the reference's voxel-hash semantics (FNV-1a; train: one
+random point per voxel; test: every rotation of per-voxel picks as a
+fragment list, `transform.py:796-933`). It hashes and picks with the numpy
+versions of the JAX package's host library (`cdsegnet_tpu/data/native.py`);
+the pick sorts stably, where the C library's `std::sort` may order equal
+keys otherwise. The training augmentations (dropout, jitter, elastic
+distortion, chromatic, sphere crop) come with the trainer.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+
+from cdsegnet_torch.utils.registry import Registry
+
+TRANSFORMS = Registry("transforms")
+
+POINT_KEYS = (
+    "coord", "grid_coord", "origin_coord", "color", "normal", "strength",
+    "segment", "instance", "instance_centroid", "displacement", "index",
+)
+
+
+def take(data: Dict, idx: np.ndarray) -> Dict:
+    """Subset every point-wise key by ``idx``."""
+    for k in POINT_KEYS:
+        if k in data:
+            data[k] = data[k][idx]
+    return data
+
+
+class Compose:
+    def __init__(self, cfgs: Optional[Sequence[Dict]] = None):
+        self.transforms = [TRANSFORMS.build(dict(c)) for c in (cfgs or [])]
+
+    def __call__(self, data: Dict, rng: Optional[np.random.Generator] = None):
+        rng = rng or np.random.default_rng()
+        for t in self.transforms:
+            data = t(data, rng)
+        return data
+
+
+@TRANSFORMS.register_module()
+class Collect:
+    """Assemble `feat` from feat_keys and keep only requested keys
+    (reference `transform.py:27-50`; batching is the static-shape
+    collator's)."""
+
+    def __init__(self, keys=("coord", "grid_coord", "segment"),
+                 feat_keys=("color", "normal")):
+        self.keys = keys
+        self.feat_keys = feat_keys
+
+    def __call__(self, data, rng=None):
+        out = {k: data[k] for k in self.keys if k in data}
+        out["feat"] = np.concatenate(
+            [np.atleast_2d(data[k].T).T for k in self.feat_keys], axis=-1
+        ).astype(np.float32)
+        return out
+
+
+@TRANSFORMS.register_module()
+class NormalizeColor:
+    def __call__(self, data, rng=None):
+        if "color" in data:
+            data["color"] = data["color"] / 127.5 - 1.0
+        return data
+
+
+@TRANSFORMS.register_module()
+class CenterShift:
+    def __init__(self, apply_z=True):
+        self.apply_z = apply_z
+
+    def __call__(self, data, rng=None):
+        if "coord" in data:
+            lo = data["coord"].min(axis=0)
+            hi = data["coord"].max(axis=0)
+            shift = np.array(
+                [(lo[0] + hi[0]) / 2, (lo[1] + hi[1]) / 2,
+                 lo[2] if self.apply_z else 0.0]
+            )
+            data["coord"] = data["coord"] - shift
+        return data
+
+
+def _rot_matrix(angle: float, axis: str) -> np.ndarray:
+    c, s = np.cos(angle), np.sin(angle)
+    if axis == "x":
+        return np.array([[1, 0, 0], [0, c, -s], [0, s, c]])
+    if axis == "y":
+        return np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]])
+    if axis == "z":
+        return np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]])
+    raise NotImplementedError(axis)
+
+
+class _RotateBase:
+    def _apply(self, data, angle, axis, center):
+        rot = _rot_matrix(angle, axis)
+        if "coord" in data:
+            if center is None:
+                lo, hi = data["coord"].min(0), data["coord"].max(0)
+                center = (lo + hi) / 2
+            data["coord"] = (data["coord"] - center) @ rot.T + center
+        if "normal" in data:
+            data["normal"] = data["normal"] @ rot.T
+        return data
+
+
+@TRANSFORMS.register_module()
+class RandomRotate(_RotateBase):
+    def __init__(self, angle=None, center=None, axis="z", always_apply=False, p=0.5):
+        self.angle = [-1, 1] if angle is None else angle
+        self.axis = axis
+        self.p = 1.0 if always_apply else p
+        self.center = center
+
+    def __call__(self, data, rng):
+        if rng.random() > self.p:
+            return data
+        angle = rng.uniform(self.angle[0], self.angle[1]) * np.pi
+        return self._apply(data, angle, self.axis, self.center)
+
+
+@TRANSFORMS.register_module()
+class RandomRotateTargetAngle(_RotateBase):
+    def __init__(self, angle=(1 / 2, 1, 3 / 2), center=None, axis="z",
+                 always_apply=False, p=0.75):
+        self.angle = angle
+        self.axis = axis
+        self.p = 1.0 if always_apply else p
+        self.center = center
+
+    def __call__(self, data, rng):
+        if rng.random() > self.p:
+            return data
+        angle = rng.choice(self.angle) * np.pi
+        return self._apply(data, angle, self.axis, self.center)
+
+
+@TRANSFORMS.register_module()
+class RandomScale:
+    def __init__(self, scale=None, anisotropic=False):
+        self.scale = scale or [0.95, 1.05]
+        self.anisotropic = anisotropic
+
+    def __call__(self, data, rng):
+        if "coord" in data:
+            s = rng.uniform(self.scale[0], self.scale[1],
+                            3 if self.anisotropic else 1)
+            data["coord"] = data["coord"] * s
+        return data
+
+
+@TRANSFORMS.register_module()
+class RandomFlip:
+    def __init__(self, p=0.5):
+        self.p = p
+
+    def __call__(self, data, rng):
+        for axis in (0, 1):
+            if rng.random() < self.p:
+                if "coord" in data:
+                    data["coord"][:, axis] = -data["coord"][:, axis]
+                if "normal" in data:
+                    data["normal"][:, axis] = -data["normal"][:, axis]
+        return data
+
+
+def fnv_hash_vec(arr: np.ndarray) -> np.ndarray:
+    """FNV64-1A voxel hash (reference `transform.py:920-933`)."""
+    assert arr.ndim == 2
+    arr = arr.astype(np.uint64, copy=True)
+    h = np.uint64(14695981039346656037) * np.ones(arr.shape[0], np.uint64)
+    for j in range(arr.shape[1]):
+        h *= np.uint64(1099511628211)
+        h = np.bitwise_xor(h, arr[:, j])
+    return h
+
+
+def ravel_hash_vec(arr: np.ndarray) -> np.ndarray:
+    assert arr.ndim == 2
+    arr = arr.copy()
+    arr -= arr.min(0)
+    arr = arr.astype(np.uint64)
+    amax = arr.max(0).astype(np.uint64) + 1
+    keys = np.zeros(arr.shape[0], np.uint64)
+    for j in range(arr.shape[1] - 1):
+        keys += arr[:, j]
+        keys *= amax[j + 1]
+    keys += arr[:, -1]
+    return keys
+
+
+def grid_sample_pick(keys: np.ndarray, offsets: np.ndarray) -> np.ndarray:
+    """One index per occupied voxel, voxels in key order; ``offsets``
+    rotates the pick within each voxel (stable sort: equal keys keep their
+    input order)."""
+    order = np.argsort(keys, kind="stable")
+    _, counts = np.unique(keys[order], return_counts=True)
+    starts = np.cumsum(np.insert(counts, 0, 0))[:-1]
+    return order[starts + offsets[: counts.size] % counts]
+
+
+@TRANSFORMS.register_module()
+class GridSample:
+    """Voxel grid sampling (reference `transform.py:796-933`).
+
+    train mode: one random point per voxel. test mode: every rotation of
+    per-voxel picks, emitted as a fragment list for vote-based inference.
+    """
+
+    def __init__(self, grid_size=0.05, hash_type="fnv", mode="train",
+                 keys=("coord", "color", "normal", "segment"),
+                 return_inverse=False, return_grid_coord=False,
+                 return_min_coord=False):
+        self.grid_size = grid_size
+        self.hash = fnv_hash_vec if hash_type == "fnv" else ravel_hash_vec
+        assert mode in ("train", "test")
+        self.mode = mode
+        self.keys = keys
+        self.return_inverse = return_inverse
+        self.return_grid_coord = return_grid_coord
+        self.return_min_coord = return_min_coord
+
+    def __call__(self, data, rng):
+        assert "coord" in data
+        scaled = data["coord"] / np.array(self.grid_size)
+        grid = np.floor(scaled).astype(int)
+        gmin = grid.min(0)
+        grid -= gmin
+        key = self.hash(grid)
+        if (
+            self.mode == "train"
+            and not self.return_inverse
+            and "sampled_index" not in data
+        ):
+            idx_unique = grid_sample_pick(
+                key.astype(np.uint64),
+                rng.integers(0, np.iinfo(np.int64).max, key.shape[0]),
+            )
+            if self.return_grid_coord:
+                data["grid_coord"] = grid[idx_unique]
+            if self.return_min_coord:
+                data["min_coord"] = (gmin * self.grid_size).reshape(1, 3)
+            for k in self.keys:
+                if k in data:
+                    data[k] = data[k][idx_unique]
+            return data
+        idx_sort = np.argsort(key)
+        key_sort = key[idx_sort]
+        _, inverse, count = np.unique(key_sort, return_inverse=True,
+                                      return_counts=True)
+        starts = np.cumsum(np.insert(count, 0, 0)[:-1])
+        if self.mode == "train":
+            idx_select = starts + rng.integers(0, count.max(), count.size) % count
+            idx_unique = idx_sort[idx_select]
+            if "sampled_index" in data:
+                idx_unique = np.unique(
+                    np.append(idx_unique, data["sampled_index"])
+                )
+                mask = np.zeros(len(data["segment"]), bool)
+                mask[data["sampled_index"]] = True
+                data["sampled_index"] = np.where(mask[idx_unique])[0]
+            if self.return_inverse:
+                inv = np.zeros_like(inverse)
+                inv[idx_sort] = inverse
+                data["inverse"] = inv
+            if self.return_grid_coord:
+                data["grid_coord"] = grid[idx_unique]
+            if self.return_min_coord:
+                data["min_coord"] = (gmin * self.grid_size).reshape(1, 3)
+            for k in self.keys:
+                if k in data:
+                    data[k] = data[k][idx_unique]
+            return data
+        # test mode -> fragment list over per-voxel rotations
+        fragments: List[Dict] = []
+        for i in range(count.max()):
+            idx_part = idx_sort[starts + i % count]
+            part = dict(index=idx_part)
+            if self.return_grid_coord:
+                part["grid_coord"] = grid[idx_part]
+            for k, v in data.items():
+                if k in self.keys:
+                    part[k] = v[idx_part]
+                elif k != "index":
+                    part[k] = v
+            fragments.append(part)
+        return fragments

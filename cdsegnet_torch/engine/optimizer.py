@@ -121,6 +121,14 @@ class KeywordAdamW:
         """The learning rate of the next update, per group."""
         return {g: s(self.count) for g, s in zip(self.group_names, self.schedules)}
 
+    def state_dict(self) -> Dict[str, Any]:
+        """The moments and the update count, for checkpoints."""
+        return dict(opt=self.opt.state_dict(), count=self.count)
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        self.opt.load_state_dict(state["opt"])
+        self.count = int(state["count"])
+
     def step(self) -> None:
         clip_by_keyword(self.named_params, self.clip_keywords, 0.1)
         for group, sched in zip(self.opt.param_groups, self.schedules):

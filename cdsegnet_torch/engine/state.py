@@ -8,18 +8,30 @@ parameters and running statistics; the moments and the update count). Three
 generators, seeded once, take the place of the step's rng split: dropout
 and diffusion on the device, shuffle on the CPU. Microbatch accumulation
 and a device mesh are not ported and raise `NotImplementedError`.
+`batch_to_point` turns a collated numpy batch into a `PointBatch`.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Dict, Optional, Union
 
+import numpy as np
 import torch
 
 from cdsegnet_torch.engine.optimizer import KeywordAdamW
 from cdsegnet_torch.models.losses import Criteria
-from cdsegnet_torch.models.structure import PointBatch
+from cdsegnet_torch.models.structure import PointBatch, make_point_batch
 from cdsegnet_torch.utils.device import resolve_device
+
+
+def batch_to_point(batch: Dict[str, np.ndarray], depth: int, num_scenes: int,
+                   device: Optional[Union[str, torch.device]] = None) -> PointBatch:
+    """A collated batch (`data.collate.collate_scenes`) as a `PointBatch` on
+    ``device`` (the GPU unless the caller names another)."""
+    return make_point_batch(
+        coord=batch["coord"], feat=batch["feat"], grid_coord=batch["grid_coord"],
+        batch=batch["batch"], mask=batch["mask"], segment=batch.get("segment"),
+        depth=depth, num_scenes=num_scenes, device=device)
 
 
 def make_generators(seed: int, device: torch.device) -> Dict[str, torch.Generator]:

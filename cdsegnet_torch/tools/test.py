@@ -1,0 +1,80 @@
+"""Testing entry point of the port (TTA fragment-voting evaluation).
+
+Usage:
+    python -m cdsegnet_torch.tools.test --config-file configs/scannet/cdsegnet.py \
+        --checkpoint model_best [--options data.test.data_root=... ...] \
+        [--device cpu]
+
+Counterpart of `tools/test.py`. ``--checkpoint`` names a checkpoint written
+by the port's `engine.checkpoint.CheckpointManager` under
+``<save_path>/model`` (an absolute path works too); orbax checkpoints of the
+JAX package are not read. It runs on the GPU unless ``--device`` names
+another device, and raises when there is no GPU and none is named.
+`main(argv)` takes the arguments as a list and returns the tester after its
+run.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+from typing import List, Optional, Union
+
+import torch
+
+from cdsegnet_torch.engine.checkpoint import CheckpointManager
+from cdsegnet_torch.engine.config import Config, parse_options
+from cdsegnet_torch.engine.test import TESTERS
+from cdsegnet_torch.models.builder import build_model
+from cdsegnet_torch.utils.device import resolve_device
+
+
+def load_state(cfg, checkpoint: str,
+               device: Optional[Union[str, torch.device]] = None) -> torch.nn.Module:
+    """Build the serving model on ``device`` and load ``checkpoint`` into it.
+
+    The JAX tool converts an unrolled, fused training checkpoint into its
+    scanned, unfused serving layout (`tools/test.py:28-87`). The port has
+    one layout, unrolled and unfused, for training and serving, so the
+    checkpoint loads as saved and needs no restack. Of the JAX tool's
+    serving knobs only the stem has a counterpart here: ``serve_stem_mode``
+    ("cond" by default: the blocked k125 stem when no pyramid level
+    overflows, the gather stem otherwise). Remat, fused gathers and gather
+    padding are layout knobs the port does not have.
+    """
+    model_cfg = dict(cfg.model)
+    backbone = model_cfg.get("backbone")
+    if isinstance(backbone, dict) and backbone.get("type", "").startswith("PT-v3"):
+        model_cfg["backbone"] = dict(
+            backbone, stem_mode=str(cfg.get("serve_stem_mode", "cond")))
+    model = build_model(model_cfg, device=device)
+    mgr = CheckpointManager(os.path.join(cfg.get("save_path", "exp/default"), "model"))
+    state = mgr.restore_raw(checkpoint)
+    if state is None:
+        raise FileNotFoundError(f"checkpoint {checkpoint!r} not found")
+    model.load_state_dict(state["model"])
+    return model
+
+
+def main(argv: Optional[List[str]] = None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--config-file", required=True)
+    ap.add_argument("--checkpoint", default="model_best")
+    ap.add_argument("--options", nargs="*", default=None)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the GPU)")
+    args = ap.parse_args(argv)
+    cfg = Config.fromfile(args.config_file)
+    cfg.merge_from_dict(parse_options(args.options))
+    device = resolve_device(args.device)
+    model = load_state(cfg, args.checkpoint, device)
+    tester = TESTERS.build(
+        dict(cfg.get("test", dict(type="SemSegTester"))),
+        cfg=cfg, model=model, device=device,
+    )
+    tester.test()
+    return tester
+
+
+if __name__ == "__main__":
+    main()

@@ -10,10 +10,12 @@ Phases, each fatal on failure:
    (none allowed) and count of tensor-core instructions (HMMA, from
    cuobjdump; the bf16 forward, dq and dk/dv kernels must have some);
 3. kernels: the forward kernel against its plain PyTorch version on the
-   GPU, at every shape the SSI path gives it, in bf16 and f32, plus padded
-   multi-scene batches; every output row must be finite, and a second run
-   bit-equal to the first. Times (CUDA events) beside the bound and the
-   time of the equivalent library call;
+   GPU, at every shape the SSI path gives it and at every shape a tester
+   fragment of the 131,072-slot bucket gives it (the first fragment of
+   phase 8's scene), in bf16 and f32, plus padded multi-scene batches;
+   every output row must be finite, and a second run bit-equal to the
+   first. Times (CUDA events) beside the bound and the time of the
+   equivalent library call;
 4. ssi: CDSegNet single-step inference at the full width of
    `configs/scannet/cdsegnet.py` (random weights from a seed) on a
    104,448-point synthetic scene: launches counted, checked against the
@@ -34,7 +36,21 @@ Phases, each fatal on failure:
    and both parameter groups checked; timed (3 warm-ups, median of 5);
 7. train route gap: one step's loss and gradients through the kernels
    against the plain attention route on one 32,768-slot scene, in f32 and
-   as shipped (bf16).
+   as shipped (bf16);
+8. test: the TTA fragment-voting tester through its CLI entry point
+   (`cdsegnet_torch.tools.test.main`) at the same full width, on a
+   synthetic room of about 260,000 points written as a ScanNet scene, with
+   a checkpoint saved by the port's `CheckpointManager`: the shipped test
+   pipeline (13 augmentations, 2 cm test-mode grid sampling, depth 12,
+   seed 54421566). Every fragment must take 32 kernel launches, no plain
+   attention and give finite logits; every raw point a prediction; mIoU,
+   mAcc and allAcc in [0, 1]; a submission line per raw point with a
+   ScanNet id; a cached rerun the same records and no launch; two
+   fragments' probabilities agree with the plain attention route. Prints
+   each fragment's bucket and drops, the pyramid path taken, and the
+   scene's host-clock split (data pipeline, forward with geometry,
+   fragment preparation, votes and argmax) with the median SSI per
+   fragment.
 
 The last three lines are a JSON summary of the kernels, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``. Without a GPU, or
@@ -43,14 +59,17 @@ outside a checkout of the repository, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import os
 import re
 import runpy
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -86,6 +105,11 @@ TRAIN_EXTRA = ((8192, 2, 16, 1024, [2500, 3100, 1772]),
                (1920, 2, 32, 96, [333, 700, 501]))
 GAP_POINTS = 32768  # one scene: the plain route keeps P*H*K*K probabilities
 TRAIN_TOTAL_STEPS = 1000  # OneCycle length; the smoke takes the first steps
+ROOM_SEED = 0  # the tester's synthetic scene
+# tester route gap as shipped, kernel route vs plain route on two fragments
+# (max |dp| over the fragment's points, argmax agreement), about 3x the gap
+# read on an H100 (0.090 and 98.44%)
+TOL_TEST = (0.27, 0.953)
 
 
 def fail(msg: str) -> None:
@@ -206,11 +230,11 @@ def check_kernel_case(torch, batch, valid, h, d, patch, dtype, gen):
 SUMMED = ("ms", "plain_ms", "library_ms", "bound_ms", "ops_ms", "bytes_ms", "exps")
 
 
-def phase_kernels(torch, levels, launches, patch):
-    """Every distinct launch of the SSI path (level, curve order, heads,
+def phase_kernels(torch, levels, launches, patch, path="ssi"):
+    """Every distinct launch of an SSI forward (level, curve order, heads,
     head dim), on that level's real scene ids and validity, in bf16 and f32;
-    then padded multi-scene batches. Returns the main-path rows, each with
-    its launch count per SSI forward."""
+    then, on the ``"ssi"`` path, padded multi-scene batches. Returns the
+    main-path rows, each with its launch count per SSI forward."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     counts: dict = {}
     for key in launches:
@@ -221,13 +245,13 @@ def phase_kernels(torch, levels, launches, patch):
         for dtype in (torch.bfloat16, torch.float32):
             r = check_kernel_case(torch, pt.batch_sorted[oi], pt.mask_sorted[oi],
                                   h, d, patch, dtype, gen)
-            r.update(level=level, order=oi, launches_per_ssi=count)
+            r.update(level=level, order=oi, launches_per_ssi=count, path=path)
             rows.append(r)
             print("kernel patch_attention_fwd " + json.dumps(r), flush=True)
     # three scenes crossing patch boundaries with 10% padding (rows without
     # an allowed key), and the D=32 shape of the JAX bench's parity check
     for n, h, d, p, sizes in ((8192, 2, 16, 1024, [2500, 3100, 1772]),
-                              (2048, 4, 32, 512, [922, 921])):
+                              (2048, 4, 32, 512, [922, 921])) if path == "ssi" else ():
         batch, valid = scene_layout(torch, n, sizes, "cuda")
         for dtype in (torch.bfloat16, torch.float32):
             r = check_kernel_case(torch, batch, valid, h, d, p, dtype, gen)
@@ -246,8 +270,8 @@ def phase_kernels(torch, levels, launches, patch):
                 agg[k] += r[k] * r["launches_per_ssi"]
         for shape, agg in shapes.items():
             agg["bound_by"] = "operations" if agg["ops_ms"] >= agg["bytes_ms"] else "bytes"
-            print("shape " + json.dumps(dict(shape=list(shape), dtype=dtype, **agg)),
-                  flush=True)
+            print("shape " + json.dumps(dict(shape=list(shape), dtype=dtype, path=path,
+                                             **agg)), flush=True)
     return rows
 
 
@@ -615,6 +639,258 @@ def phase_train_gap(torch, conf, cfg):
     return gaps
 
 
+@contextlib.contextmanager
+def patched(*patches):
+    """For the block, replace each attribute ``(owner, name, make)`` with
+    ``make(original)``; restore the originals after."""
+    saved = [(owner, name, getattr(owner, name)) for owner, name, _ in patches]
+    try:
+        for owner, name, make in patches:
+            setattr(owner, name, make(getattr(owner, name)))
+        yield
+    finally:
+        for owner, name, original in saved:
+            setattr(owner, name, original)
+
+
+def tester_scene(torch, config, tmp):
+    """Write the room as ``<tmp>/data/val/scene0000_00.pth`` and run the
+    shipped test pipeline on it once (13 augmentations, 2 cm test-mode grid
+    sampling), as the tester will; returns the raw point count and the
+    test-mode item."""
+    from cdsegnet_torch.data.collate import pick_bucket
+    from cdsegnet_torch.data.datasets import build_dataset
+    from cdsegnet_torch.engine.config import Config
+    from cdsegnet_torch.engine.test import DEFAULT_BUCKETS
+    from cdsegnet_torch.utils.synthetic import room_scene
+
+    room = room_scene(ROOM_SEED)
+    os.makedirs(os.path.join(tmp, "data", "val"))
+    torch.save(room, os.path.join(tmp, "data", "val", "scene0000_00.pth"))
+    cfg = Config.fromfile(config)
+    cfg.data.test["data_root"] = os.path.join(tmp, "data")
+    ds = build_dataset(dict(cfg.data.test))
+    per_aug = []
+    voxelize = ds.test_voxelize
+
+    def counted(data, rng):
+        parts = voxelize(data, rng)
+        per_aug.append(len(parts))
+        return parts
+
+    ds.test_voxelize = counted
+    t0 = time.perf_counter()
+    scene = ds.get(0, np.random.default_rng(cfg.seed))
+    pipeline_s = time.perf_counter() - t0
+    n_raw = len(room["coord"])
+    sizes = [len(f["coord"]) for f in scene["fragment_list"]]
+    buckets = sorted({pick_bucket(n, DEFAULT_BUCKETS) for n in sizes})
+    grid = np.floor(room["coord"] / 0.02).astype(np.int64)
+    _, occupancy = np.unique(grid, axis=0, return_counts=True)
+    print(f"test scene {n_raw} raw points in {len(occupancy)} voxels of 2 cm "
+          f"({n_raw / len(occupancy):.2f} points each on average, {occupancy.min()}-"
+          f"{occupancy.max()}, before augmentation); "
+          f"{len(per_aug)} augmentations x largest voxel occupancy {per_aug} = "
+          f"{len(sizes)} fragments of {min(sizes)}-{max(sizes)} points, buckets "
+          f"{buckets}; test pipeline {pipeline_s:.2f} s on the host", flush=True)
+    if len(per_aug) != 13 or buckets != [131072]:
+        fail("the test scene does not give 13 augmentations in the 131,072 bucket")
+    return n_raw, scene
+
+
+def forward_sums(rows):
+    """bf16 sums over one SSI forward's launches (each row timed on its
+    level's real scene ids and validity)."""
+    main = [r for r in rows if r["dtype"] == "bfloat16"]
+    total = lambda key: sum(r[key] * r["launches_per_ssi"] for r in main)
+    return dict(launches=sum(r["launches_per_ssi"] for r in main),
+                max_abs_err=max(r["max_abs_err"] for r in main),
+                ms=total("ms"), plain_ms=total("plain_ms"), bound_ms=total("bound_ms"),
+                library_ms=total("library_ms"),
+                bound_by="operations" if total("ops_ms") >= total("bytes_ms") else "bytes")
+
+
+def phase_test(torch, config, cfg, tmp, n_raw, scene, n_launches, card):
+    """The tester through its CLI entry point on the room scene, with a
+    checkpoint saved by the port's `CheckpointManager`: per-fragment
+    launches, plain-attention calls, drops and finiteness; coverage, metrics
+    and the submission; a cached rerun; then the route gap on two
+    fragments."""
+    from cdsegnet_torch.data import datasets
+    from cdsegnet_torch.data.collate import pick_bucket
+    from cdsegnet_torch.engine.checkpoint import CheckpointManager, snapshot
+    from cdsegnet_torch.engine.test import DEFAULT_BUCKETS, SemSegTester
+    from cdsegnet_torch.models.builder import build_model
+    from cdsegnet_torch.models.ptv3 import PointTransformerV3
+    from cdsegnet_torch.ops import flash_attention as fa
+    from cdsegnet_torch.tools import test as test_tool
+
+    save = os.path.join(tmp, "exp")
+    model = build_model(cfg, device="cuda", generator=torch.Generator().manual_seed(0))
+    CheckpointManager(os.path.join(save, "model")).save(snapshot(model), "model_last")
+    del model
+    argv = ["--config-file", config, "--checkpoint", "model_last", "--options",
+            f"data.test.data_root={os.path.join(tmp, 'data')}", f"save_path={save}",
+            "submission=True"]
+
+    frags, covered = [], np.zeros(n_raw, bool)
+    times = dict(test=0.0, data=0.0, scene=0.0, fragments=0.0)
+    plain_calls, drops = [0], [None]
+
+    def timed(key, sync=False):
+        def make(fn):
+            def run(*args, **kwargs):
+                if sync:
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*args, **kwargs)
+                if sync:
+                    torch.cuda.synchronize()
+                times[key] += time.perf_counter() - t0
+                if key == "fragments":
+                    covered[args[1]["index"]] = True
+                return out
+            return run
+        return make
+
+    def forward(fn):
+        def run(self, point, noise):
+            torch.cuda.synchronize()
+            launches, plain = fa.patch_attention_fwd.launches, plain_calls[0]
+            t0 = time.perf_counter()
+            logits = fn(self, point, noise)
+            torch.cuda.synchronize()
+            frags.append(dict(
+                bucket=point.num_points, points=int(point.mask.sum().item()),
+                ms=(time.perf_counter() - t0) * 1e3,
+                launches=fa.patch_attention_fwd.launches - launches,
+                plain=plain_calls[0] - plain, drops=drops[0],
+                finite=bool(torch.isfinite(logits[point.mask]).all().item())))
+            return logits
+        return run
+
+    def geometry(fn):
+        def run(self, point, *args, **kwargs):
+            levels, stem = fn(self, point, *args, **kwargs)
+            drops[0] = [int(lv.dropped) for lv in levels[1:]]
+            return levels, stem
+        return run
+
+    def counting(fn):
+        def run(*args, **kwargs):
+            plain_calls[0] += 1
+            return fn(*args, **kwargs)
+        return run
+
+    instruments = [(fa, "patch_attention", counting),
+                   (PointTransformerV3, "precompute_geometry", geometry),
+                   (SemSegTester, "test", timed("test", sync=True)),
+                   (datasets.DefaultDataset, "get", timed("data")),
+                   (SemSegTester, "predict_scene", timed("scene", sync=True)),
+                   (SemSegTester, "predict_fragment", timed("fragments", sync=True)),
+                   (SemSegTester, "forward_fragment", forward)]
+    fa.reset_launch_counts()
+    with patched(*instruments):
+        tester = test_tool.main(argv)
+    launches = fa.patch_attention_fwd.launches
+    n_frag = len(scene["fragment_list"])
+    paths = {}
+    for f in frags:
+        path = ("parity tables, blocked stem" if sum(f["drops"]) == 0
+                else "sorted tables, gather stem")
+        paths[path] = paths.get(path, 0) + 1
+    runs = []  # consecutive fragments of one augmentation often repeat
+    for f in frags:
+        key = [f["bucket"], f["points"], f["drops"]]
+        if runs and runs[-1][:3] == key:
+            runs[-1][3] += 1
+        else:
+            runs.append(key + [1])
+    print("test fragments [bucket, points, dropped per level, count] "
+          + json.dumps(runs), flush=True)
+    print(f"test {len(frags)} fragments: attention launches per fragment "
+          f"{sorted({f['launches'] for f in frags})} (expected {n_launches}), "
+          f"plain attention calls {sum(f['plain'] for f in frags)}, launches in all "
+          f"{launches}; dropped per level, most over fragments "
+          f"{np.max([f['drops'] for f in frags], axis=0).tolist()}; path {paths}",
+          flush=True)
+    if len(frags) != n_frag or launches != n_launches * n_frag:
+        fail(f"the tester ran {len(frags)} fragments and {launches} launches, "
+             f"expected {n_frag} and {n_launches * n_frag}")
+    bad = [i for i, f in enumerate(frags)
+           if f["launches"] != n_launches or f["plain"] or not f["finite"]]
+    if bad:
+        fail(f"fragments {bad[:5]}: wrong launch count, plain attention or "
+             "non-finite logits")
+    if not covered.all():
+        fail(f"{int((~covered).sum())} raw points have no prediction")
+
+    name = "scene0000_00"
+    pred = np.load(os.path.join(save, "result", f"{name}_pred.npy"))
+    submitted = np.loadtxt(os.path.join(save, "submit", f"{name}.txt"), dtype=np.int64)
+    result = tester.result
+    print(f"test result {json.dumps(result)}; pred {pred.shape}, submission lines "
+          f"{submitted.shape[0]}", flush=True)
+    if pred.shape != (n_raw,) or submitted.shape != (n_raw,):
+        fail("the prediction or the submission does not cover every raw point")
+    if not np.isin(submitted, datasets.VALID_CLASS_IDS_20).all():
+        fail("the submission holds ids outside VALID_CLASS_IDS_20")
+    if not all(0.0 <= v <= 1.0 for v in result.values()):
+        fail(f"metrics out of [0, 1]: {result}")
+
+    # the cached rerun reads result/<scene>_pred.npy and launches nothing
+    fa.reset_launch_counts()
+    plain_calls[0] = 0
+    with patched(instruments[0]):
+        rerun = test_tool.main(argv)
+    cached = dict(launches=fa.patch_attention_fwd.launches, plain=plain_calls[0],
+                  same=all(np.array_equal(rerun.records[name][k], tester.records[name][k])
+                           for k in ("intersection", "union", "target"))
+                  and rerun.result == result)
+    print(f"test cached rerun {json.dumps(cached)}", flush=True)
+    if cached != dict(launches=0, plain=0, same=True):
+        fail(f"the cached rerun differs or runs a forward: {cached}")
+    del rerun
+
+    # route gap: the same fragments and noise through the plain attention
+    plain_cfg = copy.deepcopy(cfg)
+    plain_cfg["backbone"]["use_pallas"] = False
+    plain_model = build_model(plain_cfg, device="cuda")
+    plain_model.load_state_dict(tester.model.state_dict())
+    plain_tester = SemSegTester(tester.cfg, model=plain_model)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    gaps = []
+    for i in (0, n_frag - 1):
+        frag = scene["fragment_list"][i]
+        bucket = pick_bucket(len(frag["coord"]), DEFAULT_BUCKETS)
+        noise = torch.randn((bucket, 6), generator=gen, device="cuda")
+        noise_fn = lambda index, b, c: noise
+        pk = tester.predict_fragment(frag, i, noise_fn)
+        pp = plain_tester.predict_fragment(frag, i, noise_fn)
+        gaps.append(dict(fragment=i, max_abs_dp=(pk - pp).abs().max().item(),
+                         argmax_agree=(pk.argmax(1) == pp.argmax(1)).float().mean().item()))
+        print(f"test route gap {json.dumps(gaps[-1])}", flush=True)
+    del plain_tester, plain_model
+    torch.cuda.empty_cache()
+    if any(g["max_abs_dp"] > TOL_TEST[0] or g["argmax_agree"] < TOL_TEST[1] for g in gaps):
+        fail("tester probabilities through the kernel disagree with the plain route")
+
+    ssi_ms = [f["ms"] for f in frags]
+    forward_s = sum(ssi_ms) / 1e3
+    split = dict(
+        scene_s=times["test"], data_s=times["data"], forward_s=forward_s,
+        fragment_prep_s=times["fragments"] - forward_s,
+        votes_argmax_s=times["scene"] - times["fragments"],
+        other_s=times["test"] - times["data"] - times["scene"],
+        ssi_ms_median=statistics.median(ssi_ms),
+        ssi_ms_quartiles=statistics.quantiles(ssi_ms, n=4),
+        fragments=n_frag, raw_points=n_raw,
+        fragments_per_s=n_frag / times["test"], points_per_s=n_raw / times["test"],
+        launches=launches, per_fragment=n_launches, route_gaps=gaps, card=card)
+    print("test " + json.dumps(split), flush=True)
+    return split
+
+
 def kernel_entry(name, source, replaces, launches, rows, direction):
     """One entry of the kernels line: bf16 sums per training step over the
     main path's launches, each timed on its level's real scene ids and
@@ -648,6 +924,15 @@ def main() -> int:
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        return run_phases(torch, config, runtime, tmp, start)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def run_phases(torch, config: str, runtime: str, tmp: str, start: float) -> int:
+    """Every phase, in order; ``tmp`` holds the tester's scene and outputs."""
     from cdsegnet_torch.ops.flash_attention import BWD_KERNEL, KERNEL, SOURCES
     from cdsegnet_torch.utils import cuda_build
 
@@ -674,10 +959,14 @@ def main() -> int:
         if not any(kernel in fn and count > 0 for fn, count in hmma.items()):
             fail(f"the bf16 {kernel} has no tensor-core instruction")
 
+    from cdsegnet_torch.data.collate import collate_scenes, pick_bucket
+    from cdsegnet_torch.engine.state import batch_to_point
+    from cdsegnet_torch.engine.test import DEFAULT_BUCKETS
     from cdsegnet_torch.models.builder import build_model
     from cdsegnet_torch.utils.synthetic import synthetic_point_batch
 
     conf = runpy.run_path(config)
+    depth = runpy.run_path(runtime)["serialization_depth"]
     cfg = conf["model"]
     model = build_model(cfg, device="cuda",
                         generator=torch.Generator().manual_seed(0))
@@ -693,21 +982,27 @@ def main() -> int:
     patch = max(cfg["backbone"]["n_enc_patch_size"])
     launches = attention_launches(cfg["backbone"])
     rows = phase_kernels(torch, levels, launches, patch)
+    # the tester's shapes: the levels of the room scene's first fragment
+    n_raw, test_scene = tester_scene(torch, config, tmp)
+    frag = test_scene["fragment_list"][0]
+    bucket = pick_bucket(len(frag["coord"]), DEFAULT_BUCKETS)
+    frag_levels, _ = model.backbone.precompute_geometry(
+        batch_to_point(collate_scenes([frag], bucket, 1), depth, 1, "cuda"))
+    print(f"test fragment 0: {len(frag['coord'])} points in the {bucket} bucket, level "
+          f"sizes {[lv.size for lv in frag_levels]}, dropped per level "
+          f"{[lv.dropped for lv in frag_levels[1:]]}", flush=True)
+    test_rows = phase_kernels(torch, frag_levels, launches, patch, path="test")
+    del frag_levels
     ssi = phase_ssi(torch, cfg, model, point, len(launches), card)
-    main_rows = [r for r in rows if r["dtype"] == "bfloat16"]
-    per_ssi = lambda key: sum(r[key] * r["launches_per_ssi"] for r in main_rows)
-    # per SSI forward: summed over the path's launches, each timed on its
+    # per forward: summed over the path's launches, each timed on its
     # level's real scene ids and validity
-    print("ssi kernel per forward " + json.dumps(dict(
-        launches=ssi["launches"], max_abs_err=max(r["max_abs_err"] for r in main_rows),
-        ms=per_ssi("ms"), plain_ms=per_ssi("plain_ms"), bound_ms=per_ssi("bound_ms"),
-        library_ms=per_ssi("library_ms"))), flush=True)
+    print("ssi kernel per forward " + json.dumps(forward_sums(rows)), flush=True)
+    print("test kernel per fragment " + json.dumps(forward_sums(test_rows)), flush=True)
     del model, levels
     torch.cuda.empty_cache()
 
     # the training bucket: scenes_per_device x num_points_per_scene slots at
     # the runtime's serialization depth
-    depth = runpy.run_path(runtime)["serialization_depth"]
     n_train, n_scenes = conf["bucket_num_points"], conf["scenes_per_device"]
     train_point = synthetic_point_batch(n_train, n_scenes, depth=depth, seed=0,
                                         device="cuda")
@@ -726,12 +1021,20 @@ def main() -> int:
     del train_point
     torch.cuda.empty_cache()
     phase_train_gap(torch, conf, cfg)
+    torch.cuda.empty_cache()
+    test = phase_test(torch, config, cfg, tmp, n_raw, test_scene, len(launches), card)
 
     tpu = "cdsegnet_tpu/ops/pallas/flash_attention.py"
     bwd_src = f"cdsegnet_torch/csrc/{BWD_KERNEL}.cu"
     kernels = [
-        kernel_entry("patch_attention_fwd", f"cdsegnet_torch/csrc/{KERNEL}.cu",
-                     f"{tpu}:45", train["launches"]["fwd"], train_rows, "fwd"),
+        dict(kernel_entry("patch_attention_fwd", f"cdsegnet_torch/csrc/{KERNEL}.cu",
+                          f"{tpu}:45", train["launches"]["fwd"], train_rows, "fwd"),
+             # the other paths through the forward: launches counted on each
+             # path's run, times per SSI forward and per tester fragment
+             paths=dict(ssi=dict(forward_sums(rows), launches=ssi["launches"]),
+                        test=dict(forward_sums(test_rows), launches=test["launches"],
+                                  fragments=test["fragments"],
+                                  per_fragment=test["per_fragment"]))),
         kernel_entry("patch_attention_bwd_dq", bwd_src, f"{tpu}:146",
                      train["launches"]["bwd_dq"], train_rows, "dq"),
         kernel_entry("patch_attention_bwd_dkdv", bwd_src, f"{tpu}:146",

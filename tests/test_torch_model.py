@@ -277,7 +277,7 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
     make_train_step(m, crit, opt, device="cpu")
 
 
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "cdsegnet_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "cdsegnet_tpu")
 
 
 def _imports(path):
@@ -295,7 +295,10 @@ def test_port_imports_no_jax():
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     assert len(files) > 10
     for module in ("engine/state.py", "engine/optimizer.py", "models/losses.py",
-                   "tools/profile_train.py"):
+                   "tools/profile_train.py", "engine/test.py", "engine/checkpoint.py",
+                   "engine/config.py", "data/transforms.py", "data/datasets.py",
+                   "data/collate.py", "tools/test.py", "utils/registry.py",
+                   "utils/logger.py", "utils/misc.py"):
         assert os.path.join(REPO, "cdsegnet_torch", module) in files, module
     bad = [(f, m) for f in files for m in _imports(f)
            if m.split(".")[0] in FORBIDDEN]

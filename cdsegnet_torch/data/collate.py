@@ -1,11 +1,13 @@
-"""Static-shape batch collation.
+"""Static-shape batch collation with Mix3D.
 
-Port of `collate_scenes` and `pick_bucket` of `cdsegnet_tpu/data/collate.py`:
-scenes are concatenated into a fixed ``num_points`` bucket with a validity
-mask and per-point scene ids, the layout `models.structure.PointBatch`
-takes. The bucket size also sets the pyramid's per-level capacities
-(``capacity_div``), so the same buckets as the JAX package keep the same
-drops. Mix3D, paired views and per-device stacks come with the trainer.
+Port of `mix3d`, `collate_scenes`, `collate_sharded` and `pick_bucket` of
+`cdsegnet_tpu/data/collate.py`: scenes are concatenated into a fixed
+``num_points`` bucket with a validity mask and per-point scene ids, the
+layout `models.structure.PointBatch` takes. The bucket size also sets the
+pyramid's per-level capacities (``capacity_div``), so the same buckets as
+the JAX package keep the same drops. Mix3D merges scene pairs with
+probability ``mix_prob`` (reference `point_collate_fn`). Paired views
+(MSC pretraining) are not ported.
 """
 
 from __future__ import annotations
@@ -14,6 +16,38 @@ import sys
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+
+
+def mix3d(scenes: List[Dict], rng: np.random.Generator, mix_prob: float = 0.8):
+    """Merge consecutive scene pairs with probability ``mix_prob``.
+
+    Coincident voxels of the two merged scenes are deduplicated (first
+    wins, like re-running GridSample on the union): the neighbor tables
+    take voxels unique per scene, and the reference's spconv hash likewise
+    keeps one winner per coincident voxel.
+    """
+    if len(scenes) > 1 and rng.random() < mix_prob:
+        merged = []
+        for i in range(0, len(scenes) - 1, 2):
+            a, b = scenes[i], scenes[i + 1]
+            m = {
+                k: np.concatenate([a[k], b[k]])
+                for k in a.keys()
+                if k in b and hasattr(a[k], "ndim")
+            }
+            if "grid_coord" in m:
+                _, first = np.unique(m["grid_coord"], axis=0, return_index=True)
+                if len(first) < len(m["grid_coord"]):
+                    keep = np.sort(first)
+                    m = {
+                        k: v[keep] if v.shape[:1] == m["grid_coord"].shape[:1] else v
+                        for k, v in m.items()
+                    }
+            merged.append(m)
+        if len(scenes) % 2 == 1:
+            merged.append(scenes[-1])
+        return merged
+    return scenes
 
 
 def collate_scenes(
@@ -84,6 +118,21 @@ def collate_scenes(
         out["instance_centroid"] = centroid
     out.update(extras)
     return out
+
+
+def collate_sharded(
+    per_device_scenes: Sequence[List[Dict]],
+    num_points: int,
+    num_scenes: int,
+    feat_dim: Optional[int] = None,
+) -> Dict[str, np.ndarray]:
+    """Stack one bucket per device on a leading axis (the trainer's loader
+    emits one device)."""
+    buckets = [
+        collate_scenes(s, num_points, num_scenes, feat_dim)
+        for s in per_device_scenes
+    ]
+    return {k: np.stack([b[k] for b in buckets]) for k in buckets[0]}
 
 
 def pick_bucket(n: int, buckets: Sequence[int]) -> int:

@@ -14,8 +14,10 @@ random point per voxel; test: every rotation of per-voxel picks as a
 fragment list, `transform.py:796-933`). It hashes and picks with the numpy
 versions of the JAX package's host library (`cdsegnet_tpu/data/native.py`);
 the pick sorts stably, where the C library's `std::sort` may order equal
-keys otherwise. The training augmentations (dropout, jitter, elastic
-distortion, chromatic, sphere crop) come with the trainer.
+keys otherwise. The training augmentations of `configs/scannet/cdsegnet.py`
+(dropout, jitter, elastic distortion, chromatic, sphere crop) draw from the
+same generator calls, in the same order, as JAX's. `ElasticDistortion` needs
+scipy and does nothing without it, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -23,6 +25,13 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+
+try:  # optional, as in the JAX package: without it ElasticDistortion is a no-op
+    import scipy.interpolate
+    import scipy.ndimage
+    _HAVE_SCIPY = True
+except Exception:  # pragma: no cover
+    _HAVE_SCIPY = False
 
 from cdsegnet_torch.utils.registry import Registry
 
@@ -94,6 +103,25 @@ class CenterShift:
                  lo[2] if self.apply_z else 0.0]
             )
             data["coord"] = data["coord"] - shift
+        return data
+
+
+@TRANSFORMS.register_module()
+class RandomDropout:
+    def __init__(self, dropout_ratio=0.2, dropout_application_ratio=0.5):
+        self.dropout_ratio = dropout_ratio
+        self.dropout_application_ratio = dropout_application_ratio
+
+    def __call__(self, data, rng):
+        if rng.random() < self.dropout_application_ratio:
+            n = len(data["coord"])
+            idx = rng.choice(n, int(n * (1 - self.dropout_ratio)), replace=False)
+            if "sampled_index" in data:
+                idx = np.unique(np.append(idx, data["sampled_index"]))
+                mask = np.zeros(len(data["segment"]), bool)
+                mask[data["sampled_index"]] = True
+                data["sampled_index"] = np.where(mask[idx])[0]
+            take(data, idx)
         return data
 
 
@@ -178,6 +206,95 @@ class RandomFlip:
                     data["coord"][:, axis] = -data["coord"][:, axis]
                 if "normal" in data:
                     data["normal"][:, axis] = -data["normal"][:, axis]
+        return data
+
+
+@TRANSFORMS.register_module()
+class RandomJitter:
+    def __init__(self, sigma=0.01, clip=0.05):
+        assert clip > 0
+        self.sigma = sigma
+        self.clip = clip
+
+    def __call__(self, data, rng):
+        if "coord" in data:
+            j = np.clip(self.sigma * rng.standard_normal(data["coord"].shape),
+                        -self.clip, self.clip)
+            data["coord"] = data["coord"] + j
+        return data
+
+
+@TRANSFORMS.register_module()
+class ChromaticAutoContrast:
+    def __init__(self, p=0.2, blend_factor=None):
+        self.p = p
+        self.blend_factor = blend_factor
+
+    def __call__(self, data, rng):
+        if "color" in data and rng.random() < self.p:
+            lo = data["color"].min(0, keepdims=True)
+            hi = data["color"].max(0, keepdims=True)
+            scale = 255 / np.maximum(hi - lo, 1e-6)
+            contrast = (data["color"][:, :3] - lo) * scale
+            blend = self.blend_factor if self.blend_factor is not None else rng.random()
+            data["color"][:, :3] = (1 - blend) * data["color"][:, :3] + blend * contrast
+        return data
+
+
+@TRANSFORMS.register_module()
+class ChromaticTranslation:
+    def __init__(self, p=0.95, ratio=0.05):
+        self.p = p
+        self.ratio = ratio
+
+    def __call__(self, data, rng):
+        if "color" in data and rng.random() < self.p:
+            tr = (rng.random((1, 3)) - 0.5) * 255 * 2 * self.ratio
+            data["color"][:, :3] = np.clip(tr + data["color"][:, :3], 0, 255)
+        return data
+
+
+@TRANSFORMS.register_module()
+class ChromaticJitter:
+    def __init__(self, p=0.95, std=0.005):
+        self.p = p
+        self.std = std
+
+    def __call__(self, data, rng):
+        if "color" in data and rng.random() < self.p:
+            noise = rng.standard_normal((data["color"].shape[0], 3)) * self.std * 255
+            data["color"][:, :3] = np.clip(noise + data["color"][:, :3], 0, 255)
+        return data
+
+
+@TRANSFORMS.register_module()
+class ElasticDistortion:
+    def __init__(self, distortion_params=None):
+        self.params = distortion_params or [[0.2, 0.4], [0.8, 1.6]]
+
+    @staticmethod
+    def _distort(coords, granularity, magnitude, rng):
+        blur = [np.ones(s, np.float32) / 3 for s in
+                ((3, 1, 1, 1), (1, 3, 1, 1), (1, 1, 3, 1))]
+        cmin = coords.min(0)
+        dim = ((coords - cmin).max(0) // granularity).astype(int) + 3
+        noise = rng.standard_normal(size=(*dim, 3)).astype(np.float32)
+        for _ in range(2):
+            for b in blur:
+                noise = scipy.ndimage.convolve(noise, b, mode="constant", cval=0)
+        ax = [np.linspace(lo, hi, d) for lo, hi, d in
+              zip(cmin - granularity, cmin + granularity * (dim - 2), dim)]
+        interp = scipy.interpolate.RegularGridInterpolator(
+            ax, noise, bounds_error=False, fill_value=0
+        )
+        return coords + interp(coords) * magnitude
+
+    def __call__(self, data, rng):
+        if "coord" in data and _HAVE_SCIPY and rng.random() < 0.95:
+            for granularity, magnitude in self.params:
+                data["coord"] = self._distort(
+                    data["coord"], granularity, magnitude, rng
+                )
         return data
 
 
@@ -302,3 +419,35 @@ class GridSample:
                     part[k] = v
             fragments.append(part)
         return fragments
+
+
+@TRANSFORMS.register_module()
+class SphereCrop:
+    """Keep the ``point_max`` points nearest a center: a random point
+    ("random") or the middle one ("center"). The test-time covering crops
+    (mode "all") are not ported."""
+
+    def __init__(self, point_max=80000, sample_rate=None, mode="random"):
+        self.point_max = point_max
+        self.sample_rate = sample_rate
+        assert mode in ("random", "center", "all")
+        if mode == "all":
+            raise NotImplementedError(
+                'SphereCrop mode "all" (test-time crops) is not ported (ROADMAP '
+                'Queue 1: "The model zoo and the rest of the engine and data")')
+        self.mode = mode
+
+    def __call__(self, data, rng):
+        point_max = (
+            int(self.sample_rate * data["coord"].shape[0])
+            if self.sample_rate is not None else self.point_max
+        )
+        n = data["coord"].shape[0]
+        if n > point_max:
+            if self.mode == "random":
+                center = data["coord"][rng.integers(n)]
+            else:
+                center = data["coord"][n // 2]
+            idx = np.argsort(np.sum((data["coord"] - center) ** 2, 1))[:point_max]
+            take(data, idx)
+        return data

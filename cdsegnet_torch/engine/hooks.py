@@ -1,0 +1,241 @@
+"""Hook system and the default hooks of the trainer.
+
+Port of `cdsegnet_tpu/engine/hooks.py` (reference
+`pointcept/engines/hooks/{default,builder,misc,evaluator}.py`). The default
+stack (`configs/_base_/default_runtime.py`): CheckpointLoader,
+IterationTimer, InformationWriter, SemSegEvaluator, CheckpointSaver; a
+config may add PreciseEvaluator. A hook reads and writes the trainer it is
+bound to (``hook.trainer``): its model, optimizer, generators, checkpoint
+manager, storage, logger and ``comm_info``.
+
+Not ported, each raising `NotImplementedError` when built:
+`InsSegEvaluator`, `ClsEvaluator` and the profiling hook `RuntimeProfiler`.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from cdsegnet_torch.engine.checkpoint import snapshot
+from cdsegnet_torch.engine.test import NoiseFn, SemSegTester
+from cdsegnet_torch.utils.misc import AverageMeter, intersection_and_union_torch
+from cdsegnet_torch.utils.registry import Registry
+
+HOOKS = Registry("hooks")
+
+
+class HookBase:
+    trainer = None  # bound by the trainer
+
+    def before_train(self):
+        pass
+
+    def before_epoch(self):
+        pass
+
+    def before_step(self):
+        pass
+
+    def after_step(self):
+        pass
+
+    def after_epoch(self):
+        pass
+
+    def after_train(self):
+        pass
+
+
+def build_hooks(cfgs) -> list:
+    return [HOOKS.build(dict(c)) for c in (cfgs or [])]
+
+
+@HOOKS.register_module()
+class CheckpointLoader(HookBase):
+    """Resume the whole training state from `model_last` when ``resume`` is
+    set and it exists: the model, the optimizer's moments and count, and the
+    step's generators; or load the model alone (parameters and running
+    statistics) from the checkpoint ``weight`` names (reference
+    `hooks/misc.py:207-249`)."""
+
+    def __init__(self, keywords="", replacement=None):
+        self.keywords = keywords
+        self.replacement = replacement
+
+    def before_train(self):
+        tr = self.trainer
+        if tr.cfg.get("resume", False) and tr.ckpt_manager.has("model_last"):
+            tr.ckpt_manager.restore(tr.model, "model_last", optimizer=tr.optimizer,
+                                    generators=tr.generators)
+            tr.start_epoch = tr.step // max(tr.steps_per_epoch, 1)
+            tr.logger.info(f"Resumed from checkpoint at step {tr.step} "
+                           f"(epoch {tr.start_epoch})")
+        elif tr.cfg.get("weight"):
+            state = tr.ckpt_manager.restore_raw(tr.cfg.weight)
+            if state is not None:
+                tr.model.load_state_dict(state["model"])
+                tr.logger.info(f"Loaded weights from {tr.cfg.weight}")
+
+
+@HOOKS.register_module()
+class IterationTimer(HookBase):
+    """Wall-clock data/batch timing + ETA (reference `hooks/misc.py:32-75`).
+    ``data`` is the wait for the loader's next batch; ``batch`` the whole
+    step, ending in the host copy of its metrics."""
+
+    def __init__(self, warmup_iter: int = 2):
+        self.warmup = warmup_iter
+        self.data_m = AverageMeter()
+        self.batch_m = AverageMeter()
+
+    def before_epoch(self):
+        self._t = time.perf_counter()
+
+    def before_step(self):
+        self.data_m.update(time.perf_counter() - self._t)
+
+    def after_step(self):
+        now = time.perf_counter()
+        self.batch_m.update(now - self._t)
+        self._t = now
+        tr = self.trainer
+        remain = tr.total_steps - tr.step
+        tr.comm_info["iter_info"] = (
+            f"data {self.data_m.val:.3f}s batch {self.batch_m.val:.3f}s "
+            f"eta {self.batch_m.avg * remain / 3600:.1f}h"
+        )
+
+
+@HOOKS.register_module()
+class InformationWriter(HookBase):
+    """Per-iteration log line + metric file (reference `hooks/misc.py:78-143`).
+    The metrics are host floats already (one copy per step, `Trainer`)."""
+
+    def __init__(self, log_interval: int = 10):
+        self.log_interval = log_interval
+
+    def after_step(self):
+        tr = self.trainer
+        step = tr.step
+        metrics = tr.comm_info.get("metrics", {})
+        for k, v in metrics.items():
+            tr.storage.put_scalar(k, float(v))
+        if step % self.log_interval == 0:
+            loss = float(metrics.get("loss", float("nan")))
+            msg = (
+                f"Train [{tr.epoch + 1}/{tr.max_epoch}]"
+                f"[{tr.step_in_epoch + 1}/{tr.steps_per_epoch}] "
+                f"loss {loss:.4f} " + tr.comm_info.get("iter_info", "")
+            )
+            tr.logger.info(msg)
+            tr.storage.write(step)
+
+
+@HOOKS.register_module()
+class SemSegEvaluator(HookBase):
+    """Validation mIoU after each ``interval`` epochs (reference
+    `hooks/evaluator.py:106-209`): one whole-scene SSI per val scene (the
+    trainer's `EvalLoader` bucket), the argmax and the intersection/union
+    histograms on the device, one host copy at the end. The c-branch noise
+    of scene i is drawn from a device generator seeded with ``seed +
+    epoch``, or taken from ``noise_fn(i, bucket, c_in)``."""
+
+    def __init__(self, interval: int = 1, noise_fn: Optional[NoiseFn] = None):
+        self.interval = interval
+        self.noise_fn = noise_fn
+
+    def after_epoch(self):
+        tr = self.trainer
+        if tr.val_loader is None or (tr.epoch + 1) % self.interval != 0:
+            return
+        num_classes = tr.cfg.data.num_classes
+        sums = torch.zeros((3, num_classes), dtype=torch.int64, device=tr.device)
+        gen = torch.Generator(tr.device).manual_seed(tr.seed + tr.epoch)
+        c_in = getattr(tr.model, "c_in_channels", None)
+        dev = lambda x: torch.as_tensor(x, device=tr.device)
+        for index, (batch, scene) in enumerate(tr.val_loader):
+            if "origin_coord" in scene:
+                raise NotImplementedError(
+                    'val scenes with origin_coord (1-NN remap of the predictions, '
+                    'knn_remap_labels) are not ported (ROADMAP Queue 1: "The model '
+                    'zoo and the rest of the engine and data")')
+            noise = None
+            if self.noise_fn is not None:
+                bucket = batch["coord"].shape[0]
+                noise = torch.as_tensor(
+                    self.noise_fn(index, bucket, c_in or batch["feat"].shape[-1]),
+                    dtype=torch.float32, device=tr.device)
+            out = tr.eval_step(batch, generator=gen, noise=noise)
+            sums += torch.stack(intersection_and_union_torch(
+                out["seg_logits"].argmax(-1), dev(batch["segment"]), num_classes,
+                dev(batch["mask"])))
+        inter_sum, union_sum, target_sum = sums.cpu().numpy().astype(np.float64)
+        iou = inter_sum / np.maximum(union_sum, 1)
+        acc = inter_sum / np.maximum(target_sum, 1)
+        miou = float(iou.mean())
+        names = tr.cfg.data.get("names", [str(i) for i in range(num_classes)])
+        for n, v_iou, v_acc in zip(names, iou, acc):
+            tr.logger.info(f"Class {n}: iou {v_iou:.4f} acc {v_acc:.4f}")
+        tr.logger.info(
+            f"Val result: mIoU {miou:.4f} mAcc {float(acc.mean()):.4f} "
+            f"allAcc {inter_sum.sum() / max(target_sum.sum(), 1):.4f}"
+        )
+        tr.comm_info["current_metric_value"] = miou
+        tr.comm_info["current_metric_name"] = "mIoU"
+        tr.storage.put_scalar("val/mIoU", miou)
+
+
+@HOOKS.register_module()
+class CheckpointSaver(HookBase):
+    """Save last/best/periodic checkpoints (reference `hooks/misc.py:146-204`):
+    the model, the step, the optimizer and the step's generators."""
+
+    def __init__(self, save_freq: Optional[int] = None):
+        self.save_freq = save_freq
+
+    def before_train(self):
+        self.best = -float("inf")
+
+    def after_epoch(self):
+        tr = self.trainer
+        metric = tr.comm_info.get("current_metric_value")
+        is_best = metric is not None and metric > self.best
+        if is_best:
+            self.best = metric
+            tr.logger.info(f"New best {tr.comm_info.get('current_metric_name')}: {metric:.4f}")
+        thresh = tr.cfg.get("save_freq_threshold")
+        save_snapshot = bool(
+            self.save_freq and (tr.epoch + 1) % self.save_freq == 0
+            and (thresh is None or tr.epoch + 1 >= thresh)
+        )
+        tr.ckpt_manager.save_epoch(
+            snapshot(tr.model, tr.step, tr.optimizer, tr.generators),
+            tr.epoch + 1, is_best, save_snapshot)
+
+
+@HOOKS.register_module()
+class PreciseEvaluator(HookBase):
+    """Run the TTA tester after training, on `model_best` (or `model_last`
+    with ``test_last``) loaded into the trained model (reference
+    `hooks/misc.py:252-278`)."""
+
+    def __init__(self, test_last: bool = False):
+        self.test_last = test_last
+
+    def after_train(self):
+        tr = self.trainer
+        if tr.cfg.get("test") is None:
+            return
+        name = "model_last" if self.test_last else "model_best"
+        if tr.ckpt_manager.has(name):
+            tr.ckpt_manager.restore(tr.model, name)
+        self.tester = SemSegTester(tr.cfg, model=tr.model, device=tr.device)
+        self.tester.test()
+
+
+HOOKS.register_unported(("InsSegEvaluator", "ClsEvaluator", "RuntimeProfiler"),
+                        "The model zoo and the rest of the engine and data")

@@ -1,14 +1,17 @@
-"""The training step.
+"""The training and evaluation steps.
 
-Port of `make_train_step` in `cdsegnet_tpu/engine/state.py` for one device
-and one microbatch: forward in training mode, the loss, backward, then the
+Port of `make_train_step` and `make_eval_step` in
+`cdsegnet_tpu/engine/state.py` for one device and one microbatch. The
+training step: forward in training mode, the loss, backward, then the
 optimizer update (keyword clip, AdamW with per-group schedules). The model
 and the optimizer hold the state that JAX's ``TrainState`` carries (the
 parameters and running statistics; the moments and the update count). Three
 generators, seeded once, take the place of the step's rng split: dropout
-and diffusion on the device, shuffle on the CPU. Microbatch accumulation
-and a device mesh are not ported and raise `NotImplementedError`.
-`batch_to_point` turns a collated numpy batch into a `PointBatch`.
+and diffusion on the device, shuffle on the CPU. The evaluation step is
+SSI in eval mode (`CNFSegmentor.inference`), or the plain forward's logits.
+Microbatch accumulation and a device mesh are not ported and raise
+`NotImplementedError`. `batch_to_point` turns a collated numpy batch into a
+`PointBatch`.
 """
 
 from __future__ import annotations
@@ -47,7 +50,9 @@ def make_train_step(model: torch.nn.Module, criteria: Criteria,
                     device: Optional[Union[str, torch.device]] = None,
                     microbatch: int = 1, mesh=None) -> Callable[..., Dict]:
     """The step ``step(point, **inject) -> metrics`` on ``device`` (the GPU
-    unless the caller names another; raises without one).
+    unless the caller names another; raises without one). It draws from
+    ``step.generators`` (`make_generators` of ``seed``), which a checkpoint
+    saves and a resume restores.
 
     ``inject`` goes to the model's forward (``ts_scene``, ``noise``,
     ``mse_valid`` replace the draws). The metrics are ``loss`` (a 0-d
@@ -72,5 +77,30 @@ def make_train_step(model: torch.nn.Module, criteria: Criteria,
         for i, d in enumerate(out["pyramid_dropped"]):
             metrics[f"dropped_l{i + 1}"] = d
         return metrics
+
+    step.generators = generators
+    return step
+
+
+def make_eval_step(model: torch.nn.Module, depth: int, num_scenes: int,
+                   device: Optional[Union[str, torch.device]] = None
+                   ) -> Callable[..., Dict]:
+    """The step ``step(batch, generator=None, noise=None) -> dict(seg_logits)``
+    on ``device`` (the GPU unless the caller names another; raises without
+    one): a collated batch through SSI in eval mode, without gradients. A
+    `CNFSegmentor` draws its c-branch noise from ``generator`` unless
+    ``noise`` is given; other models evaluate through the plain forward and
+    give its ``n_pred`` as ``seg_logits``."""
+    device = resolve_device(device)
+    has_inference = hasattr(type(model), "inference")
+
+    @torch.no_grad()
+    def step(batch: Dict[str, np.ndarray], generator: Optional[torch.Generator] = None,
+             noise: Optional[torch.Tensor] = None) -> Dict:
+        model.eval()
+        point = batch_to_point(batch, depth, num_scenes, device)
+        if has_inference:
+            return model.inference(point, noise=noise, generator=generator)
+        return dict(seg_logits=model(point)["n_pred"])
 
     return step

@@ -18,7 +18,8 @@ call) is drawn with shape ``(bucket, c_in)`` from one generator on the
 device, seeded from ``cfg.seed``, as JAX draws it per fragment; the
 ``noise_level`` robustness perturbation of the features draws from the same
 generator, before the c-branch noise. ``noise_fn(i, bucket, c_in)``
-replaces the c-branch draw (tests feed JAX's draws through it).
+replaces the c-branch draw and ``feat_noise_fn(i, shape)`` the perturbation's
+(tests feed JAX's draws through them).
 
 Not ported, each raising `NotImplementedError`: the DDIM modes MSAI and
 MSFI, ``num_devices > 1`` (fragment-parallel inference), ``model_kwargs``
@@ -50,6 +51,7 @@ TESTERS = Registry("testers")
 DEFAULT_BUCKETS = tuple(1024 * (1 << i) for i in range(4, 11))  # 16k..1M
 
 NoiseFn = Callable[[int, int, int], Any]
+FeatNoiseFn = Callable[[int, Tuple[int, ...]], Any]
 
 
 @TESTERS.register_module("SemSegTester")
@@ -70,21 +72,24 @@ class SemSegTester:
         if self.inference_mode != "SSI":
             raise NotImplementedError(
                 f"inference_mode={self.inference_mode!r}: the DDIM modes MSAI "
-                "and MSFI are not ported (ROADMAP Queue 1, item 9)")
+                'and MSFI are not ported (ROADMAP Queue 1: "DDIM MSAI and MSFI")')
         if (cfg.get("num_devices") or 1) > 1:
             raise NotImplementedError(
                 "num_devices > 1: fragment-parallel inference over several "
-                "GPUs is not ported (ROADMAP Queue 1, item 8)")
+                'GPUs is not ported (ROADMAP Queue 1: "Microbatches and more '
+                'than one device")')
         if cfg.get("model_kwargs"):
             raise NotImplementedError(
                 "model_kwargs: models other than CNFSegmentor and "
-                "PlainSegmentor are not ported (ROADMAP Queue 1, item 11)")
+                'PlainSegmentor are not ported (ROADMAP Queue 1: "The model zoo '
+                'and the rest of the engine and data")')
         self.model = (model if model is not None
                       else build_model(dict(cfg.model), device=self.device)).eval()
         if not isinstance(self.model, (CNFSegmentor, PlainSegmentor)):
             raise NotImplementedError(
                 f"{type(self.model).__name__}: only CNFSegmentor and "
-                "PlainSegmentor are ported (ROADMAP Queue 1, item 11)")
+                'PlainSegmentor are ported (ROADMAP Queue 1: "The model zoo and '
+                'the rest of the engine and data")')
         self.depth = cfg.get("serialization_depth", 16)
         self.buckets = tuple(cfg.get("test_buckets", DEFAULT_BUCKETS))
         self.noise_level = cfg.get("noise_level", None)
@@ -92,18 +97,28 @@ class SemSegTester:
         self.seed = cfg.get("seed") or 0
         self.generator = torch.Generator(self.device).manual_seed(self.seed)
 
-    def _prepare_fragment(self, frag: Dict, index: int,
-                          noise_fn: Optional[NoiseFn]) -> Tuple[int, PointBatch, torch.Tensor]:
-        """Collate one fragment into its bucket on the device and draw (or
-        take from ``noise_fn``) its c-branch noise."""
+    def _prepare_fragment(self, frag: Dict, index: int, noise_fn: Optional[NoiseFn],
+                          feat_noise_fn: Optional[FeatNoiseFn] = None
+                          ) -> Tuple[int, PointBatch, torch.Tensor]:
+        """Collate one fragment into its bucket on the device, perturb its
+        features when ``noise_level`` is set, and draw its c-branch noise;
+        ``feat_noise_fn`` and ``noise_fn`` replace the two draws."""
         n_frag = frag["coord"].shape[0]
         bucket = pick_bucket(n_frag, self.buckets)
         batch = collate_scenes([frag], bucket, 1)
         if self.noise_level is not None:
             # robustness protocol: gaussian-perturbed features
             feat = torch.as_tensor(batch["feat"], device=self.device)
-            batch["feat"] = feat + self.noise_level * torch.randn(
-                feat.shape, generator=self.generator, device=self.device)
+            if feat_noise_fn is None:
+                draw = torch.randn(feat.shape, generator=self.generator,
+                                   device=self.device)
+            else:
+                draw = torch.as_tensor(feat_noise_fn(index, tuple(feat.shape)),
+                                       dtype=torch.float32, device=self.device)
+                if draw.shape != feat.shape:
+                    raise ValueError(f"feat_noise_fn gave shape {tuple(draw.shape)}, "
+                                     f"expected {tuple(feat.shape)}")
+            batch["feat"] = feat + self.noise_level * draw
         point = batch_to_point(batch, self.depth, 1, self.device)
         c_in = getattr(self.model, "c_in_channels", batch["feat"].shape[-1])
         if noise_fn is None:
@@ -128,21 +143,25 @@ class SemSegTester:
         return self.model(point, geometry=geometry)["n_pred"]
 
     def predict_fragment(self, frag: Dict, index: int,
-                         noise_fn: Optional[NoiseFn] = None) -> torch.Tensor:
+                         noise_fn: Optional[NoiseFn] = None,
+                         feat_noise_fn: Optional[FeatNoiseFn] = None) -> torch.Tensor:
         """Softmax probabilities ``(n_frag, num_classes)``, f32 on the
         device, of fragment number ``index``."""
-        n_frag, point, noise = self._prepare_fragment(frag, index, noise_fn)
+        n_frag, point, noise = self._prepare_fragment(frag, index, noise_fn,
+                                                      feat_noise_fn)
         logits = self.forward_fragment(point, noise)
         return torch.softmax(logits[:n_frag].float(), dim=-1)
 
     def predict_scene(self, scene: Dict, first_index: int = 0,
-                      noise_fn: Optional[NoiseFn] = None) -> np.ndarray:
+                      noise_fn: Optional[NoiseFn] = None,
+                      feat_noise_fn: Optional[FeatNoiseFn] = None) -> np.ndarray:
         """The voted prediction of every raw point of ``scene`` (a test-mode
         dataset item), its fragments numbered from ``first_index``."""
         votes = torch.zeros((scene["segment"].size, self.cfg.data.num_classes),
                             dtype=torch.float32, device=self.device)
         for i, frag in enumerate(scene["fragment_list"]):
-            probs = self.predict_fragment(frag, first_index + i, noise_fn)
+            probs = self.predict_fragment(frag, first_index + i, noise_fn,
+                                          feat_noise_fn)
             votes.index_add_(0, torch.as_tensor(frag["index"], device=self.device),
                              probs)
         return votes.argmax(-1).cpu().numpy()
@@ -169,7 +188,8 @@ class SemSegTester:
         if cfg.get("submission", False):
             self.write_submission(ds, name, pred)
 
-    def test(self, noise_fn: Optional[NoiseFn] = None) -> float:
+    def test(self, noise_fn: Optional[NoiseFn] = None,
+             feat_noise_fn: Optional[FeatNoiseFn] = None) -> float:
         """Evaluate ``cfg.data.test``; returns the mIoU and sets ``records``
         (per scene) and ``result`` (``miou``, ``macc``, ``allacc``). A
         scene whose ``result/<name>_pred.npy`` exists is read from it and
@@ -196,7 +216,7 @@ class SemSegTester:
             if os.path.isfile(cache):
                 self._finalize_scene(ds, name, np.load(cache), segment)
                 continue
-            pred = self.predict_scene(scene, index, noise_fn)
+            pred = self.predict_scene(scene, index, noise_fn, feat_noise_fn)
             index += len(scene["fragment_list"])
             np.save(cache, pred)
             self._finalize_scene(ds, name, pred, segment)
@@ -254,11 +274,5 @@ class SemSegTester:
             )
 
 
-def _unported(name: str):
-    def build(**kwargs):
-        raise NotImplementedError(f"{name} is not ported (ROADMAP Queue 1, item 8)")
-    return build
-
-
-for _name in ("ClsTester", "PartSegTester"):
-    TESTERS.register_module(_name, _unported(_name))
+TESTERS.register_unported(("ClsTester", "PartSegTester"),
+                          "The model zoo and the rest of the engine and data")

@@ -107,15 +107,24 @@ def profile_steps(step, steps: int, res: dict, path: str) -> None:
     kernels) and under the profiler, launches per step and the time by
     kernel family; write the kernel table and the host operators with the
     most self CPU time to ``path``."""
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
+    with make_profiler() as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    report(prof, steps, wall_ms, res, path)
 
+
+def make_profiler():
+    return torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                              torch.profiler.ProfilerActivity.CUDA])
+
+
+def report(prof, steps: int, wall_ms: float, res: dict, path: str) -> None:
+    """Add to ``res`` what `profile_steps` adds, from a finished profile of
+    ``steps`` steps that took ``wall_ms`` each; write and print the tables."""
     kernels, host = {}, {}
     for evt in prof.key_averages():
         if evt.device_type != torch.autograd.DeviceType.CUDA:

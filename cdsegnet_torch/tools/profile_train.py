@@ -1,21 +1,40 @@
-"""Profile the port's CDSegNet CNF training step on one GPU.
+"""Profile the port's CDSegNet CNF training step, or its trainer, on one GPU.
 
 Usage, from the root of a checkout::
 
-    python -m cdsegnet_torch.tools.profile_train --out DIR
+    python -m cdsegnet_torch.tools.profile_train --out DIR [--trainer]
 
-Builds the model, criteria and optimizer of `configs/scannet/cdsegnet.py`
-(random weights from a seed) as `chip_smoke.py` trains them, on the config's
-synthetic bucket (2 scenes, 204,800 slots, serialization depth 12), then
-reports for one training step (forward, GLS loss, backward, AdamW):
+Without ``--trainer``: builds the model, criteria and optimizer of
+`configs/scannet/cdsegnet.py` (random weights from a seed) as `chip_smoke.py`
+trains them, on the config's synthetic bucket (2 scenes, 204,800 slots,
+serialization depth 12), then reports for one training step (forward, GLS
+loss, backward, AdamW):
 
 - the host-clock step time (median of 5 after 3 warm-ups, each ending in a
   synchronize) and the peak device memory;
 - from `torch.profiler` over 2 steps: the device time per step, the device's
   idle share, and the device time by kernel family and by kernel.
 
-The kernel table and the host operators by self CPU time go to
-``<out>/profile_train.txt``; the code is `profile_ssi`'s.
+With ``--trainer``: runs the trainer through `tools/train.py` on the same
+config, as users train it (the shipped train pipeline, Mix3D, the one
+prefetch thread), for one epoch over ``--rooms`` synthetic rooms under
+``<out>/data`` (`utils.synthetic.room_scene`, seeds 1 to 24 by default; two
+scenes per step), with the kernels built first. It reports, per iteration
+(the loader's wait and the step):
+
+- the host clock and the data wait of every iteration (`IterationTimer`);
+- from `torch.profiler` over the epoch's last ``PROFILED`` iterations: the
+  device time per iteration and the device's idle share, against the median
+  unprofiled steady iteration (the fifth up to the profiled ones) and under
+  the profiler;
+
+then profiles the trainer's validation SSI on the val room (seed 0) in the
+`EvalLoader`'s 524,288-slot bucket as above (host clock median of 5 after 2
+warm-ups, `torch.profiler` over 2 calls).
+
+The kernel tables and the host operators by self CPU time go to
+``<out>/profile_train.txt`` (or ``profile_trainer.txt`` and
+``profile_eval.txt``); the code is `profile_ssi`'s.
 """
 
 from __future__ import annotations
@@ -24,24 +43,43 @@ import argparse
 import json
 import os
 import runpy
+import statistics
+import time
 
 import torch
 
 from cdsegnet_torch.engine.optimizer import build_optimizer
 from cdsegnet_torch.engine.state import make_train_step
 from cdsegnet_torch.models.builder import build_model, build_model_criteria
-from cdsegnet_torch.tools.profile_ssi import ROOT, card_name, host_ms, profile_steps
+from cdsegnet_torch.tools.profile_ssi import (ROOT, card_name, host_ms, make_profiler,
+                                              profile_steps, report)
 from cdsegnet_torch.utils.synthetic import synthetic_point_batch
 
 TOTAL_STEPS = 1000  # OneCycle length; the profile takes the first steps
+ROOMS = 24  # --trainer: 12 iterations of 2 scenes
+PROFILED = 4  # --trainer: the epoch's last iterations, profiled
+# --trainer: the first iterations, left out of the steady median: the first
+# step's own costs, and the batches the prefetch thread made meanwhile
+WARM = 4
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--out", required=True, help="directory for profile_train.txt")
+    ap.add_argument("--out", required=True, help="directory for the tables")
+    ap.add_argument("--trainer", action="store_true",
+                    help="profile the trainer's epoch and validation SSI")
+    ap.add_argument("--rooms", type=int, default=ROOMS,
+                    help="--trainer: synthetic train rooms (two per iteration)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_train needs a CUDA device")
+    if args.trainer:
+        if args.rooms // 2 < WARM + PROFILED + 2:
+            raise SystemExit(f"--rooms {args.rooms}: at least "
+                             f"{2 * (WARM + PROFILED + 2)} for two steady unprofiled "
+                             "iterations")
+        profile_trainer(args.out, args.rooms)
+        return
     conf = runpy.run_path(os.path.join(ROOT, "configs", "scannet", "cdsegnet.py"))
     depth = runpy.run_path(os.path.join(
         ROOT, "configs", "_base_", "default_runtime.py"))["serialization_depth"]
@@ -63,6 +101,65 @@ def main() -> None:
                points_per_s=res["n_valid"] / (res["step_ms"] / 1e3))
     print("train " + json.dumps(res), flush=True)
     profile_steps(step, 2, res, os.path.join(args.out, "profile_train.txt"))
+
+
+def profile_trainer(out: str, rooms: int) -> None:
+    from cdsegnet_torch.engine.hooks import HOOKS, HookBase, IterationTimer
+    from cdsegnet_torch.ops.flash_attention import SOURCES
+    from cdsegnet_torch.tools import train as train_tool
+    from cdsegnet_torch.utils import cuda_build
+    from cdsegnet_torch.utils.synthetic import room_scene
+
+    card = card_name()
+    cuda_build.build(*SOURCES)  # so that no iteration waits for nvcc
+    data = os.path.join(out, "data")
+    for split, seeds in (("train", range(1, rooms + 1)), ("val", (0,))):
+        os.makedirs(os.path.join(data, split), exist_ok=True)
+        for i, seed in enumerate(seeds):
+            torch.save(room_scene(seed), os.path.join(data, split, f"scene{i:04d}_00.pth"))
+    iters = []
+
+    class TrainerProfile(HookBase):
+        """Records every iteration's host clock and data wait; profiles the
+        epoch's last ``PROFILED`` iterations."""
+
+        def after_step(self):
+            tr = self.trainer
+            timer = next(h for h in tr.hooks if isinstance(h, IterationTimer))
+            iters.append(dict(batch_s=timer.batch_m.val, data_s=timer.data_m.val))
+            last = tr.steps_per_epoch - 1
+            if tr.step_in_epoch == last - PROFILED:
+                torch.cuda.synchronize()
+                self.prof = make_profiler()
+                self.prof.__enter__()
+                self.t0 = time.perf_counter()
+            elif tr.step_in_epoch == last:
+                torch.cuda.synchronize()
+                self.wall_ms = (time.perf_counter() - self.t0) * 1e3 / PROFILED
+                self.prof.__exit__(None, None, None)
+
+    HOOKS.register_module("TrainerProfile", TrainerProfile)
+    hook_cfg = [dict(type="IterationTimer", warmup_iter=WARM),
+                dict(type="InformationWriter", log_interval=1),
+                dict(type="TrainerProfile")]
+    trainer = train_tool.main([
+        "--config-file", os.path.join(ROOT, "configs", "scannet", "cdsegnet.py"),
+        "--options", "epoch=1", "eval_epoch=1", f"save_path={os.path.join(out, 'train')}",
+        f"hooks={hook_cfg!r}", f"data.train.data_root={data}", f"data.val.data_root={data}"])
+    hook = trainer.hooks[-1]
+    steady = [it["batch_s"] * 1e3 for it in iters[WARM:len(iters) - PROFILED]]
+    res = dict(card=card, iterations=len(iters), profiled=PROFILED,
+               iter_ms=[it["batch_s"] * 1e3 for it in iters],
+               data_wait_ms=[it["data_s"] * 1e3 for it in iters],
+               step_ms=statistics.median(steady))
+    report(hook.prof, PROFILED, hook.wall_ms, res, os.path.join(out, "profile_trainer.txt"))
+
+    batch, _ = next(iter(trainer.val_loader))
+    gen = torch.Generator(device=trainer.device).manual_seed(0)
+    step = lambda: trainer.eval_step(batch, generator=gen)
+    ev = dict(card=card, slots=int(batch["mask"].size), points=int(batch["mask"].sum()),
+              step_ms=host_ms(step, 2, 5))
+    profile_steps(step, 2, ev, os.path.join(out, "profile_eval.txt"))
 
 
 if __name__ == "__main__":

@@ -1,12 +1,15 @@
-"""Metric helpers: AverageMeter and intersection/union histograms (numpy).
+"""Metric helpers: AverageMeter and intersection/union histograms, on the
+host (numpy) and on the device (torch).
 
 Own copy of `cdsegnet_tpu/utils/misc.py` (reference
-`pointcept/utils/misc.py:10-65`).
+`pointcept/utils/misc.py:10-65`); `intersection_and_union_torch` is the
+counterpart of its `intersection_and_union_jnp`.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 class AverageMeter:
@@ -40,3 +43,19 @@ def intersection_and_union(
     area_o, _ = np.histogram(output, bins=np.arange(K + 1))
     area_t, _ = np.histogram(target, bins=np.arange(K + 1))
     return area_i, area_o + area_t - area_i, area_t
+
+
+def intersection_and_union_torch(pred: torch.Tensor, target: torch.Tensor, K: int,
+                                 valid: torch.Tensor):
+    """Per-class intersection/union/target histograms (int64, on the
+    tensors' device) of the points that are ``valid`` and labelled
+    (``target >= 0``); the others go to the sink class ``K``, dropped."""
+    v = valid & (target >= 0)
+    sink = torch.full_like(pred, K)
+    p1 = torch.where(v, pred, sink).long()
+    t1 = torch.where(v, target.to(pred.dtype), sink).long()
+    inter = torch.where(p1 == t1, p1, K)
+    area_i = torch.bincount(inter, minlength=K + 1)[:K]
+    area_p = torch.bincount(p1, minlength=K + 1)[:K]
+    area_t = torch.bincount(t1, minlength=K + 1)[:K]
+    return area_i, area_p + area_t - area_i, area_t

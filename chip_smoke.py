@@ -10,9 +10,11 @@ Phases, each fatal on failure:
    (none allowed) and count of tensor-core instructions (HMMA, from
    cuobjdump; the bf16 forward, dq and dk/dv kernels must have some);
 3. kernels: the forward kernel against its plain PyTorch version on the
-   GPU, at every shape the SSI path gives it and at every shape a tester
+   GPU, at every shape the SSI path gives it, at every shape a tester
    fragment of the 131,072-slot bucket gives it (the first fragment of
-   phase 8's scene), in bf16 and f32, plus padded multi-scene batches;
+   phase 8's scene) and at every shape the trainer's validation SSI gives it
+   (phase 8's room in the evaluator's 524,288-slot bucket), in bf16 and f32,
+   plus padded multi-scene batches;
    every output row must be finite, and a second run bit-equal to the
    first. Times (CUDA events) beside the bound and the time of the
    equivalent library call;
@@ -50,7 +52,23 @@ Phases, each fatal on failure:
    each fragment's bucket and drops, the pyramid path taken, and the
    scene's host-clock split (data pipeline, forward with geometry,
    fragment preparation, votes and argmax) with the median SSI per
-   fragment.
+   fragment;
+9. train: the trainer through its CLI entry point
+   (`cdsegnet_torch.tools.train.main`) on the same config at full width, as
+   users train it (bf16, shuffled curves, drop_path 0.3, Mix3D 0.8, the
+   shipped train transforms with scipy's elastic distortion, sphere crop to
+   102,400 points, 2 scenes per 204,800-slot bucket, depth 12), on four
+   synthetic rooms with phase 8's room as the val set: 2 epochs of 2 steps,
+   each evaluated (SSI at the 524,288-slot bucket) and checkpointed. The
+   first run stops after epoch 1 (a hook registered here raises); the second
+   resumes from `model_last` at step 2 with the saved optimizer count and
+   generators, trains epoch 2, evaluates, saves and runs PreciseEvaluator
+   (the tester on the val room). Every step must take 36 + 36 + 36 kernel
+   launches, every validation SSI 32, no plain attention; losses finite, no
+   point dropped, mIoU in [0, 1]; the checkpoints, metric and event files
+   and the tester's records present. Prints the host-clock step, the
+   loader's data wait, the host time of one train-pipeline scene, the
+   validation SSI, the checkpoint saves and the peak memory.
 
 The last three lines are a JSON summary of the kernels, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``. Without a GPU, or
@@ -61,6 +79,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import functools
 import json
 import os
 import re
@@ -104,6 +123,8 @@ TRAIN_EXTRA = ((8192, 2, 16, 1024, [2500, 3100, 1772]),
                (6000, 2, 16, 200, [1234, 2345, 1500]),
                (1920, 2, 32, 96, [333, 700, 501]))
 GAP_POINTS = 32768  # one scene: the plain route keeps P*H*K*K probabilities
+EVAL_POINTS = 1 << 19  # the trainer's validation bucket (`val_num_points`)
+TRAIN_ROOM_SEEDS = (1, 2, 3, 4)  # phase 9's train scenes
 TRAIN_TOTAL_STEPS = 1000  # OneCycle length; the smoke takes the first steps
 ROOM_SEED = 0  # the tester's synthetic scene
 # tester route gap as shipped, kernel route vs plain route on two fragments
@@ -216,15 +237,18 @@ def check_kernel_case(torch, batch, valid, h, d, patch, dtype, gen):
                                                       scale, upcast_softmax=True))
     library_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
         q4, k4, v4, attn_mask=m4, scale=scale))
+    # what this data needs: the allowed pairs' products; q, k, v of the valid
+    # rows read, o of every row written, scene ids and validity read
+    n_valid = int(valid.sum().item())
     flops = 4.0 * d * h * pairs
-    nbytes = 4.0 * n * h * d * q.element_size() + 5.0 * n
+    nbytes = (n + 3.0 * n_valid) * h * d * q.element_size() + 5.0 * n
     ops_ms = flops / PEAK_FLOPS[name] * 1e3
     bytes_ms = nbytes / PEAK_BYTES * 1e3
     return dict(shape=[n, h, d], patch=patch, dtype=name, max_abs_err=err,
                 max_abs_out=ref, ms=kernel_ms, plain_ms=plain_ms,
                 library_ms=library_ms, bound_ms=max(ops_ms, bytes_ms),
                 ops_ms=ops_ms, bytes_ms=bytes_ms, exps=h * pairs,
-                valid_rows=int(valid.sum().item()))
+                valid_rows=n_valid)
 
 
 SUMMED = ("ms", "plain_ms", "library_ms", "bound_ms", "ops_ms", "bytes_ms", "exps")
@@ -434,18 +458,22 @@ def check_train_case(torch, batch, valid, h, d, patch, dtype, gen, timed=True):
     g4, m4 = to4(g), allowed[:, None]
     sdpa = lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=m4, scale=scale)
     o4 = sdpa()
+    # the bytes this data needs: the inputs of the valid rows read (q, k, v,
+    # o, g; lse and delta in f32), the outputs of every row written, scene
+    # ids and validity read
+    nv = int(valid.sum().item())
+    hd = h * d * q.element_size()
     fwd = dict(
         ms=cuda_ms(torch, lambda: fa._launch_fwd(q, k, v, batch, valid, patch, scale,
                                                  with_lse=True), 2, 5),
         plain_ms=cuda_ms(torch, lambda: patch_attention(
             q, k, v, batch, valid, patch, scale, upcast_softmax=True), 2, 5),
         library_ms=cuda_ms(torch, lambda: sdpa().detach(), 2, 5),
-        **shape_bound(4.0 * d * h * pairs,
-                      4.0 * n * h * d * q.element_size() + 4.0 * n * h + 5.0 * n, name))
+        **shape_bound(4.0 * d * h * pairs, (n + 3.0 * nv) * hd + 4.0 * n * h + 5.0 * n,
+                      name))
 
     # each backward kernel beside the plain version's and SDPA's gradients
     # of the same tensors (autograd computes only what they need)
-    row_bytes = 6.0 * n * h * d * q.element_size() + 8.0 * n * h + 5.0 * n
     dq_ = dict(
         ms=cuda_ms(torch, lambda: fa.patch_attention_bwd_dq(
             q, k, v, out, g, lse, batch, valid, patch, scale), 2, 5),
@@ -453,7 +481,8 @@ def check_train_case(torch, batch, valid, h, d, patch, dtype, gen, timed=True):
             ref_out, leaves[:1], g, retain_graph=True), 2, 5),
         library_ms=cuda_ms(torch, lambda: torch.autograd.grad(
             o4, (q4,), g4, retain_graph=True), 2, 5),
-        **shape_bound(6.0 * d * h * pairs, row_bytes, name))
+        **shape_bound(6.0 * d * h * pairs,
+                      (n + 5.0 * nv) * hd + 4.0 * (n + nv) * h + 5.0 * n, name))
     dkdv = dict(
         ms=cuda_ms(torch, lambda: fa.patch_attention_bwd_dkdv(
             q, k, v, g, lse, delta, batch, valid, patch, scale), 2, 5),
@@ -461,20 +490,22 @@ def check_train_case(torch, batch, valid, h, d, patch, dtype, gen, timed=True):
             ref_out, leaves[1:], g, retain_graph=True), 2, 5),
         library_ms=cuda_ms(torch, lambda: torch.autograd.grad(
             o4, (k4, v4), g4, retain_graph=True), 2, 5),
-        **shape_bound(8.0 * d * h * pairs, row_bytes, name))
+        **shape_bound(8.0 * d * h * pairs, (2.0 * n + 4.0 * nv) * hd + 8.0 * nv * h + 5.0 * n,
+                      name))
     # the whole backward: 10 D FLOPs per pair (s, dp, dv, dq, dk); q, k, v,
-    # o, g read and dq, dk, dv written once; plain and SDPA computing all three
+    # o, g and lse of the valid rows read and dq, dk, dv written once; plain
+    # and SDPA computing all three
     bwd = dict(
         ms=dq_["ms"] + dkdv["ms"],
         plain_ms=cuda_ms(torch, lambda: torch.autograd.grad(
             ref_out, leaves, g, retain_graph=True), 2, 5),
         library_ms=cuda_ms(torch, lambda: torch.autograd.grad(
             o4, (q4, k4, v4), g4, retain_graph=True), 2, 5),
-        **shape_bound(10.0 * d * h * pairs,
-                      8.0 * n * h * d * q.element_size() + 4.0 * n * h + 5.0 * n, name))
+        **shape_bound(10.0 * d * h * pairs, (3.0 * n + 5.0 * nv) * hd + 4.0 * nv * h + 5.0 * n,
+                      name))
     return dict(shape=[n, h, d], patch=patch, dtype=name, max_abs_err=errs,
                 max_abs_ref=refs, exps=h * pairs, fwd=fwd, dq=dq_, dkdv=dkdv,
-                bwd=bwd, valid_rows=int(valid.sum().item()))
+                bwd=bwd, valid_rows=nv)
 
 
 def phase_train_kernels(torch, levels, launches, patch):
@@ -891,6 +922,239 @@ def phase_test(torch, config, cfg, tmp, n_raw, scene, n_launches, card):
     return split
 
 
+def eval_levels(torch, config, model, tmp, depth):
+    """The pyramid of the trainer's validation batch: phase 8's room through
+    the config's val pipeline into the `EvalLoader`'s bucket."""
+    from cdsegnet_torch.data.datasets import build_dataset
+    from cdsegnet_torch.data.loader import EvalLoader
+    from cdsegnet_torch.engine.config import Config
+    from cdsegnet_torch.engine.state import batch_to_point
+
+    cfg = Config.fromfile(config)
+    val = dict(cfg.data.val, data_root=os.path.join(tmp, "data"))
+    batch, _ = next(iter(EvalLoader(build_dataset(val), num_points=EVAL_POINTS)))
+    levels, _ = model.backbone.precompute_geometry(
+        batch_to_point(batch, depth, 1, "cuda"))
+    drops = [lv.dropped for lv in levels[1:]]
+    print(f"eval batch: {int(batch['mask'].sum())} points in the {EVAL_POINTS} bucket, "
+          f"level sizes {[lv.size for lv in levels]}, dropped per level {drops}",
+          flush=True)
+    if drops != [0, 0, 0, 0]:
+        fail("the validation batch drops points")
+    return levels
+
+
+class Stopped(Exception):
+    """Raised by the `ChipSmokeStop` hook: the interrupted training run."""
+
+
+def phase_train_cli(torch, config, tmp, n_launches, n_eval_launches, card):
+    """The trainer through its CLI entry point, stopped after epoch 1 and
+    resumed; see the module docstring (phase 9)."""
+    from cdsegnet_torch.data import datasets, transforms
+    from cdsegnet_torch.engine import hooks, train as train_mod
+    from cdsegnet_torch.engine.checkpoint import CheckpointManager
+    from cdsegnet_torch.ops import flash_attention as fa
+    from cdsegnet_torch.tools import train as train_tool
+    from cdsegnet_torch.utils.synthetic import room_scene
+
+    start = time.perf_counter()
+    if not transforms._HAVE_SCIPY:
+        fail("scipy is missing: ElasticDistortion of the train pipeline would do nothing")
+    torch.cuda.reset_peak_memory_stats()
+    os.makedirs(os.path.join(tmp, "data", "train"))
+    for i, seed in enumerate(TRAIN_ROOM_SEEDS):
+        torch.save(room_scene(seed), os.path.join(tmp, "data", "train", f"scene{i:04d}_00.pth"))
+    save = os.path.join(tmp, "train")
+    records = dict(steps=[], evals=[], scenes=[], saves=[], epochs=[], began=[])
+    plain_calls = [0]
+    counts = lambda: dict(fwd=fa.patch_attention_fwd.launches,
+                          fwd_lse=fa.patch_attention_fwd.lse_launches,
+                          bwd_dq=fa.patch_attention_bwd_dq.launches,
+                          bwd_dkdv=fa.patch_attention_bwd_dkdv.launches)
+
+    def counting(fn):
+        def run(*args, **kwargs):
+            plain_calls[0] += 1
+            return fn(*args, **kwargs)
+        return run
+
+    def measured(kind):
+        """Wrap the step a ``make_*_step`` returns: synchronized host-clock
+        ms, launches and plain calls of each call."""
+        def make(factory):
+            def build(*args, **kwargs):
+                step = factory(*args, **kwargs)
+
+                @functools.wraps(step)  # keeps the step's attributes (its generators)
+                def run(*a, **kw):
+                    torch.cuda.synchronize()
+                    before, plain = counts(), plain_calls[0]
+                    t0 = time.perf_counter()
+                    out = step(*a, **kw)
+                    torch.cuda.synchronize()
+                    rec = dict(ms=(time.perf_counter() - t0) * 1e3, plain=plain_calls[0] - plain,
+                               launches={k: v - before[k] for k, v in counts().items()})
+                    if kind == "evals":
+                        mask = torch.as_tensor(a[0]["mask"], device="cuda")
+                        rec.update(slots=int(mask.numel()), points=int(mask.sum().item()),
+                                   finite=bool(torch.isfinite(out["seg_logits"][mask]).all()))
+                    records[kind].append(rec)
+                    return out
+                return run
+            return build
+        return make
+
+    def timed_scene(fn):
+        def run(self, idx, rng):
+            t0 = time.perf_counter()
+            out = fn(self, idx, rng)
+            if self.split == "train":
+                records["scenes"].append(time.perf_counter() - t0)
+            return out
+        return run
+
+    def timed_save(fn):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            records["saves"].append(time.perf_counter() - t0)
+            return out
+        return run
+
+    class ChipSmokeProbe(hooks.HookBase):
+        """Reads the trainer: where each epoch began, each step's metrics,
+        data wait and learning rates, each epoch's end state."""
+
+        def before_epoch(self):
+            tr = self.trainer
+            records["trainer"] = tr
+            records["began"].append(dict(
+                epoch=tr.epoch, step=tr.step, count=tr.optimizer.count,
+                generators={k: g.get_state() for k, g in tr.generators.items()}))
+
+        def after_step(self):
+            tr = self.trainer
+            timer = next(h for h in tr.hooks if isinstance(h, hooks.IterationTimer))
+            records["steps"][-1].update(
+                metrics=dict(tr.comm_info["metrics"]), data_s=timer.data_m.val,
+                batch_s=timer.batch_m.val, step=tr.step,
+                lrs=[g["lr"] for g in tr.optimizer.opt.param_groups],
+                want_lrs=[s(tr.step - 1) for s in tr.optimizer.schedules])
+
+        def after_epoch(self):
+            tr = self.trainer
+            records["epochs"].append(dict(
+                epoch=tr.epoch, step=tr.step, miou=tr.comm_info.get("current_metric_value"),
+                generators={k: g.get_state() for k, g in tr.generators.items()}))
+
+    class ChipSmokeStop(hooks.HookBase):
+        def after_epoch(self):
+            if self.trainer.epoch == 0:
+                raise Stopped("stopped after epoch 1")
+
+    hook_cfg = [dict(type="CheckpointLoader"), dict(type="IterationTimer", warmup_iter=2),
+                dict(type="InformationWriter", log_interval=1),
+                dict(type="SemSegEvaluator"), dict(type="CheckpointSaver", save_freq=1),
+                dict(type="ChipSmokeProbe"), dict(type="ChipSmokeStop"),
+                dict(type="PreciseEvaluator")]
+    data_root = os.path.join(tmp, "data")
+    argv = ["--config-file", config, "--options", "epoch=2", "eval_epoch=2",
+            "save_freq_threshold=1", f"save_path={save}", f"hooks={hook_cfg!r}",
+            f"data.train.data_root={data_root}", f"data.val.data_root={data_root}",
+            f"data.test.data_root={data_root}"]
+    instruments = [(fa, "patch_attention", counting),
+                   (train_mod, "make_train_step", measured("steps")),
+                   (train_mod, "make_eval_step", measured("evals")),
+                   (datasets.DefaultDataset, "prepare_train_data", timed_scene),
+                   (CheckpointManager, "save_epoch", timed_save)]
+    hooks.HOOKS.register_module("ChipSmokeProbe", ChipSmokeProbe)
+    hooks.HOOKS.register_module("ChipSmokeStop", ChipSmokeStop)
+    runs = {}
+    with patched(*instruments):
+        for name, extra in (("interrupted", []), ("resumed", ["resume=True"])):
+            fa.reset_launch_counts()
+            plain_calls[0] = 0
+            t0 = time.perf_counter()
+            try:
+                train_tool.main(argv + extra)
+                stopped = False
+            except Stopped:
+                stopped = True
+            torch.cuda.synchronize()
+            runs[name] = dict(wall_s=time.perf_counter() - t0, stopped=stopped,
+                              launches=counts(), plain=plain_calls[0],
+                              files=sorted(os.listdir(os.path.join(save, "model"))))
+            print(f"train cli run {name} " + json.dumps(runs[name]), flush=True)
+    trainer = records.pop("trainer")
+
+    steps, evals = records["steps"], records["evals"]
+    print("train cli steps " + json.dumps(steps), flush=True)
+    print("train cli evals " + json.dumps(evals), flush=True)
+    want_steps = dict(fwd=n_launches, fwd_lse=n_launches, bwd_dq=n_launches,
+                      bwd_dkdv=n_launches)
+    if runs["interrupted"]["stopped"] is not True or runs["resumed"]["stopped"]:
+        fail(f"the first run did not stop after epoch 1 or the second did: {runs}")
+    if runs["interrupted"]["files"] != ["epoch_1", "model_best", "model_last"]:
+        fail(f"checkpoints after the interrupted run: {runs['interrupted']['files']}")
+    if runs["resumed"]["files"] != ["epoch_1", "epoch_2", "model_best", "model_last"]:
+        fail(f"checkpoints after the resumed run: {runs['resumed']['files']}")
+    if len(steps) != 4 or any(s["launches"] != want_steps or s["plain"] for s in steps):
+        fail(f"training steps: {len(steps)}, expected 4 of {want_steps} launches "
+             "and no plain attention")
+    bad = [s for s in steps if not np.isfinite(s["metrics"]["loss"])
+           or any(v for k, v in s["metrics"].items() if k.startswith("dropped_l"))]
+    if bad:
+        fail(f"training steps with a non-finite loss or dropped points: {bad}")
+    if [s["step"] for s in steps] != [1, 2, 3, 4]:
+        fail(f"optimizer steps {[s['step'] for s in steps]}")
+    if any(s["lrs"] != s["want_lrs"] for s in steps):
+        fail("a step's learning rates are not OneCycle's at its count")
+    eval_launches = dict(fwd=n_eval_launches, fwd_lse=0, bwd_dq=0, bwd_dkdv=0)
+    if len(evals) != 2 or any(e["launches"] != eval_launches or e["plain"]
+                              or not e["finite"] or e["slots"] != EVAL_POINTS
+                              for e in evals):
+        fail(f"validation SSIs: expected 2 of {eval_launches} launches at "
+             f"{EVAL_POINTS} slots, finite, no plain attention")
+    began, ends = records["began"], records["epochs"]
+    resumed = began[1]
+    if (resumed["epoch"], resumed["step"], resumed["count"]) != (1, 2, 2) or \
+            trainer.start_epoch != 1:
+        fail(f"the resumed run began at epoch {resumed['epoch']}, step {resumed['step']}, "
+             f"count {resumed['count']}")
+    if any(not torch.equal(resumed["generators"][k], g)
+           for k, g in ends[0]["generators"].items()):
+        fail("the resumed run's generators are not those saved after epoch 1")
+    if not all(e["miou"] is not None and 0.0 <= e["miou"] <= 1.0 for e in ends):
+        fail(f"val mIoU out of [0, 1]: {[e['miou'] for e in ends]}")
+    metric_lines = open(os.path.join(save, "metrics.jsonl")).read().splitlines()
+    tb_dir = os.path.join(save, "tb")
+    tb_sizes = [os.path.getsize(os.path.join(tb_dir, f)) for f in os.listdir(tb_dir)]
+    if len(metric_lines) != 4 or not tb_sizes or sum(tb_sizes) < 500:
+        fail(f"metrics.jsonl lines {len(metric_lines)}, event files {tb_sizes}")
+    tester = trainer.hooks[-1].tester
+    if sorted(tester.records) != ["scene0000_00"] or not all(
+            0.0 <= v <= 1.0 for v in tester.result.values()):
+        fail("the precise evaluator gave no record of the val room")
+
+    result = dict(
+        step_ms=[s["ms"] for s in steps], batch_s=[s["batch_s"] for s in steps],
+        data_wait_s=[s["data_s"] for s in steps], losses=[s["metrics"]["loss"] for s in steps],
+        valid_points=[s["metrics"]["valid_points"] for s in steps],
+        scene_pipeline_s=records["scenes"],
+        scene_pipeline_s_median=statistics.median(records["scenes"]),
+        eval_ssi_ms=[e["ms"] for e in evals], eval_points=[e["points"] for e in evals],
+        val_miou=[e["miou"] for e in ends], save_s=records["saves"],
+        precise=dict(tester.result, launches=runs["resumed"]["launches"]["fwd"]
+                     - 2 * n_launches - n_eval_launches),
+        runs_wall_s={k: r["wall_s"] for k, r in runs.items()},
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        launches_per_step=steps[0]["launches"], launches_per_eval=evals[0]["launches"]["fwd"],
+        phase_s=time.perf_counter() - start, card=card)
+    print("train cli " + json.dumps(result), flush=True)
+    return result
+
+
 def kernel_entry(name, source, replaces, launches, rows, direction):
     """One entry of the kernels line: bf16 sums per training step over the
     main path's launches, each timed on its level's real scene ids and
@@ -993,11 +1257,18 @@ def run_phases(torch, config: str, runtime: str, tmp: str, start: float) -> int:
           f"{[lv.dropped for lv in frag_levels[1:]]}", flush=True)
     test_rows = phase_kernels(torch, frag_levels, launches, patch, path="test")
     del frag_levels
+    # the trainer's validation shapes: the val room in the 524,288-slot bucket
+    # (the plain version keeps 4 GiB of probabilities at level 0 there)
+    val_levels = eval_levels(torch, config, model, tmp, depth)
+    eval_rows = phase_kernels(torch, val_levels, launches, patch, path="eval")
+    del val_levels
+    torch.cuda.empty_cache()
     ssi = phase_ssi(torch, cfg, model, point, len(launches), card)
     # per forward: summed over the path's launches, each timed on its
     # level's real scene ids and validity
     print("ssi kernel per forward " + json.dumps(forward_sums(rows)), flush=True)
     print("test kernel per fragment " + json.dumps(forward_sums(test_rows)), flush=True)
+    print("eval kernel per forward " + json.dumps(forward_sums(eval_rows)), flush=True)
     del model, levels
     torch.cuda.empty_cache()
 
@@ -1023,6 +1294,10 @@ def run_phases(torch, config: str, runtime: str, tmp: str, start: float) -> int:
     phase_train_gap(torch, conf, cfg)
     torch.cuda.empty_cache()
     test = phase_test(torch, config, cfg, tmp, n_raw, test_scene, len(launches), card)
+    del test_scene
+    torch.cuda.empty_cache()
+    train_cli = phase_train_cli(torch, config, tmp, len(train_launches), len(launches),
+                                card)
 
     tpu = "cdsegnet_tpu/ops/pallas/flash_attention.py"
     bwd_src = f"cdsegnet_torch/csrc/{BWD_KERNEL}.cu"
@@ -1034,7 +1309,12 @@ def run_phases(torch, config: str, runtime: str, tmp: str, start: float) -> int:
              paths=dict(ssi=dict(forward_sums(rows), launches=ssi["launches"]),
                         test=dict(forward_sums(test_rows), launches=test["launches"],
                                   fragments=test["fragments"],
-                                  per_fragment=test["per_fragment"]))),
+                                  per_fragment=test["per_fragment"]),
+                        # per validation SSI at the 524,288-slot bucket: times
+                        # from phase 3, launches counted in phase 9's runs
+                        eval=dict(forward_sums(eval_rows),
+                                  launches=train_cli["launches_per_eval"],
+                                  ssi_ms=train_cli["eval_ssi_ms"]))),
         kernel_entry("patch_attention_bwd_dq", bwd_src, f"{tpu}:146",
                      train["launches"]["bwd_dq"], train_rows, "dq"),
         kernel_entry("patch_attention_bwd_dkdv", bwd_src, f"{tpu}:146",

@@ -298,7 +298,9 @@ def test_port_imports_no_jax():
                    "tools/profile_train.py", "engine/test.py", "engine/checkpoint.py",
                    "engine/config.py", "data/transforms.py", "data/datasets.py",
                    "data/collate.py", "tools/test.py", "utils/registry.py",
-                   "utils/logger.py", "utils/misc.py"):
+                   "utils/logger.py", "utils/misc.py", "engine/train.py",
+                   "engine/hooks.py", "engine/events.py", "data/loader.py",
+                   "utils/tbwriter.py", "tools/train.py"):
         assert os.path.join(REPO, "cdsegnet_torch", module) in files, module
     bad = [(f, m) for f in files for m in _imports(f)
            if m.split(".")[0] in FORBIDDEN]

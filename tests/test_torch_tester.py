@@ -20,6 +20,7 @@ from cdsegnet_tpu.engine.state import TrainState  # noqa: E402
 from cdsegnet_tpu.engine.test import SemSegTester as JTester  # noqa: E402
 from cdsegnet_tpu.models.builder import build_model as jbuild  # noqa: E402
 from cdsegnet_tpu.models.structure import make_point_batch as jmake  # noqa: E402
+from cdsegnet_torch.data.collate import collate_scenes as tcollate_scenes  # noqa: E402
 from cdsegnet_torch.engine.checkpoint import CheckpointManager, snapshot  # noqa: E402
 from cdsegnet_torch.engine.config import Config  # noqa: E402
 from cdsegnet_torch.engine.optimizer import build_optimizer  # noqa: E402
@@ -130,8 +131,8 @@ def test_semseg_tester_matches_jax(ref, tmp_path):
     probs, index_of = [], []
     predict = tester.predict_fragment
 
-    def record_probs(frag, index, noise_fn=None):
-        p = predict(frag, index, noise_fn)
+    def record_probs(frag, index, noise_fn=None, feat_noise_fn=None):
+        p = predict(frag, index, noise_fn, feat_noise_fn)
         probs.append(p.numpy())
         index_of.append(frag["index"])
         return p
@@ -140,9 +141,9 @@ def test_semseg_tester_matches_jax(ref, tmp_path):
     per_scene = []
     predict_scene = tester.predict_scene
 
-    def record_scene(scene, first_index=0, noise_fn=None):
+    def record_scene(scene, first_index=0, noise_fn=None, feat_noise_fn=None):
         per_scene.append((first_index, len(scene["fragment_list"])))
-        return predict_scene(scene, first_index, noise_fn)
+        return predict_scene(scene, first_index, noise_fn, feat_noise_fn)
 
     tester.predict_scene = record_scene
     calls = []
@@ -208,6 +209,42 @@ def test_noise_is_seeded_per_fragment(ref):
     assert not np.array_equal(runs[0], runs[2])
     with pytest.raises(ValueError, match="noise_fn gave shape"):
         t.predict_fragment(frag, 0, noise_fn=lambda i, b, c: np.zeros((b, c + 1)))
+
+
+def test_noise_level_matches_jax(ref):
+    """The ``noise_level`` perturbation of the features with JAX's draws fed
+    in: JAX's `_prepare_fragment` splits the fragment's key, perturbs with
+    the first half and draws the c-branch noise from the second."""
+    cfg = Config(Config._wrap(scene_cfg(ref["root"], "unused", noise_level=0.1)))
+    ds = __import__("cdsegnet_torch.data.datasets", fromlist=["x"]).build_dataset(
+        dict(cfg.data.test))
+    jtester = JTester(cfg, model=object())
+    tester = SemSegTester(cfg, model=port_model(ref["variables"]), device="cpu")
+    frags = ds.get(1, np.random.default_rng(0))["fragment_list"][:3]
+    key = jax.random.PRNGKey(7)
+    for index, frag in enumerate(frags):
+        key, rng = jax.random.split(key)
+        bucket, n_frag, batch, noise, _ = jtester._prepare_fragment(frag, rng)
+        feat_rng, _ = jax.random.split(rng)
+        draw = np.array(jax.random.normal(feat_rng, batch["feat"].shape))
+        shapes = []
+
+        def feat_noise_fn(i, shape):
+            shapes.append((i, shape))
+            return draw
+
+        got_n, point, got_noise = tester._prepare_fragment(
+            frag, index, lambda i, b, c: noise, feat_noise_fn)
+        assert shapes == [(index, batch["feat"].shape)]
+        assert (got_n, point.num_points) == (n_frag, bucket)
+        # valid rows: both packages zero the padding rows' features after
+        np.testing.assert_allclose(point.feat.numpy()[:n_frag], batch["feat"][:n_frag],
+                                   rtol=0, atol=1e-6)
+        np.testing.assert_array_equal(got_noise.numpy(), noise)
+        clean = tcollate_scenes([frag], bucket, 1)["feat"][:n_frag]
+        assert np.abs(point.feat.numpy()[:n_frag] - clean).max() > 0.05  # perturbed
+    with pytest.raises(ValueError, match="feat_noise_fn gave shape"):
+        tester._prepare_fragment(frags[0], 0, None, lambda i, s: np.zeros((1, 6)))
 
 
 @pytest.mark.parametrize("dataset_type,name", [

@@ -1,12 +1,14 @@
-"""Datasets: the base dataset, ScanNet and ScanNet200.
+"""Datasets: the base dataset, ScanNet, ScanNet200 and nuScenes.
 
-Port of `DefaultDataset`, `ScanNetDataset`, `ScanNet200Dataset` and
-`build_dataset` of `cdsegnet_tpu/data/datasets.py` (reference
-`pointcept/datasets/{defaults,scannet}.py`): plain indexable objects whose
+Port of `DefaultDataset`, `ScanNetDataset`, `ScanNet200Dataset`,
+`NuScenesDataset` and `build_dataset` of `cdsegnet_tpu/data/datasets.py`
+(reference `pointcept/datasets/{defaults,scannet,nuscenes}.py`): plain
+indexable objects whose
 ``get(idx, rng)`` runs the transform pipeline with an explicit numpy
 generator; in test mode it expands every test-time augmentation into
 fragments. Scene files are Pointcept `.pth` archives or per-field `.npy`
-directories. The shared decode cache (``cache=True``) and the other
+directories; nuScenes sweeps are listed by an info pickle and read from
+`.bin` files. The shared decode cache (``cache=True``) and the other
 datasets of the JAX package are not ported.
 """
 
@@ -14,6 +16,7 @@ from __future__ import annotations
 
 import glob
 import os
+import pickle
 from copy import deepcopy
 from typing import Dict, List, Optional
 
@@ -238,6 +241,67 @@ VALID_CLASS_IDS_200 = (
 class ScanNet200Dataset(ScanNetDataset):
     segment_key = "semantic_gt200"
     class2id = np.array(VALID_CLASS_IDS_200)
+
+
+@DATASETS.register_module()
+class NuScenesDataset(DefaultDataset):
+    """nuScenes lidarseg (reference `nuscenes.py:17-137`). The split's sweeps
+    are listed in ``<data_root>/info/nuscenes_infos_{sweeps}sweeps_{split}.pkl``
+    (a list of dicts with ``lidar_path``, ``lidar_token`` and, for labelled
+    splits, ``gt_segment_path``, both paths under ``<data_root>/raw``). A
+    sweep is ``(N, 5)`` float32 (x, y, z, intensity 0-255, ring); labels are
+    uint8 raw lidarseg ids, mapped to the 16 learning classes."""
+
+    def __init__(self, sweeps: int = 10, **kwargs):
+        self.sweeps = sweeps
+        self.learning_map = self.get_learning_map(kwargs.get("ignore_index", -1))
+        super().__init__(**kwargs)
+
+    def get_info_path(self, split: str) -> str:
+        if split not in ("train", "val", "test"):
+            raise ValueError(f"split {split!r}: 'train', 'val' or 'test'")
+        return os.path.join(self.data_root, "info",
+                            f"nuscenes_infos_{self.sweeps}sweeps_{split}.pkl")
+
+    def get_data_list(self):
+        splits = [self.split] if isinstance(self.split, str) else list(self.split)
+        data_list = []
+        for s in splits:
+            with open(self.get_info_path(s), "rb") as f:
+                data_list.extend(pickle.load(f))
+        return data_list
+
+    def get_data(self, idx: int) -> Dict:
+        info = self.data_list[idx % len(self.data_list)]
+        lidar_path = os.path.join(self.data_root, "raw", info["lidar_path"])
+        points = np.fromfile(lidar_path, dtype=np.float32).reshape(-1, 5)
+        coord = points[:, :3]
+        strength = points[:, 3:4] / 255.0
+        if "gt_segment_path" in info:
+            seg_path = os.path.join(self.data_root, "raw", info["gt_segment_path"])
+            raw = np.fromfile(seg_path, dtype=np.uint8).reshape(-1)
+            lut = np.full((max(self.learning_map) + 1,), self.ignore_index, np.int64)
+            for k, v in self.learning_map.items():
+                lut[k] = v
+            segment = lut[raw]
+        else:
+            segment = np.full((points.shape[0],), self.ignore_index, np.int64)
+        return dict(coord=coord, strength=strength, segment=segment)
+
+    def get_data_name(self, idx: int) -> str:
+        return self.data_list[idx % len(self.data_list)]["lidar_token"]
+
+    @staticmethod
+    def get_learning_map(ignore_index: int) -> Dict[int, int]:
+        """The 32 raw lidarseg classes to the 16 learning classes
+        (reference `nuscenes.py:102-137`)."""
+        ig = ignore_index
+        return {
+            0: ig, 1: ig, 2: 6, 3: 6, 4: 6, 5: ig, 6: 6, 7: ig, 8: ig, 9: 0,
+            10: ig, 11: ig, 12: 7, 13: ig, 14: 1, 15: 2, 16: 2, 17: 3, 18: 4,
+            19: ig, 20: ig, 21: 5, 22: 8, 23: 9, 24: 10, 25: 11, 26: 12,
+            27: 13, 28: 14, 29: ig, 30: 15, 31: ig,
+        }
 
 
 def build_dataset(cfg: Dict):

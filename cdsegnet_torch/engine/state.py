@@ -55,7 +55,7 @@ def make_train_step(model: torch.nn.Module, criteria: Criteria,
     saves and a resume restores.
 
     ``inject`` goes to the model's forward (``ts_scene``, ``noise``,
-    ``mse_valid`` replace the draws). The metrics are ``loss`` (a 0-d
+    ``mse_valid`` and ``perms`` replace the draws). The metrics are ``loss`` (a 0-d
     tensor, detached), ``valid_points`` (a 0-d tensor) and ``dropped_l1``,
     ..., one per pooled level: the valid points it lost to overflow.
     """
@@ -74,7 +74,7 @@ def make_train_step(model: torch.nn.Module, criteria: Criteria,
         loss.backward()
         optimizer.step()
         metrics = dict(loss=loss.detach(), valid_points=point.mask.sum())
-        for i, d in enumerate(out["pyramid_dropped"]):
+        for i, d in enumerate(out.get("pyramid_dropped", ())):
             metrics[f"dropped_l{i + 1}"] = d
         return metrics
 

@@ -1,13 +1,15 @@
 """Testers: TTA fragment-voting semantic-segmentation evaluation.
 
 Port of `SemSegTester` in `cdsegnet_tpu/engine/test.py` (reference
-`pointcept/engines/test.py:34-414`), single-step inference (SSI) on one
-device. Per scene, every test-time augmentation is grid-sampled into
-fragments; each fragment is padded into the smallest static bucket that
-holds it (`DEFAULT_BUCKETS`, as in JAX: the bucket sets the pyramid's
-capacities), gets its geometry pyramid and one SSI forward (attention
-through the CUDA kernel on a GPU), and its softmax votes are added into the
-scene's full-resolution vote buffer on the device, in f32 with
+`pointcept/engines/test.py:34-414`) on one device. Per scene, every
+test-time augmentation is grid-sampled into fragments; each fragment is
+padded into the smallest static bucket that holds it (`DEFAULT_BUCKETS`, as
+in JAX: the bucket sets the pyramid's capacities), gets its geometry
+pyramid and one SSI forward (attention through the CUDA kernel on a GPU),
+or with ``inference_mode`` "MSAI" or "MSFI" the DDIM loop of
+``inference_step`` steps over that one pyramid
+(`models.segmentor.inference_ddim`), and its softmax votes are added into
+the scene's full-resolution vote buffer on the device, in f32 with
 `index_add_`. The argmax runs on the device and is copied to the host once
 per scene. Records, mIoU against the full-resolution labels, the per-scene
 ``_pred.npy`` cache and the benchmark submission files follow the JAX
@@ -17,12 +19,14 @@ Noise: the c-branch input of fragment i (counted from 0 over one `test`
 call) is drawn with shape ``(bucket, c_in)`` from one generator on the
 device, seeded from ``cfg.seed``, as JAX draws it per fragment; the
 ``noise_level`` robustness perturbation of the features draws from the same
-generator, before the c-branch noise. ``noise_fn(i, bucket, c_in)``
-replaces the c-branch draw and ``feat_noise_fn(i, shape)`` the perturbation's
-(tests feed JAX's draws through them).
+generator, before the c-branch noise. The DDIM modes start from that same
+draw, as JAX draws their initial c state from the same key and shape.
+``noise_fn(i, bucket, c_in)`` replaces the c-branch draw and
+``feat_noise_fn(i, shape)`` the perturbation's (tests feed JAX's draws
+through them).
 
-Not ported, each raising `NotImplementedError`: the DDIM modes MSAI and
-MSFI, ``num_devices > 1`` (fragment-parallel inference), ``model_kwargs``
+Not ported, each raising `NotImplementedError`: ``num_devices > 1``
+(fragment-parallel inference), ``model_kwargs``
 (models other than `CNFSegmentor` and `PlainSegmentor`), `ClsTester` and
 `PartSegTester`.
 """
@@ -39,7 +43,7 @@ from cdsegnet_torch.data.collate import collate_scenes, pick_bucket
 from cdsegnet_torch.data.datasets import build_dataset
 from cdsegnet_torch.engine.state import batch_to_point
 from cdsegnet_torch.models.builder import build_model
-from cdsegnet_torch.models.segmentor import CNFSegmentor, PlainSegmentor
+from cdsegnet_torch.models.segmentor import CNFSegmentor, PlainSegmentor, inference_ddim
 from cdsegnet_torch.models.structure import PointBatch
 from cdsegnet_torch.utils.device import resolve_device
 from cdsegnet_torch.utils.logger import get_root_logger
@@ -69,10 +73,10 @@ class SemSegTester:
         self.logger = get_root_logger(name="cdsegnet_torch.test")
         self.verbose = verbose
         self.inference_mode = cfg.get("inference_mode", "SSI")
-        if self.inference_mode != "SSI":
-            raise NotImplementedError(
-                f"inference_mode={self.inference_mode!r}: the DDIM modes MSAI "
-                'and MSFI are not ported (ROADMAP Queue 1: "DDIM MSAI and MSFI")')
+        self.inference_step = cfg.get("inference_step", 1)
+        if self.inference_mode not in ("SSI", "MSAI", "MSFI"):
+            raise ValueError(f"inference_mode={self.inference_mode!r}: "
+                             "'SSI', 'MSAI' or 'MSFI'")
         if (cfg.get("num_devices") or 1) > 1:
             raise NotImplementedError(
                 "num_devices > 1: fragment-parallel inference over several "
@@ -90,6 +94,9 @@ class SemSegTester:
                 f"{type(self.model).__name__}: only CNFSegmentor and "
                 'PlainSegmentor are ported (ROADMAP Queue 1: "The model zoo and '
                 'the rest of the engine and data")')
+        if self.inference_mode != "SSI" and not isinstance(self.model, CNFSegmentor):
+            raise ValueError(f"inference_mode={self.inference_mode!r} needs a "
+                             "CNFSegmentor (DefaultSegmentorV2)")
         self.depth = cfg.get("serialization_depth", 16)
         self.buckets = tuple(cfg.get("test_buckets", DEFAULT_BUCKETS))
         self.noise_level = cfg.get("noise_level", None)
@@ -135,8 +142,13 @@ class SemSegTester:
     @torch.no_grad()
     def forward_fragment(self, point: PointBatch, noise: torch.Tensor) -> torch.Tensor:
         """Logits ``(bucket, num_classes)`` of one padded fragment: its
-        geometry pyramid, then one SSI forward."""
+        geometry pyramid, then one SSI forward, or the DDIM loop from
+        ``noise`` in the MSAI and MSFI modes."""
         geometry = self.model.backbone.precompute_geometry(point)
+        if self.inference_mode != "SSI":
+            return inference_ddim(self.model, point, step=self.inference_step,
+                                  mode="avg" if self.inference_mode == "MSAI" else "final",
+                                  noise=noise, geometry=geometry)
         if isinstance(self.model, CNFSegmentor):
             return self.model.inference(point, noise=noise,
                                         geometry=geometry)["seg_logits"]

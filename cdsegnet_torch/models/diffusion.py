@@ -1,7 +1,8 @@
 """Diffusion schedules and timestep embeddings.
 
-Port of the parts of `cdsegnet_tpu/models/diffusion.py` that single-step
-inference and the CNF training step need. Quirk preserved: the "cosine" schedule evaluates ``t =
+Port of `cdsegnet_tpu/models/diffusion.py`: the beta schedules, q-sampling
+for the CNF training step, the deterministic DDIM reverse step and the DDIM
+time schedule of the multi-step inference modes. Quirk preserved: the "cosine" schedule evaluates ``t =
 linspace(start, stop, T+1) / T`` with (start, stop) taken from the *beta*
 config values; CDSegNet configs use beta_start=0, beta_end=1000, so t spans
 [0, 1].
@@ -82,6 +83,35 @@ class DiffusionSchedule:
         ab = torch.as_tensor(self.alpha_bar, device=x0.device)[t.long()]
         ab = ab.reshape(ab.shape + (1,) * (x0.dim() - ab.dim()))
         return torch.sqrt(ab) * x0 + torch.sqrt(1.0 - ab) * noise
+
+    def ddim_step(self, x_t: torch.Tensor, t: torch.Tensor, model_out: torch.Tensor,
+                  target: str = "noise") -> torch.Tensor:
+        """Deterministic DDIM reverse step: x0 from the model's noise (or x0)
+        prediction, then x_{t-1} = sqrt(ab_{t-1}) x0 + sqrt(1 - ab_{t-1})
+        eps. ``t`` is a per-row (or scalar) integer step; rows with t == 0
+        return x0."""
+        ab = torch.as_tensor(self.alpha_bar, device=x_t.device)
+        t = t.long()
+        bcast = lambda a: a.reshape(a.shape + (1,) * (x_t.dim() - a.dim()))
+        ab_t = bcast(ab[t])
+        if target == "noise":
+            noise = model_out
+            x0 = (x_t - torch.sqrt(1.0 - ab_t) * noise) / torch.sqrt(ab_t)
+        elif target == "x0":
+            x0 = model_out
+            noise = (x_t - torch.sqrt(ab_t) * x0) / torch.sqrt(1.0 - ab_t)
+        else:
+            raise ValueError(target)
+        ab_p = bcast(ab[torch.clamp(t - 1, min=0)])
+        x_prev = torch.sqrt(ab_p) * x0 + torch.sqrt(1.0 - ab_p) * noise
+        is_zero = (t == 0).reshape((-1,) + (1,) * (x_t.dim() - 1))
+        return torch.where(is_zero, x0, x_prev)
+
+
+def time_schedule(T: int = 1000, step: int = 5) -> np.ndarray:
+    """DDIM sampling schedule: ``linspace(-1, T-1, step+1)`` as integers,
+    descending (the last entry is -1, run as t = 0)."""
+    return np.linspace(-1, T - 1, num=step + 1, dtype=int)[::-1].copy()
 
 
 def calc_t_emb(ts: torch.Tensor, t_emb_dim: int) -> torch.Tensor:

@@ -532,18 +532,16 @@ class PointTransformerV3(nn.Module):
     def forward(self, n_point: PointBatch, c_feat: Optional[torch.Tensor] = None,
                 t_emb: Optional[torch.Tensor] = None, geometry=None,
                 return_c: bool = True,
-                generator: Optional[torch.Generator] = None,
-                shuffle_generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None):
         """Returns ``(c_out, n_logits)`` with the c-branch (``c_out`` is None
         when ``return_c`` is False: the c-decoder is skipped), or
         ``n_logits`` alone without it. ``geometry`` optionally supplies a
-        precomputed ``(levels, stem_nbr)``; otherwise it is built here, with
-        its curves shuffled from ``shuffle_generator`` in training. In
+        precomputed ``(levels, stem_nbr)``; otherwise it is built here, its
+        curves unshuffled (the segmentors build the training pyramid). In
         training, ``generator`` (on the features' device) draws the
         stochastic-depth masks."""
         levels, stem_nbr = (geometry if geometry is not None
-                            else self.precompute_geometry(
-                                n_point, perms=self.shuffle_perms(shuffle_generator)))
+                            else self.precompute_geometry(n_point))
 
         t = None
         if self.condition and self.t_dim != -1 and t_emb is not None:

@@ -1,9 +1,13 @@
 """Segmentor wrappers: plain PTv3 and the CNF (CDSegNet) diffusion wrapper.
 
-Port of `cdsegnet_tpu/models/segmentor.py`: the training forward and SSI.
-SSI (single-step inference) feeds the c-branch N(0, 1) noise at t = T-1,
-runs one forward pass and reads the n-branch logits; the c-decoder is
-skipped because SSI never reads its output. The training forward
+Port of `cdsegnet_tpu/models/segmentor.py`: the training forward, SSI and
+the DDIM modes. SSI (single-step inference) feeds the c-branch N(0, 1)
+noise at t = T-1, runs one forward pass and reads the n-branch logits; the
+c-decoder is skipped because SSI never reads its output. MSAI and MSFI
+(`inference_ddim`) run `CNFSegmentor.denoise_step` over the DDIM time
+schedule from the same kind of initial state, the c-decoder included, and
+average the n-branch logits of every step (MSAI) or keep the last (MSFI).
+The training forward
 (`CNFSegmentor.forward`) draws one timestep per scene, noises the c-branch
 input with `DiffusionSchedule.q_sample` and returns the predictions and
 targets that `models.losses.Criteria` reads.
@@ -22,7 +26,7 @@ from typing import Any, Dict, Optional
 import torch
 from torch import nn
 
-from cdsegnet_torch.models.diffusion import DiffusionSchedule, calc_t_emb
+from cdsegnet_torch.models.diffusion import DiffusionSchedule, calc_t_emb, time_schedule
 from cdsegnet_torch.models.losses import subsample_valid
 from cdsegnet_torch.models.structure import PointBatch
 
@@ -43,12 +47,23 @@ class PlainSegmentor(nn.Module):
         self.backbone = backbone
 
     def forward(self, point: PointBatch, geometry=None,
-                generators: Generators = None) -> Dict[str, Any]:
+                generators: Generators = None,
+                perms: Optional[list] = None) -> Dict[str, Any]:
+        """The forward of training and evaluation. ``geometry`` supplies the
+        pyramid; otherwise it is built here, its curves shuffled in training
+        by ``perms`` (one permutation per level) or from the ``"shuffle"``
+        generator. Returns the logits and targets that `Criteria` reads,
+        plus ``pyramid_dropped``: the number of valid points each pooled
+        level lost to overflow."""
         gens = generators or {}
-        return dict(n_pred=self.backbone(point, geometry=geometry,
-                                         generator=gens.get("dropout"),
-                                         shuffle_generator=gens.get("shuffle")),
-                    n_target=point.segment, seg_valid=_seg_valid(point))
+        bb = self.backbone
+        if geometry is None:
+            geometry = bb.precompute_geometry(
+                point, perms=perms if perms is not None
+                else bb.shuffle_perms(gens.get("shuffle")))
+        return dict(n_pred=bb(point, geometry=geometry, generator=gens.get("dropout")),
+                    n_target=point.segment, seg_valid=_seg_valid(point),
+                    pyramid_dropped=[int(lv.dropped) for lv in geometry[0][1:]])
 
 
 class CNFSegmentor(nn.Module):
@@ -91,12 +106,14 @@ class CNFSegmentor(nn.Module):
     def forward(self, point: PointBatch, generators: Generators = None,
                 ts_scene: Optional[torch.Tensor] = None,
                 noise: Optional[torch.Tensor] = None,
-                mse_valid: Optional[torch.Tensor] = None) -> Dict[str, Any]:
+                mse_valid: Optional[torch.Tensor] = None,
+                perms: Optional[list] = None) -> Dict[str, Any]:
         """The training forward (``model.train()``; in eval mode the norms
         use running statistics and the MSE mask is not drawn).
 
-        ``ts_scene`` (num_scenes,) int, ``noise`` (N, C) and ``mse_valid``
-        (N,) bool replace the draws from ``generators``. Returns the dict
+        ``ts_scene`` (num_scenes,) int, ``noise`` (N, C), ``mse_valid`` (N,)
+        bool and ``perms`` (one curve permutation per pyramid level) replace
+        the draws from ``generators``. Returns the dict
         that `Criteria` reads, plus ``pyramid_dropped``: the number of valid
         points each pooled level lost to overflow.
         """
@@ -104,7 +121,8 @@ class CNFSegmentor(nn.Module):
         train = self.training
         bb = self.backbone
         levels, stem_nbr = bb.precompute_geometry(
-            point, perms=bb.shuffle_perms(gens.get("shuffle")))
+            point, perms=perms if perms is not None
+            else bb.shuffle_perms(gens.get("shuffle")))
         out: Dict[str, Any] = dict(
             pyramid_dropped=[int(lv.dropped) for lv in levels[1:]])
         seg_valid = _seg_valid(point)
@@ -174,3 +192,59 @@ class CNFSegmentor(nn.Module):
         _, n_logits = self.backbone(point, c_feat, t_emb=t_emb,
                                     geometry=geometry, return_c=False)
         return dict(seg_logits=n_logits, seg_valid=seg_valid)
+
+    @torch.no_grad()
+    def denoise_step(self, point: PointBatch, c_feat: torch.Tensor, t: int,
+                     geometry=None) -> Dict[str, torch.Tensor]:
+        """One DDIM step at the integer step ``t`` (the same for every
+        scene): the backbone's c-branch noise prediction and n-branch logits,
+        c-decoder included, and the next c state. Returns ``dict(c_next,
+        n_logits)``. Runs the model in its current mode: eval for inference."""
+        if not (self.dm and self.condition):
+            raise ValueError("denoise_step needs the diffusion (dm=True) and the "
+                             "dual-branch backbone (condition=True)")
+        dev = c_feat.device
+        ts_scene = torch.full((point.num_scenes,), t, dtype=torch.int32, device=dev)
+        t_emb = (self._scene_t_emb(ts_scene, point.batch)
+                 if self.t_dim != -1 else None)
+        c_out, n_logits = self.backbone(point, c_feat, t_emb=t_emb, geometry=geometry)
+        ts_pt = torch.full((point.num_points,), t, dtype=torch.int32, device=dev)
+        c_next = self.schedule.ddim_step(c_feat, ts_pt, c_out, target=self.dm_target)
+        return dict(c_next=c_next, n_logits=n_logits)
+
+
+@torch.no_grad()
+def inference_ddim(model: CNFSegmentor, point: PointBatch, step: int = 5,
+                   mode: str = "avg", noise: Optional[torch.Tensor] = None,
+                   generator: Optional[torch.Generator] = None,
+                   geometry=None) -> torch.Tensor:
+    """MSAI (``mode="avg"``) or MSFI (``"final"``): DDIM denoise steps over
+    ``time_schedule(model.T, step)``, the n-branch logits ``(N, K)`` averaged
+    over the ``step + 1`` forwards (the t = -1 slot runs as t = 0 and counts)
+    or those of the last. ``noise`` ``(N, c_in_channels)`` is the initial c
+    state; without it the state is drawn from ``generator``. The geometry
+    pyramid is built once (or taken from ``geometry``) and shared by every
+    step."""
+    if mode not in ("avg", "final"):
+        raise ValueError(f"mode={mode!r}: 'avg' (MSAI) or 'final' (MSFI)")
+    sched = time_schedule(model.T, step)
+    c_feat = noise
+    if c_feat is None:
+        c_feat = torch.randn((point.num_points, model.c_in_channels),
+                             generator=generator, dtype=torch.float32,
+                             device=point.coord.device)
+    if geometry is None:
+        geometry = model.backbone.precompute_geometry(point)
+    n_pred = None
+    for t in sched:
+        res = model.denoise_step(point, c_feat, max(int(t), 0), geometry)
+        if mode == "avg" and n_pred is not None:
+            n_pred = n_pred + res["n_logits"]
+        else:
+            n_pred = res["n_logits"]
+        c_feat = res["c_next"]
+        if t <= 0:
+            break
+    if mode == "avg":
+        n_pred = n_pred / float(len(sched))
+    return n_pred

@@ -11,7 +11,9 @@ by the port's `engine.checkpoint.CheckpointManager` under
 JAX package are not read. It runs on the GPU unless ``--device`` names
 another device, and raises when there is no GPU and none is named.
 `main(argv)` takes the arguments as a list and returns the tester after its
-run.
+run. The inference rule is a config option: ``--options inference_mode=MSAI
+inference_step=5`` (or ``MSFI``) runs the DDIM loop per fragment in place of
+single-step inference.
 """
 
 from __future__ import annotations

@@ -9,9 +9,15 @@ reduces 2-4x per level, as real indoor scans do; the shipped capacity
 divisors (1, 2, 4, 16, 64) then drop nothing. 90% of the slots are real
 points, the rest padding. `room_scene` is a raw scan for the tester: a
 room in the fields of a Pointcept ScanNet archive, before any voxelization.
+`lidar_sweep` is a raw nuScenes keyframe sweep and `write_nuscenes` lays
+sweeps out as `NuScenesDataset` reads them.
 """
 
 from __future__ import annotations
+
+import os
+import pickle
+from typing import Dict, List
 
 import numpy as np
 
@@ -66,7 +72,8 @@ def room_scene(seed: int = 0, cell: float = 0.02) -> dict:
     floor, four walls 1.2 m high and four boxes, each face sampled on the
     2 cm grid with 2-4 points in each cell; colors 0-255 per face with
     noise, face normals, `semantic_gt20` per face (wall, floor, cabinet,
-    table, chair, bed)."""
+    table, chair, bed) and `semantic_gt200`, the same classes among the
+    ScanNet200 benchmark's."""
     rng = np.random.default_rng(seed)
     w, d, h = 4.4, 3.6, 1.2
     faces = [((0, 0, 0), (w, 0, 0), (0, d, 0), (0, 0, 1), 1),
@@ -98,5 +105,102 @@ def room_scene(seed: int = 0, cell: float = 0.02) -> dict:
         parts["color"].append(np.clip(rng.uniform(40, 215, 3)
                                       + rng.normal(0, 12, p.shape), 0, 255))
         parts["semantic_gt20"].append(np.full(len(p), label))
-    return {k: np.concatenate(v).astype(np.int64 if k == "semantic_gt20" else np.float32)
-            for k, v in parts.items()}
+    out = {k: np.concatenate(v).astype(np.int64 if k == "semantic_gt20" else np.float32)
+           for k, v in parts.items()}
+    # ScanNet-20 index -> ScanNet200 index (wall 0, chair 1, floor 2, table 3,
+    # cabinet 6, bed 10 among the benchmark's valid ids)
+    out["semantic_gt200"] = np.array([0, 2, 6, 10, 1, -1, 3], np.int64)[out["semantic_gt20"]]
+    return out
+
+
+# nuScenes raw lidarseg ids of the synthetic street
+_DRIVEABLE, _SIDEWALK, _CAR, _MANMADE = 24, 26, 17, 28
+
+
+def lidar_sweep(seed: int = 0) -> Dict[str, np.ndarray]:
+    """A synthetic nuScenes keyframe sweep in the lidar frame: a 32-beam
+    ring pattern like the HDL-32E's (elevations -30.67 to +10.67 degrees,
+    1,085 returns per ring, the sensor 1.84 m above the road) cast against a
+    street: the road and the sidewalks (ground plane), building fronts 12 m
+    high on both sides and at the ends (y = +-12 m, x = +-50 m) and parked
+    and driving cars (boxes). ``points`` (N, 5) float32 (x, y, z, intensity
+    0-255, ring) and ``labels`` (N,) uint8 raw lidarseg ids; about 34,000
+    points (rays that hit nothing within 70 m give no return)."""
+    rng = np.random.default_rng(seed)
+    height, max_range = 1.84, 70.0
+    elev = np.deg2rad(np.linspace(-30.67, 10.67, 32))
+    azim = np.linspace(0, 2 * np.pi, 1085, endpoint=False)
+    azim = azim[None, :] + rng.uniform(0, 2 * np.pi / 1085, (32, 1))
+    el = np.broadcast_to(elev[:, None], azim.shape)
+    d = np.stack([np.cos(el) * np.cos(azim), np.cos(el) * np.sin(azim),
+                  np.sin(el)], -1).reshape(-1, 3)
+    ring = np.repeat(np.arange(32), 1085)
+    t = np.full(len(d), np.inf)
+    label = np.zeros(len(d), np.int64)
+
+    def hit(t_new, ok, lab):
+        better = ok & (t_new > 0) & (t_new < t)
+        t[better] = t_new[better]
+        label[better] = lab
+
+    with np.errstate(divide="ignore", invalid="ignore"):
+        # ground: the road between the curbs at |y| = 7 m, sidewalks outside
+        tg = -height / d[:, 2]
+        yg = tg * d[:, 1]
+        hit(tg, d[:, 2] < 0, _DRIVEABLE)
+        side = (d[:, 2] < 0) & (np.abs(yg) > 7.0) & (t == tg)
+        label[side] = _SIDEWALK
+        # building fronts: planes y = +-12 and x = +-50, 12 m high
+        for axis, pos in ((1, 12.0), (1, -12.0), (0, 50.0), (0, -50.0)):
+            tw = pos / d[:, axis]
+            z = tw * d[:, 2]
+            hit(tw, (z > -height) & (z < 12.0 - height), _MANMADE)
+        # cars: 4.5 x 1.9 x 1.6 m boxes along both lanes and curbs
+        n_cars = 14
+        cx = rng.uniform(-40, 40, n_cars)
+        cy = rng.choice([-5.6, -2.0, 2.0, 5.6], n_cars) + rng.normal(0, 0.2, n_cars)
+        for x0, y0 in zip(cx, cy):
+            if abs(x0) < 3.5 and abs(y0) < 3.5:
+                continue  # not on the ego car
+            lo = np.array([x0 - 2.25, y0 - 0.95, -height])
+            hi = np.array([x0 + 2.25, y0 + 0.95, 1.6 - height])
+            t1, t2 = lo / d, hi / d
+            t_in = np.minimum(t1, t2).max(1)
+            t_out = np.maximum(t1, t2).min(1)
+            hit(t_in, t_in <= t_out, _CAR)
+    keep = t < max_range
+    r = t[keep] + rng.normal(0, 0.02, int(keep.sum()))
+    xyz = d[keep] * r[:, None]
+    lab = label[keep]
+    base = np.select([lab == _DRIVEABLE, lab == _SIDEWALK, lab == _CAR],
+                     [12.0, 30.0, 60.0], 45.0)
+    intensity = np.clip(base + rng.normal(0, 6, len(lab)), 0, 255)
+    points = np.concatenate([xyz, intensity[:, None], ring[keep, None]], 1)
+    return dict(points=points.astype(np.float32), labels=lab.astype(np.uint8))
+
+
+def write_nuscenes(root: str, splits: Dict[str, List[Dict[str, np.ndarray]]],
+                   sweeps: int = 10) -> None:
+    """Lay sweeps out under ``root`` as `NuScenesDataset` reads them: per
+    split, ``info/nuscenes_infos_{sweeps}sweeps_{split}.pkl`` listing each
+    sweep's ``raw/samples/LIDAR_TOP/<token>.bin`` and, outside the test
+    split, its ``raw/lidarseg/<token>_lidarseg.bin``. Tokens are
+    ``<split><i>``."""
+    os.makedirs(os.path.join(root, "info"), exist_ok=True)
+    for d in ("samples/LIDAR_TOP", "lidarseg"):
+        os.makedirs(os.path.join(root, "raw", d), exist_ok=True)
+    for split, items in splits.items():
+        infos = []
+        for i, item in enumerate(items):
+            token = f"{split}{i}"
+            info = dict(lidar_path=f"samples/LIDAR_TOP/{token}.bin", lidar_token=token)
+            item["points"].astype(np.float32).tofile(
+                os.path.join(root, "raw", info["lidar_path"]))
+            if split != "test":
+                info["gt_segment_path"] = f"lidarseg/{token}_lidarseg.bin"
+                item["labels"].astype(np.uint8).tofile(
+                    os.path.join(root, "raw", info["gt_segment_path"]))
+            infos.append(info)
+        with open(os.path.join(root, "info",
+                               f"nuscenes_infos_{sweeps}sweeps_{split}.pkl"), "wb") as f:
+            pickle.dump(infos, f)

@@ -12,9 +12,13 @@ Phases, each fatal on failure:
 3. kernels: the forward kernel against its plain PyTorch version on the
    GPU, at every shape the SSI path gives it, at every shape a tester
    fragment of the 131,072-slot bucket gives it (the first fragment of
-   phase 8's scene) and at every shape the trainer's validation SSI gives it
-   (phase 8's room in the evaluator's 524,288-slot bucket), in bf16 and f32,
-   plus padded multi-scene batches;
+   phase 8's scene, and there the DDIM c-decoder's launches in eval mode), at
+   every shape the trainer's validation SSI gives it (phase 8's room in the
+   evaluator's 524,288-slot bucket), at the timing protocol's whole-scene
+   fragments (a room of about 200,000 points in the 262,144-slot bucket and
+   phase 8's room in the 524,288-slot one, depth 12) and at the nuScenes
+   sweep's SSI shapes (32,768 slots), in bf16 and f32, plus padded
+   multi-scene batches;
    every output row must be finite, and a second run bit-equal to the
    first. Times (CUDA events) beside the bound and the time of the
    equivalent library call;
@@ -29,7 +33,8 @@ Phases, each fatal on failure:
    validity, g zero on invalid rows), in bf16 and f32, timed beside their
    bounds, the plain version and `scaled_dot_product_attention`; then
    boundary layouts (scenes and patches that cut the kernels' tiles at odd
-   offsets, padding rows, D = 32); every forward and backward run twice,
+   offsets, padding rows, D = 32), and the nuScenes training batch's shapes
+   (bf16 timed, f32 checked); every forward and backward run twice,
    bit-equal;
 6. train: the CNF training step of the same config at its bucket (2 scenes,
    204,800 slots, serialization depth 12; bf16, shuffled curves, drop_path
@@ -68,7 +73,29 @@ Phases, each fatal on failure:
    point dropped, mIoU in [0, 1]; the checkpoints, metric and event files
    and the tester's records present. Prints the host-clock step, the
    loader's data wait, the host time of one train-pipeline scene, the
-   validation SSI, the checkpoint saves and the peak memory.
+   validation SSI, the checkpoint saves and the peak memory;
+10. variants: the Baseline (dm=False), PTv3+CNF, plain PTv3, ScanNet200 and
+   nuScenes models at the full width of their configs (random weights from a
+   seed), one at a time: one SSI on phase 4's scene (nuScenes: a synthetic
+   32-beam sweep through `NuScenesDataset`'s val pipeline), its route gap
+   against the plain attention route on a 32,768-slot scene (`TOL_TEST`),
+   and one training step of the config's optimizer on the 204,800-slot
+   bucket (nuScenes: two sweeps through the train pipeline). Launches per
+   SSI and per step are gated (`VARIANT_LAUNCHES`); losses finite; drops per
+   level printed. Then the nuScenes tester through its CLI on the two
+   sweeps: 32 launches per fragment, a lidarseg submission file per sweep;
+11. time: `tools/test_time.py` at its defaults (11 SSIs of 32 launches), then
+   the tester CLI with `configs/scannet/cdsegnet_time.py` on two rooms: as
+   shipped (its ``aug_transform=[]`` gives no fragment) and with one
+   identity pass at serialization depth 12 and 16: whole-scene fragments in
+   the 262,144- and 524,288-slot buckets (two per room: some 0.1 mm voxels
+   hold two points). Prints each
+   fragment's largest grid coordinate, the pyramid path (packed sorts, or
+   their fallback past 63 bits at depth 16), drops per level and SSI ms;
+12. ddim: MSAI (``inference_step=5``) through the tester CLI on phase 8's
+   room with its first augmentation: 6 forwards of 36 launches per fragment,
+   no plain attention; MSFI on one fragment; that fragment's MSAI logits
+   through the kernel against the plain route (`TOL_DDIM`).
 
 The last three lines are a JSON summary of the kernels, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``. Without a GPU, or
@@ -77,6 +104,7 @@ outside a checkout of the repository, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import copy
 import functools
@@ -131,6 +159,23 @@ ROOM_SEED = 0  # the tester's synthetic scene
 # (max |dp| over the fragment's points, argmax agreement), about 3x the gap
 # read on an H100 (0.090 and 98.44%)
 TOL_TEST = (0.27, 0.953)
+# MSAI (5 steps) on one tester fragment, kernel route vs plain route as
+# shipped (max |dlogits| / max |logits|, argmax agreement), about 3x the gap
+# read on an H100 (1.59% and 98.98%)
+TOL_DDIM = (0.048, 0.969)
+# phase 10's model variants and their kernel launches per training step and
+# per SSI (the c-decoder runs in training only; plain PTv3 has no c-branch)
+NUSCENES = "nuscenes/cdsegnet.py"
+VARIANTS = ("scannet/baseline.py", "scannet/ptv3_cnf.py", "scannet/ptv3_plain.py",
+            "scannet200/cdsegnet.py", NUSCENES)
+VARIANT_LAUNCHES = {"scannet/baseline.py": (36, 32), "scannet/ptv3_cnf.py": (32, 28),
+                    "scannet/ptv3_plain.py": (26, 26), "scannet200/cdsegnet.py": (36, 32),
+                    NUSCENES: (36, 32)}
+SWEEP_SEEDS = (1, 2)  # the synthetic nuScenes sweeps
+TIME_CONFIG = "scannet/cdsegnet_time.py"
+# the timing protocol's rooms: about 200,000 raw points, and phase 8's room
+TIME_ROOMS = (dict(seed=5, cell=0.023), dict(seed=ROOM_SEED))
+TIME_BUCKETS = (262144, 524288)  # their whole-scene fragments
 
 
 def fail(msg: str) -> None:
@@ -163,8 +208,9 @@ def cuda_ms(torch, fn, warmup: int = 3, iters: int = 10) -> float:
 def attention_launches(backbone_cfg: dict, c_decoder: bool = False):
     """``(level, curve order, heads, head dim)`` of every launch of the
     patch-attention kernel in one forward: the n-encoder, n-decoder and
-    c-encoder blocks, and the c-decoder's when ``c_decoder`` (training runs
-    it; SSI skips it)."""
+    c-encoder blocks, and last the c-decoder's when ``c_decoder`` (training
+    and DDIM run it; SSI skips it). A single-branch backbone
+    (``condition=False``) has no c-branch."""
     from cdsegnet_torch.models.ptv3 import _cumshift
 
     b = backbone_cfg
@@ -175,11 +221,12 @@ def attention_launches(backbone_cfg: dict, c_decoder: bool = False):
               for s, d in enumerate(b["n_enc_depths"])]
     stages += [(n_shift[s], b["n_dec_num_head"][s], n_dec_ch[s], d)
                for s, d in enumerate(b["n_dec_depths"])]
-    stages += [(c_shift[s], b["c_enc_num_head"][s], b["c_enc_channels"][s], d)
-               for s, d in enumerate(b["c_enc_depths"])]
-    if c_decoder:
-        stages += [(c_shift[s], b["c_dec_num_head"][s], b["c_dec_channels"][s], d)
-                   for s, d in enumerate(b["c_dec_depths"])]
+    if b.get("condition", True):
+        stages += [(c_shift[s], b["c_enc_num_head"][s], b["c_enc_channels"][s], d)
+                   for s, d in enumerate(b["c_enc_depths"])]
+        if c_decoder:
+            stages += [(c_shift[s], b["c_dec_num_head"][s], b["c_dec_channels"][s], d)
+                       for s, d in enumerate(b["c_dec_depths"])]
     return [(level, i % n_orders, h, c // h)
             for level, h, c, depth in stages for i in range(depth)]
 
@@ -508,11 +555,12 @@ def check_train_case(torch, batch, valid, h, d, patch, dtype, gen, timed=True):
                 bwd=bwd, valid_rows=nv)
 
 
-def phase_train_kernels(torch, levels, launches, patch):
+def phase_train_kernels(torch, levels, launches, patch, path="train"):
     """Every training-step shape (level, heads, head dim), on that level's
     real scene ids and validity (the same for every curve: scenes sort
-    whole, padding last), in bf16 and f32. Returns the rows, each with its
-    launches per step; prints the bf16 sums per step."""
+    whole, padding last), in bf16 and f32 (f32 untimed off the ``"train"``
+    path, which alone adds the boundary layouts). Returns the rows, each
+    with its launches per step; prints the sums per step."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     counts: dict = {}
     for level, _, h, d in launches:
@@ -521,17 +569,19 @@ def phase_train_kernels(torch, levels, launches, patch):
     for (level, h, d), count in counts.items():
         pt = levels[level].point
         for dtype in (torch.bfloat16, torch.float32):
+            timed = path == "train" or dtype == torch.bfloat16
             r = check_train_case(torch, pt.batch_sorted[0], pt.mask_sorted[0],
-                                 h, d, patch, dtype, gen)
-            r.update(level=level, launches_per_step=count)
-            rows.append(r)
+                                 h, d, patch, dtype, gen, timed=timed)
+            r.update(level=level, launches_per_step=count, path=path)
+            if timed:
+                rows.append(r)
             print("train kernels " + json.dumps(r), flush=True)
-    for n, h, d, p, sizes in TRAIN_EXTRA:
+    for n, h, d, p, sizes in TRAIN_EXTRA if path == "train" else ():
         batch, valid = scene_layout(torch, n, sizes, "cuda")
         for dtype in (torch.bfloat16, torch.float32):
             r = check_train_case(torch, batch, valid, h, d, p, dtype, gen, timed=False)
             print("train kernels extra " + json.dumps(r), flush=True)
-    for dtype in ("bfloat16", "float32"):
+    for dtype in ("bfloat16", "float32") if path == "train" else ("bfloat16",):
         for direction in ("fwd", "dq", "dkdv", "bwd"):
             tot = {key: sum(r[direction][key] * r["launches_per_step"]
                             for r in rows if r["dtype"] == dtype)
@@ -543,7 +593,7 @@ def phase_train_kernels(torch, levels, launches, patch):
             tot["exps"] = (2 if direction == "bwd" else 1) * sum(
                 r["exps"] * r["launches_per_step"] for r in rows if r["dtype"] == dtype)
             tot["sfu_ms"] = tot["exps"] / SFU_EXP_PER_S * 1e3
-            print(f"train kernels per step {dtype} {direction} " + json.dumps(tot),
+            print(f"train kernels per step {path} {dtype} {direction} " + json.dumps(tot),
                   flush=True)
     return rows
 
@@ -784,42 +834,14 @@ def phase_test(torch, config, cfg, tmp, n_raw, scene, n_launches, card):
             return run
         return make
 
-    def forward(fn):
-        def run(self, point, noise):
-            torch.cuda.synchronize()
-            launches, plain = fa.patch_attention_fwd.launches, plain_calls[0]
-            t0 = time.perf_counter()
-            logits = fn(self, point, noise)
-            torch.cuda.synchronize()
-            frags.append(dict(
-                bucket=point.num_points, points=int(point.mask.sum().item()),
-                ms=(time.perf_counter() - t0) * 1e3,
-                launches=fa.patch_attention_fwd.launches - launches,
-                plain=plain_calls[0] - plain, drops=drops[0],
-                finite=bool(torch.isfinite(logits[point.mask]).all().item())))
-            return logits
-        return run
-
-    def geometry(fn):
-        def run(self, point, *args, **kwargs):
-            levels, stem = fn(self, point, *args, **kwargs)
-            drops[0] = [int(lv.dropped) for lv in levels[1:]]
-            return levels, stem
-        return run
-
-    def counting(fn):
-        def run(*args, **kwargs):
-            plain_calls[0] += 1
-            return fn(*args, **kwargs)
-        return run
-
-    instruments = [(fa, "patch_attention", counting),
-                   (PointTransformerV3, "precompute_geometry", geometry),
+    instruments = [(fa, "patch_attention", counting_plain(plain_calls)),
+                   (PointTransformerV3, "precompute_geometry", recording_drops(drops)),
                    (SemSegTester, "test", timed("test", sync=True)),
                    (datasets.DefaultDataset, "get", timed("data")),
                    (SemSegTester, "predict_scene", timed("scene", sync=True)),
                    (SemSegTester, "predict_fragment", timed("fragments", sync=True)),
-                   (SemSegTester, "forward_fragment", forward)]
+                   (SemSegTester, "forward_fragment", recording_forward(
+                       torch, frags, plain_calls, lambda: dict(drops=drops[0])))]
     fa.reset_launch_counts()
     with patched(*instruments):
         tester = test_tool.main(argv)
@@ -973,12 +995,6 @@ def phase_train_cli(torch, config, tmp, n_launches, n_eval_launches, card):
                           bwd_dq=fa.patch_attention_bwd_dq.launches,
                           bwd_dkdv=fa.patch_attention_bwd_dkdv.launches)
 
-    def counting(fn):
-        def run(*args, **kwargs):
-            plain_calls[0] += 1
-            return fn(*args, **kwargs)
-        return run
-
     def measured(kind):
         """Wrap the step a ``make_*_step`` returns: synchronized host-clock
         ms, launches and plain calls of each call."""
@@ -1063,7 +1079,7 @@ def phase_train_cli(torch, config, tmp, n_launches, n_eval_launches, card):
             "save_freq_threshold=1", f"save_path={save}", f"hooks={hook_cfg!r}",
             f"data.train.data_root={data_root}", f"data.val.data_root={data_root}",
             f"data.test.data_root={data_root}"]
-    instruments = [(fa, "patch_attention", counting),
+    instruments = [(fa, "patch_attention", counting_plain(plain_calls)),
                    (train_mod, "make_train_step", measured("steps")),
                    (train_mod, "make_eval_step", measured("evals")),
                    (datasets.DefaultDataset, "prepare_train_data", timed_scene),
@@ -1155,21 +1171,508 @@ def phase_train_cli(torch, config, tmp, n_launches, n_eval_launches, card):
     return result
 
 
-def kernel_entry(name, source, replaces, launches, rows, direction):
-    """One entry of the kernels line: bf16 sums per training step over the
-    main path's launches, each timed on its level's real scene ids and
-    validity."""
+def config_path(name: str) -> str:
+    return os.path.join(ROOT, "configs", name)
+
+
+def load_config(name: str):
+    """``configs/<name>`` through the port's `Config` (its ``_base_`` chain
+    merged)."""
+    from cdsegnet_torch.engine.config import Config
+
+    return Config.fromfile(config_path(name))
+
+
+def set_attention_route(model, use_pallas):
+    """Every self-attention of ``model`` through the kernel (None) or the
+    plain version (False): one set of weights on both routes."""
+    for m in model.modules():
+        if hasattr(m, "use_pallas"):
+            m.use_pallas = use_pallas
+
+
+def counting_plain(plain_calls):
+    """A `patched` factory that counts the calls of the plain attention."""
+    def make(fn):
+        def run(*args, **kwargs):
+            plain_calls[0] += 1
+            return fn(*args, **kwargs)
+        return run
+    return make
+
+
+def recording_drops(drops):
+    """A `patched` factory for `precompute_geometry`: keeps the last
+    pyramid's drops per pooled level in ``drops[0]``."""
+    def make(fn):
+        def run(self, point, *args, **kwargs):
+            levels, stem = fn(self, point, *args, **kwargs)
+            drops[0] = [int(lv.dropped) for lv in levels[1:]]
+            return levels, stem
+        return run
+    return make
+
+
+def recording_forward(torch, frags, plain_calls, extra=dict):
+    """A `patched` factory for `SemSegTester.forward_fragment`: appends each
+    call's bucket, valid points, synchronized host ms, kernel launches,
+    plain attention calls and finiteness, and ``extra()``, to ``frags``."""
+    from cdsegnet_torch.ops import flash_attention as fa
+
+    def make(fn):
+        def run(self, point, noise):
+            torch.cuda.synchronize()
+            before, plain = fa.patch_attention_fwd.launches, plain_calls[0]
+            t0 = time.perf_counter()
+            logits = fn(self, point, noise)
+            torch.cuda.synchronize()
+            frags.append(dict(
+                bucket=point.num_points, points=int(point.mask.sum().item()),
+                ms=(time.perf_counter() - t0) * 1e3,
+                launches=fa.patch_attention_fwd.launches - before,
+                plain=plain_calls[0] - plain,
+                finite=bool(torch.isfinite(logits[point.mask]).all().item()), **extra()))
+            return logits
+        return run
+    return make
+
+
+def launch_sums(rows, launches):
+    """`forward_sums` of phase 3 rows over ``launches``, another model's
+    forward on the same levels (each launch's row by level, curve order,
+    heads and head dim)."""
+    counts = collections.Counter(launches)
+    key = lambda r: (r["level"], r["order"], r["shape"][1], r["shape"][2])
+    return forward_sums([dict(r, launches_per_ssi=counts[key(r)])
+                         for r in rows if counts[key(r)]])
+
+
+def train_launch_sums(rows, launches, direction):
+    """`step_sums` of phase 5 rows over another model's training
+    ``launches`` (each launch's row by level, heads and head dim)."""
+    counts = collections.Counter((lv, h, d) for lv, _, h, d in launches)
+    key = lambda r: (r["level"], r["shape"][1], r["shape"][2])
+    return step_sums([dict(r, launches_per_step=counts[key(r)])
+                      for r in rows if counts[key(r)]], direction)
+
+
+def nuscenes_data(torch, tmp, depth):
+    """Write the sweeps (`lidar_sweep`, seeds ``SWEEP_SEEDS``) as the train
+    and val splits of ``<tmp>/nuscenes``; return the root, the training
+    batch (the shipped train pipeline, two sweeps in the 204,800-slot
+    bucket) and the SSI batch (the val pipeline's first sweep in its
+    bucket), both at ``depth``."""
+    from cdsegnet_torch.data.collate import collate_scenes, pick_bucket
+    from cdsegnet_torch.data.datasets import build_dataset
+    from cdsegnet_torch.engine.state import batch_to_point
+    from cdsegnet_torch.engine.test import DEFAULT_BUCKETS
+    from cdsegnet_torch.utils.synthetic import lidar_sweep, write_nuscenes
+
+    conf = load_config(NUSCENES)
+    root = os.path.join(tmp, "nuscenes")
+    sweeps = [lidar_sweep(s) for s in SWEEP_SEEDS]
+    write_nuscenes(root, dict(train=sweeps, val=sweeps))
+    rng = np.random.default_rng(conf.seed)
+    train = build_dataset(dict(conf.data.train, data_root=root))
+    scenes = [train.get(i, rng) for i in range(len(SWEEP_SEEDS))]
+    train_batch = collate_scenes(scenes, conf.bucket_num_points, conf.scenes_per_device)
+    val = build_dataset(dict(conf.data.val, data_root=root)).get(0, rng)
+    bucket = pick_bucket(len(val["coord"]), DEFAULT_BUCKETS)
+    print(f"nuscenes sweeps {[len(s['points']) for s in sweeps]} raw points; train "
+          f"pipeline {[len(s['coord']) for s in scenes]} points in the "
+          f"{conf.bucket_num_points} bucket; val pipeline {len(val['coord'])} points in "
+          f"the {bucket} bucket", flush=True)
+    return (root, batch_to_point(train_batch, depth, conf.scenes_per_device, "cuda"),
+            batch_to_point(collate_scenes([val], bucket, 1), depth, 1, "cuda"))
+
+
+def phase_variants(torch, ssi_point, gap_point, train_point, nus, card):
+    """Each model variant of `VARIANTS` at the full width of its config
+    (random weights from seed 0): one SSI (launches, plain calls, finite
+    logits, host ms), the SSI route gap against the plain attention route
+    (TOL_TEST on softmax probabilities), then one training step of its
+    optimizer (launches, loss, drops per level) and a second, timed. ScanNet
+    models run phase 4's scene, the 32,768-slot gap scene and phase 6's
+    bucket; the nuScenes model its sweeps (``nus``). Built and freed one at
+    a time."""
+    from cdsegnet_torch.engine.optimizer import build_optimizer
+    from cdsegnet_torch.engine.state import make_train_step
+    from cdsegnet_torch.models.builder import build_model, build_model_criteria
+    from cdsegnet_torch.models.segmentor import CNFSegmentor
+    from cdsegnet_torch.ops import flash_attention as fa
+
+    _, nus_train, nus_ssi = nus
+    plain_calls = [0]
+    results = {}
+    for name in VARIANTS:
+        start = time.perf_counter()
+        conf = load_config(name)
+        cfg = copy.deepcopy(conf.model)
+        want_step, want_ssi = VARIANT_LAUNCHES[name]
+        counted = (len(attention_launches(cfg["backbone"], c_decoder=True)),
+                   len(attention_launches(cfg["backbone"])))
+        if counted != (want_step, want_ssi):
+            fail(f"{name}: the config gives {counted} launches per step and SSI")
+        on_sweep = name == NUSCENES
+        point = nus_ssi if on_sweep else ssi_point
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        c_in = cfg.get("c_in_channels", 6)
+        noise = torch.randn((point.num_points, c_in), generator=gen, device="cuda")
+        model = build_model(cfg, device="cuda", generator=torch.Generator().manual_seed(0))
+        cnf = isinstance(model, CNFSegmentor)
+
+        @torch.no_grad()
+        def ssi(pt, nz):
+            if cnf:
+                return model.inference(pt, noise=nz)["seg_logits"]
+            return model(pt)["n_pred"]
+
+        fa.reset_launch_counts()
+        plain_calls[0] = 0
+        with patched((fa, "patch_attention", counting_plain(plain_calls))):
+            logits = ssi(point, noise)
+            torch.cuda.synchronize()
+            ssi_counts = dict(fwd=fa.patch_attention_fwd.launches, plain=plain_calls[0])
+            times = []
+            for _ in range(4):  # 1 warm-up, then the median of 3
+                t0 = time.perf_counter()
+                ssi(point, noise)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+        valid = point.mask
+        if ssi_counts != dict(fwd=want_ssi, plain=0):
+            fail(f"{name}: SSI launches {ssi_counts}, expected {want_ssi} and no plain")
+        if tuple(logits.shape) != (point.num_points, conf.data.num_classes) or \
+                not torch.isfinite(logits[valid]).all():
+            fail(f"{name}: SSI logits {tuple(logits.shape)} not finite or misshapen")
+
+        # route gap: the same weights and noise through the plain attention
+        gp = nus_ssi if on_sweep else gap_point
+        gnoise = torch.randn((gp.num_points, c_in), generator=gen, device="cuda")
+        pk = torch.softmax(ssi(gp, gnoise).float(), -1)[gp.mask]
+        set_attention_route(model, False)
+        pp = torch.softmax(ssi(gp, gnoise).float(), -1)[gp.mask]
+        set_attention_route(model, None)
+        gap = dict(max_abs_dp=(pk - pp).abs().max().item(),
+                   argmax_agree=(pk.argmax(1) == pp.argmax(1)).float().mean().item(),
+                   slots=gp.num_points)
+        del pk, pp
+        if gap["max_abs_dp"] > TOL_TEST[0] or gap["argmax_agree"] < TOL_TEST[1]:
+            fail(f"{name}: SSI through the kernel disagrees with the plain route {gap}")
+        if on_sweep:
+            from cdsegnet_torch.engine.checkpoint import CheckpointManager, snapshot
+
+            CheckpointManager(os.path.join(nus[0], "exp", "model")).save(
+                snapshot(model), "model_last")
+
+        # training: the config's optimizer, shuffled curves, drop_path
+        model.train()
+        opt = build_optimizer(dict(conf.optimizer), model, dict(conf.scheduler),
+                              total_steps=TRAIN_TOTAL_STEPS,
+                              param_dicts=[dict(p) for p in conf.param_dicts],
+                              clip_keywords=conf.get("gredient_clip", []), device="cuda")
+        step = make_train_step(model, build_model_criteria(cfg), opt, seed=0, device="cuda")
+        tp = nus_train if on_sweep else train_point
+        fa.reset_launch_counts()
+        plain_calls[0] = 0
+        with patched((fa, "patch_attention", counting_plain(plain_calls))):
+            torch.cuda.reset_peak_memory_stats()
+            metrics = step(tp)
+            torch.cuda.synchronize()
+            step_counts = dict(fwd=fa.patch_attention_fwd.launches,
+                               fwd_lse=fa.patch_attention_fwd.lse_launches,
+                               bwd_dq=fa.patch_attention_bwd_dq.launches,
+                               bwd_dkdv=fa.patch_attention_bwd_dkdv.launches,
+                               plain=plain_calls[0])
+            t0 = time.perf_counter()
+            metrics2 = step(tp)
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t0) * 1e3
+        want = dict(fwd=want_step, fwd_lse=want_step, bwd_dq=want_step,
+                    bwd_dkdv=want_step, plain=0)
+        losses = [metrics["loss"].item(), metrics2["loss"].item()]
+        drops = [int(metrics[f"dropped_l{i}"]) for i in range(1, 5)]
+        result = dict(ssi_launches=ssi_counts["fwd"], ssi_ms=statistics.median(times[1:]),
+                      ssi_ms_all=times, ssi_slots=point.num_points,
+                      ssi_valid=int(valid.sum().item()), route_gap=gap,
+                      step_launches=step_counts, losses=losses, dropped_per_level=drops,
+                      step_slots=tp.num_points, step_valid=int(tp.mask.sum().item()),
+                      second_step_ms=step_ms,
+                      peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                      phase_s=time.perf_counter() - start, card=card)
+        print(f"variant {name} " + json.dumps(result), flush=True)
+        if step_counts != want:
+            fail(f"{name}: the training step launched {step_counts}, expected {want}")
+        if not np.isfinite(losses).all():
+            fail(f"{name}: non-finite training loss {losses}")
+        results[name] = result
+        del model, opt, step, logits, metrics, metrics2
+        torch.cuda.empty_cache()
+    return results
+
+
+def phase_nuscenes_test(torch, nus, n_launches, card):
+    """The tester through its CLI entry point on the two sweeps with the
+    nuScenes config and the checkpoint phase 10 saved: every fragment
+    ``n_launches`` launches and no plain attention, a lidarseg submission
+    file per sweep with a label in 1-16 for every raw point."""
+    from cdsegnet_torch.engine.test import SemSegTester
+    from cdsegnet_torch.ops import flash_attention as fa
+    from cdsegnet_torch.tools import test as test_tool
+
+    root = nus[0]
+    save = os.path.join(root, "exp")
+    frags, plain_calls = [], [0]
+
+    argv = ["--config-file", config_path(NUSCENES), "--checkpoint",
+            "model_last", "--options", f"data.test.data_root={root}", f"save_path={save}",
+            "submission=True"]
+    t0 = time.perf_counter()
+    with patched((fa, "patch_attention", counting_plain(plain_calls)),
+                 (SemSegTester, "forward_fragment",
+                  recording_forward(torch, frags, plain_calls))):
+        tester = test_tool.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    sub = os.path.join(save, "submit", "lidarseg", "test")
+    files = sorted(os.listdir(sub))
+    labels = {f: np.fromfile(os.path.join(sub, f), np.uint8) for f in files}
+    raw = [len(np.fromfile(os.path.join(root, "raw", "samples", "LIDAR_TOP", f"val{i}.bin"),
+                           np.float32)) // 5 for i in range(len(SWEEP_SEEDS))]
+    result = dict(fragments=len(frags), per_fragment=sorted({f["launches"] for f in frags}),
+                  plain=sum(f["plain"] for f in frags),
+                  buckets=sorted({f["bucket"] for f in frags}),
+                  points=[f["points"] for f in frags], files=files,
+                  labels_per_file=[len(v) for v in labels.values()], raw_points=raw,
+                  result=tester.result, wall_s=wall, card=card)
+    print("nuscenes test " + json.dumps(result), flush=True)
+    if not frags or result["per_fragment"] != [n_launches] or result["plain"] or \
+            not all(f["finite"] for f in frags):
+        fail(f"nuScenes tester: launches per fragment {result['per_fragment']}, expected "
+             f"{n_launches}; plain calls {result['plain']}; or non-finite logits")
+    if files != [f"val{i}_lidarseg.bin" for i in range(len(SWEEP_SEEDS))] or \
+            result["labels_per_file"] != raw or \
+            not all(1 <= v.min() and v.max() <= 16 for v in labels.values()):
+        fail(f"nuScenes submission: {files}, {result['labels_per_file']} labels for "
+             f"{raw} raw points, or labels outside 1-16")
+    if not all(0.0 <= v <= 1.0 for v in tester.result.values()):
+        fail(f"nuScenes metrics out of [0, 1]: {tester.result}")
+    return result
+
+
+def time_rooms(tmp):
+    """Write the timing protocol's rooms (`TIME_ROOMS`) as
+    ``<tmp>/time/val``; return the data root."""
+    import torch
+
+    from cdsegnet_torch.utils.synthetic import room_scene
+
+    root = os.path.join(tmp, "time")
+    os.makedirs(os.path.join(root, "val"))
+    for i, room in enumerate(TIME_ROOMS):
+        torch.save(room_scene(**room), os.path.join(root, "val", f"scene{i:04d}_00.pth"))
+    return root
+
+
+def time_fragments(root):
+    """The whole-scene fragment of each room: `TIME_CONFIG`'s test pipeline
+    with one identity pass (its shipped ``aug_transform=[]`` gives none).
+    The 0.1 mm test grid keeps every point; a room where some voxel holds
+    two points gives a second fragment of the same size (test-mode sampling
+    cycles through each voxel's points), and its first is returned."""
+    from cdsegnet_torch.data.datasets import build_dataset
+
+    conf = load_config(TIME_CONFIG)
+    test = copy.deepcopy(dict(conf.data.test, data_root=root))
+    test["test_cfg"]["aug_transform"] = [[]]
+    ds = build_dataset(test)
+    rng = np.random.default_rng(conf.seed)
+    out = []
+    for i in range(len(ds)):
+        scene = ds.get(i, rng)
+        sizes = sorted((len(f["coord"]) for f in scene["fragment_list"]), reverse=True)
+        print(f"time scene {scene['name']}: {scene['segment'].size} raw points, "
+              f"fragments of {sizes} points", flush=True)
+        if sizes[0] < 0.99 * scene["segment"].size:
+            fail(f"{scene['name']}: no whole-scene fragment")
+        out.append(scene["fragment_list"][0])
+    return out
+
+
+def phase_time(torch, config, root, ckpt, n_launches, card):
+    """`tools/test_time.py` at its defaults, then the tester CLI with the
+    timing config on the two rooms: as shipped (no pass: no fragment) and
+    with one identity pass at serialization depth 12 (as shipped) and 16.
+    Prints each whole-scene fragment's bucket, largest grid coordinate,
+    pyramid path (packed sorts or their fallback) and drops per level, and
+    its SSI host ms."""
+    import warnings
+
+    from cdsegnet_torch.engine.test import SemSegTester
+    from cdsegnet_torch.models.ptv3 import PointTransformerV3
+    from cdsegnet_torch.ops import flash_attention as fa
+    from cdsegnet_torch.tools import test as test_tool
+    from cdsegnet_torch.tools import test_time
+
+    plain_calls = [0]
+    fa.reset_launch_counts()
+    with patched((fa, "patch_attention", counting_plain(plain_calls))):
+        timing = test_time.main(["--config-file", config])
+    timing.update(launches=fa.patch_attention_fwd.launches, plain=plain_calls[0])
+    print("time tool " + json.dumps(timing), flush=True)
+    if timing["launches"] != 11 * n_launches or timing["plain"]:
+        fail(f"test_time: {timing['launches']} launches, expected 11 x {n_launches}, "
+             "and no plain attention")
+
+    runs = {}
+    for run, depth, passes in (("shipped", 12, None), ("depth12", 12, [[]]),
+                               ("depth16", 16, [[]])):
+        frags, drops, grid_max = [], [None], [None]
+
+        def predict(fn):
+            def p(self, frag, *args, **kwargs):
+                grid_max[0] = int(frag["grid_coord"].max())
+                return fn(self, frag, *args, **kwargs)
+            return p
+
+        opts = [f"data.test.data_root={root}", f"save_path={os.path.join(root, run)}",
+                f"serialization_depth={depth}"]
+        if passes is not None:
+            opts.append(f"data.test.test_cfg.aug_transform={passes!r}")
+        argv = ["--config-file", config_path(TIME_CONFIG),
+                "--checkpoint", ckpt, "--options"] + opts
+        with warnings.catch_warnings(record=True) as caught, patched(
+                (fa, "patch_attention", counting_plain(plain_calls)),
+                (PointTransformerV3, "precompute_geometry", recording_drops(drops)),
+                (SemSegTester, "predict_fragment", predict),
+                (SemSegTester, "forward_fragment", recording_forward(
+                    torch, frags, plain_calls,
+                    lambda: dict(grid_max=grid_max[0], dropped_per_level=drops[0])))):
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            tester = test_tool.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        fallback = sum("packed sort" in str(w.message) for w in caught)
+        runs[run] = dict(depth=depth, fragments=frags, wall_s=wall,
+                         packed_sort_fallbacks=fallback,
+                         path="packed sorts" if not fallback else "packed-sort fallback",
+                         result=tester.result, card=card)
+        print(f"time tester {run} " + json.dumps(runs[run]), flush=True)
+        if passes is None:
+            if frags:
+                fail("the shipped timing config ran a fragment; its aug_transform=[] "
+                     "gives none")
+            continue
+        # whole-scene fragments (two per room where a 0.1 mm voxel holds two
+        # points) in the rooms' buckets
+        if sorted({f["bucket"] for f in frags}) != sorted(TIME_BUCKETS) or any(
+                f["launches"] != n_launches or f["plain"] or not f["finite"] for f in frags):
+            fail(f"timing protocol {run}: expected whole-scene fragments in the buckets "
+                 f"{TIME_BUCKETS}, {n_launches} launches each, no plain attention, finite")
+        if bool(fallback) != (depth == 16) or not all(f["grid_max"] > 4095 for f in frags):
+            fail(f"timing protocol {run}: the packed sorts fell back {fallback} times "
+                 "(expected only at depth 16), or the grid stayed within 12 bits")
+    return runs
+
+
+def phase_ddim(torch, config, cfg, tmp, ckpt, n_launches, card):
+    """MSAI (``inference_step=5``) through the tester CLI on phase 8's room
+    with the first augmentation only: every fragment takes 6 forwards of
+    ``n_launches`` launches (the c-decoder included), no plain attention.
+    Then MSFI on its first fragment, and that fragment's MSAI logits through
+    the kernel against the plain attention route (``TOL_DDIM``)."""
+    from cdsegnet_torch.engine.test import SemSegTester
+    from cdsegnet_torch.ops import flash_attention as fa
+    from cdsegnet_torch.tools import test as test_tool
+
+    conf = load_config("scannet/cdsegnet.py")
+    first_aug = [copy.deepcopy(conf.data.test.test_cfg.aug_transform[0])]
+    save = os.path.join(tmp, "ddim")
+    argv = ["--config-file", config, "--checkpoint", ckpt, "--options",
+            f"data.test.data_root={os.path.join(tmp, 'data')}", f"save_path={save}",
+            "inference_mode=MSAI", "inference_step=5",
+            f"data.test.test_cfg.aug_transform={json.loads(json.dumps(first_aug))!r}"]
+    frags, firsts, plain_calls = [], [], [0]
+
+    def predict(fn):
+        def p(self, frag, index, *args, **kwargs):
+            if not firsts:
+                firsts.append(frag)
+            return fn(self, frag, index, *args, **kwargs)
+        return p
+
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    with patched((fa, "patch_attention", counting_plain(plain_calls)),
+                 (SemSegTester, "predict_fragment", predict),
+                 (SemSegTester, "forward_fragment",
+                  recording_forward(torch, frags, plain_calls))):
+        tester = test_tool.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    lse = fa.patch_attention_fwd.lse_launches
+    per = 6 * n_launches
+    msai = dict(fragments=len(frags), per_fragment=sorted({f["launches"] for f in frags}),
+                plain=sum(f["plain"] for f in frags), lse_launches=lse,
+                buckets=sorted({f["bucket"] for f in frags}),
+                ms_median=statistics.median(f["ms"] for f in frags),
+                ms_all=[f["ms"] for f in frags], result=tester.result, wall_s=wall)
+    print("ddim msai " + json.dumps(msai), flush=True)
+    if not frags or msai["per_fragment"] != [per] or msai["plain"] or lse or \
+            not all(f["finite"] for f in frags):
+        fail(f"MSAI: launches per fragment {msai['per_fragment']}, expected {per}; plain "
+             f"calls {msai['plain']}; lse launches {lse}; or non-finite logits")
+    if not all(0.0 <= v <= 1.0 for v in tester.result.values()):
+        fail(f"MSAI metrics out of [0, 1]: {tester.result}")
+
+    # MSFI and the route gap on the first fragment, with one noise draw
+    n_frag, point, noise = tester._prepare_fragment(firsts[0], 0, None)
+    msfi_tester = SemSegTester(copy.deepcopy(tester.cfg), model=tester.model, device="cuda")
+    msfi_tester.inference_mode = "MSFI"
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    final = msfi_tester.forward_fragment(point, noise)
+    torch.cuda.synchronize()
+    msfi = dict(launches=fa.patch_attention_fwd.launches,
+                ms=(time.perf_counter() - t0) * 1e3,
+                finite=bool(torch.isfinite(final[point.mask]).all().item()))
+    got = tester.forward_fragment(point, noise)
+    set_attention_route(tester.model, False)
+    want = tester.forward_fragment(point, noise)
+    set_attention_route(tester.model, None)
+    valid = point.mask
+    gap = dict(max_abs_dlogits=(got - want)[valid].abs().max().item(),
+               max_abs_logits=want[valid].abs().max().item(),
+               argmax_agree=(got.argmax(1) == want.argmax(1))[valid].float().mean().item(),
+               points=n_frag)
+    print(f"ddim msfi {json.dumps(msfi)}; msai route gap {json.dumps(gap)}", flush=True)
+    if msfi["launches"] != per or not msfi["finite"]:
+        fail(f"MSFI: {msfi['launches']} launches, expected {per}, or non-finite logits")
+    if (gap["max_abs_dlogits"] > TOL_DDIM[0] * gap["max_abs_logits"]
+            or gap["argmax_agree"] < TOL_DDIM[1]):
+        fail(f"MSAI through the kernel disagrees with the plain route: {gap}")
+    return dict(msai, msfi=msfi, route_gap=gap, per_fragment=per, card=card)
+
+
+def step_sums(rows, direction):
+    """bf16 sums per training step in ``direction`` over the rows' launches,
+    each timed on its level's real scene ids and validity."""
     main = [r for r in rows if r["dtype"] == "bfloat16"]
     per_step = lambda key: sum(r[direction][key] * r["launches_per_step"] for r in main)
     errs = {"fwd": ("o", "lse"), "dq": ("dq",), "dkdv": ("dk", "dv")}[direction]
     return dict(
-        name=name, route="cuda", source=source, replaces=replaces, launches=launches,
         max_abs_err=max(r["max_abs_err"][e] for r in main for e in errs),
-        ms=per_step("ms"), plain_ms=per_step("plain_ms"),
-        bound_ms=per_step("bound_ms"),
+        ms=per_step("ms"), plain_ms=per_step("plain_ms"), bound_ms=per_step("bound_ms"),
         bound_by="operations" if per_step("ops_ms") >= per_step("bytes_ms") else "bytes",
-        library_ms=per_step("library_ms"),
-    )
+        library_ms=per_step("library_ms"))
+
+
+def kernel_entry(name, source, replaces, launches, rows, direction):
+    """One entry of the kernels line: `step_sums` over the main path's
+    training step."""
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                launches=launches, **step_sums(rows, direction))
 
 
 def main() -> int:
@@ -1256,6 +1759,9 @@ def run_phases(torch, config: str, runtime: str, tmp: str, start: float) -> int:
           f"sizes {[lv.size for lv in frag_levels]}, dropped per level "
           f"{[lv.dropped for lv in frag_levels[1:]]}", flush=True)
     test_rows = phase_kernels(torch, frag_levels, launches, patch, path="test")
+    # DDIM runs the c-decoder in eval mode: its launches on the same levels
+    c_dec = attention_launches(cfg["backbone"], c_decoder=True)[len(launches):]
+    cdec_rows = phase_kernels(torch, frag_levels, c_dec, patch, path="ddim")
     del frag_levels
     # the trainer's validation shapes: the val room in the 524,288-slot bucket
     # (the plain version keeps 4 GiB of probabilities at level 0 there)
@@ -1263,6 +1769,27 @@ def run_phases(torch, config: str, runtime: str, tmp: str, start: float) -> int:
     eval_rows = phase_kernels(torch, val_levels, launches, patch, path="eval")
     del val_levels
     torch.cuda.empty_cache()
+    # the timing protocol's whole-scene fragments, depth 12 as shipped
+    time_root = time_rooms(tmp)
+    time_rows = {}
+    for frag in time_fragments(time_root):
+        bucket = pick_bucket(len(frag["coord"]), DEFAULT_BUCKETS)
+        lv, _ = model.backbone.precompute_geometry(
+            batch_to_point(collate_scenes([frag], bucket, 1), depth, 1, "cuda"))
+        print(f"time fragment: {len(frag['coord'])} points in the {bucket} bucket, "
+              f"largest grid coordinate {int(frag['grid_coord'].max())}, level sizes "
+              f"{[x.size for x in lv]}, dropped per level {[int(x.dropped) for x in lv[1:]]}",
+              flush=True)
+        time_rows[bucket] = phase_kernels(torch, lv, launches, patch, path=f"time{bucket}")
+        del lv
+        torch.cuda.empty_cache()
+    # the nuScenes sweep's SSI shapes (the same backbone structure)
+    nus = nuscenes_data(torch, tmp, depth)
+    lv, _ = model.backbone.precompute_geometry(nus[2])
+    print(f"nuscenes ssi batch: level sizes {[x.size for x in lv]}, dropped per level "
+          f"{[int(x.dropped) for x in lv[1:]]}", flush=True)
+    nus_rows = phase_kernels(torch, lv, launches, patch, path="nuscenes")
+    del lv
     ssi = phase_ssi(torch, cfg, model, point, len(launches), card)
     # per forward: summed over the path's launches, each timed on its
     # level's real scene ids and validity
@@ -1286,10 +1813,13 @@ def run_phases(torch, config: str, runtime: str, tmp: str, start: float) -> int:
           f"{[lv.dropped for lv in train_levels[1:]]}", flush=True)
     train_launches = attention_launches(cfg["backbone"], c_decoder=True)
     train_rows = phase_train_kernels(torch, train_levels, train_launches, patch)
-    del train_model, train_levels
+    lv, _ = train_model.backbone.precompute_geometry(nus[1])
+    print(f"nuscenes train bucket: level sizes {[x.size for x in lv]}, dropped per level "
+          f"{[int(x.dropped) for x in lv[1:]]}", flush=True)
+    nus_train_rows = phase_train_kernels(torch, lv, train_launches, patch, path="nuscenes")
+    del train_model, train_levels, lv
     torch.cuda.empty_cache()
     train = phase_train(torch, conf, cfg, train_point, len(train_launches), card)
-    del train_point
     torch.cuda.empty_cache()
     phase_train_gap(torch, conf, cfg)
     torch.cuda.empty_cache()
@@ -1298,6 +1828,16 @@ def run_phases(torch, config: str, runtime: str, tmp: str, start: float) -> int:
     torch.cuda.empty_cache()
     train_cli = phase_train_cli(torch, config, tmp, len(train_launches), len(launches),
                                 card)
+    torch.cuda.empty_cache()
+    gap_point = synthetic_point_batch(GAP_POINTS, 1, depth=12, seed=1, device="cuda")
+    variants = phase_variants(torch, point, gap_point, train_point, nus, card)
+    del gap_point, train_point
+    phase_nuscenes_test(torch, nus, len(launches), card)
+    del nus
+    torch.cuda.empty_cache()
+    ckpt = os.path.join(tmp, "exp", "model", "model_last")  # phase 8's checkpoint
+    timing = phase_time(torch, config, time_root, ckpt, len(launches), card)
+    ddim = phase_ddim(torch, config, cfg, tmp, ckpt, len(train_launches), card)
 
     tpu = "cdsegnet_tpu/ops/pallas/flash_attention.py"
     bwd_src = f"cdsegnet_torch/csrc/{BWD_KERNEL}.cu"
@@ -1314,12 +1854,46 @@ def run_phases(torch, config: str, runtime: str, tmp: str, start: float) -> int:
                         # from phase 3, launches counted in phase 9's runs
                         eval=dict(forward_sums(eval_rows),
                                   launches=train_cli["launches_per_eval"],
-                                  ssi_ms=train_cli["eval_ssi_ms"]))),
-        kernel_entry("patch_attention_bwd_dq", bwd_src, f"{tpu}:146",
-                     train["launches"]["bwd_dq"], train_rows, "dq"),
-        kernel_entry("patch_attention_bwd_dkdv", bwd_src, f"{tpu}:146",
-                     train["launches"]["bwd_dkdv"], train_rows, "dkdv"),
+                                  ssi_ms=train_cli["eval_ssi_ms"]),
+                        # per SSI of each variant: times from phase 3 (the
+                        # bench scene's rows, or the sweep's), launches
+                        # counted in phase 10
+                        variants={name: dict(
+                            forward_sums(nus_rows) if name == NUSCENES else launch_sums(
+                                rows, attention_launches(load_config(name).model.backbone)),
+                            launches=v["ssi_launches"], ssi_ms=v["ssi_ms"],
+                            step_launches=v["step_launches"]["fwd"])
+                            for name, v in variants.items()},
+                        # per whole-scene fragment: times from phase 3,
+                        # launches counted in phase 11's runs
+                        time={str(bucket): dict(
+                            forward_sums(r), launches=sorted({
+                                f["launches"] for run in ("depth12", "depth16")
+                                for f in timing[run]["fragments"] if f["bucket"] == bucket}),
+                            ssi_ms={run: [f["ms"] for f in timing[run]["fragments"]
+                                          if f["bucket"] == bucket][0]
+                                    for run in ("depth12", "depth16")})
+                            for bucket, r in time_rows.items()},
+                        # per DDIM forward (c-decoder included): times from
+                        # phase 3; launches per MSAI fragment from phase 12
+                        ddim=dict(forward_sums(test_rows + cdec_rows),
+                                  launches=ddim["per_fragment"],
+                                  fragments=ddim["fragments"],
+                                  fragment_ms=ddim["ms_median"]))),
     ]
+    for name, direction in (("patch_attention_bwd_dq", "dq"),
+                            ("patch_attention_bwd_dkdv", "dkdv")):
+        counted = "bwd_dq" if direction == "dq" else "bwd_dkdv"
+        kernels.append(dict(
+            kernel_entry(name, bwd_src, f"{tpu}:146", train["launches"][counted],
+                         train_rows, direction),
+            # per training step of each variant: times from phase 5 (the
+            # bucket's rows, or the nuScenes batch's), launches from phase 10
+            paths=dict(variants={v: dict(
+                train_launch_sums(nus_train_rows if v == NUSCENES else train_rows,
+                                  attention_launches(load_config(v).model.backbone,
+                                                     c_decoder=True), direction),
+                launches=r["step_launches"][counted]) for v, r in variants.items()})))
     print(f"wall time {time.perf_counter() - start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -271,11 +271,18 @@ def test_metrics_match_jax():
 def test_room_scene_is_a_seeded_scannet_scan():
     """The synthetic room of `chip_smoke.py`'s tester phase: ScanNet
     archive fields, colors in 0-255, unit normals, labels of the 20-class
-    set; the same seed gives the same scan."""
+    set and the same classes among ScanNet200's; the same seed gives the
+    same scan."""
+    from cdsegnet_torch.data.datasets import SCANNET20_NAMES
     from cdsegnet_torch.utils.synthetic import room_scene
 
     a, b = room_scene(3, cell=0.1), room_scene(3, cell=0.1)
-    assert sorted(a) == ["color", "coord", "normal", "semantic_gt20"]
+    assert sorted(a) == ["color", "coord", "normal", "semantic_gt20", "semantic_gt200"]
+    # each point's ScanNet200 class is its ScanNet-20 class (by name; the
+    # first names of the benchmark's CLASS_LABELS_200)
+    names200 = {0: "wall", 1: "chair", 2: "floor", 3: "table", 6: "cabinet", 10: "bed"}
+    assert [names200[i] for i in a["semantic_gt200"]] == [
+        SCANNET20_NAMES[i] for i in a["semantic_gt20"]]
     for k in a:
         np.testing.assert_array_equal(a[k], b[k])
     n = len(a["coord"])

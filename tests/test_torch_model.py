@@ -43,12 +43,15 @@ def tiny_cfg(dtype="float32", **backbone):
     return cfg
 
 
-def random_variables(model, point):
+def random_variables(model, point, *args, **init_kwargs):
     """The flax variable tree of ``model`` (scanned layout), filled with
-    numpy draws from a seed: non-trivial norms and running statistics."""
+    numpy draws from a seed: non-trivial norms and running statistics.
+    ``args`` and ``init_kwargs`` go to ``model.init`` after the point
+    (``train=False`` when none is given)."""
     rngs = {k: jax.random.PRNGKey(i) for i, k in
             enumerate(("params", "dropout", "shuffle", "diffusion"))}
-    shapes = jax.eval_shape(lambda p: model.init(rngs, p, train=False), point)
+    kwargs = init_kwargs or dict(train=False)
+    shapes = jax.eval_shape(lambda p: model.init(rngs, p, *args, **kwargs), point)
     rng = np.random.RandomState(1)
 
     def fill(path, s):
@@ -300,7 +303,7 @@ def test_port_imports_no_jax():
                    "data/collate.py", "tools/test.py", "utils/registry.py",
                    "utils/logger.py", "utils/misc.py", "engine/train.py",
                    "engine/hooks.py", "engine/events.py", "data/loader.py",
-                   "utils/tbwriter.py", "tools/train.py"):
+                   "utils/tbwriter.py", "tools/train.py", "tools/test_time.py"):
         assert os.path.join(REPO, "cdsegnet_torch", module) in files, module
     bad = [(f, m) for f in files for m in _imports(f)
            if m.split(".")[0] in FORBIDDEN]

@@ -345,13 +345,19 @@ def test_tester_and_cli_refuse_the_cpu_unless_asked(ref, tmp_path, monkeypatch):
     assert SemSegTester(cfg, device="cpu").device == torch.device("cpu")
 
 
-@pytest.mark.parametrize("change", [dict(inference_mode="MSAI"),
-                                    dict(inference_mode="MSFI"),
-                                    dict(num_devices=2),
-                                    dict(model_kwargs=dict(condition="ScanNet"))])
-def test_unported_tester_paths_raise(change, tmp_path):
+@pytest.mark.parametrize("change,error", [
+    # the DDIM modes are ported: an unknown mode, or a DDIM mode on a model
+    # without the diffusion wrapper, is refused
+    pytest.param(dict(inference_mode="DDPM"), ValueError, id="change0"),
+    pytest.param(dict(inference_mode="MSFI", model=dict(
+        type="DefaultSegmentor", backbone=dict(TINY_MODEL["backbone"], condition=False))),
+        ValueError, id="change1"),
+    pytest.param(dict(num_devices=2), NotImplementedError, id="change2"),
+    pytest.param(dict(model_kwargs=dict(condition="ScanNet")), NotImplementedError,
+                 id="change3")])
+def test_unported_tester_paths_raise(change, error, tmp_path):
     cfg = Config(Config._wrap(scene_cfg("unused", str(tmp_path), **change)))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(error):
         SemSegTester(cfg, device="cpu")
 
 

@@ -1,13 +1,14 @@
 """Static-shape batch collation with Mix3D.
 
-Port of `mix3d`, `collate_scenes`, `collate_sharded` and `pick_bucket` of
+Port of `mix3d`, `collate_scenes` and `pick_bucket` of
 `cdsegnet_tpu/data/collate.py`: scenes are concatenated into a fixed
 ``num_points`` bucket with a validity mask and per-point scene ids, the
 layout `models.structure.PointBatch` takes. The bucket size also sets the
 pyramid's per-level capacities (``capacity_div``), so the same buckets as
 the JAX package keep the same drops. Mix3D merges scene pairs with
 probability ``mix_prob`` (reference `point_collate_fn`). Paired views
-(MSC pretraining) are not ported.
+(MSC pretraining) are not ported; nor is `collate_sharded`, JAX's stack of
+every device's bucket: each rank of the port collates its own.
 """
 
 from __future__ import annotations
@@ -118,21 +119,6 @@ def collate_scenes(
         out["instance_centroid"] = centroid
     out.update(extras)
     return out
-
-
-def collate_sharded(
-    per_device_scenes: Sequence[List[Dict]],
-    num_points: int,
-    num_scenes: int,
-    feat_dim: Optional[int] = None,
-) -> Dict[str, np.ndarray]:
-    """Stack one bucket per device on a leading axis (the trainer's loader
-    emits one device)."""
-    buckets = [
-        collate_scenes(s, num_points, num_scenes, feat_dim)
-        for s in per_device_scenes
-    ]
-    return {k: np.stack([b[k] for b in buckets]) for k in buckets[0]}
 
 
 def pick_bucket(n: int, buckets: Sequence[int]) -> int:

@@ -5,11 +5,11 @@ Port of `TrainLoader` and `EvalLoader` of `cdsegnet_tpu/data/loader.py`
 transformed on the host with numpy generators drawn exactly as JAX draws
 them, merged by Mix3D, collated into fixed-size buckets and, for training,
 prefetched on a background thread so host preprocessing overlaps the step
-on the GPU. The loader emits one device (a leading axis of 1, as JAX's
-`collate_sharded` stacks); more devices, gradient microbatches, paired
-views (MSC) and `MultiDatasetLoader` are not ported and raise
-`NotImplementedError`. An exception in the prefetch thread is raised in the
-consumer.
+on the GPU. Where JAX's loader stacks every device's bucket for one
+controller, each rank of the port loads only its own (`TrainLoader`'s
+``rank``). Paired views (MSC) and `MultiDatasetLoader` are not ported and
+raise `NotImplementedError`. An exception in the prefetch thread is raised
+in the consumer.
 """
 
 from __future__ import annotations
@@ -20,15 +20,26 @@ from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 
-from cdsegnet_torch.data.collate import collate_scenes, collate_sharded, mix3d
+from cdsegnet_torch.data.collate import collate_scenes, mix3d
 
 
 class TrainLoader:
-    """Epoch-based shuffled loader producing sharded static batches.
+    """Epoch-based shuffled loader producing one rank's static batches.
 
-    Each batch: dict of arrays with leading axis = num_devices (1); the
-    device bucket holds `scenes_per_device` scenes (post-Mix3D) padded to
-    `num_points`.
+    Each step takes ``num_devices * scenes_per_device`` scene ids from the
+    epoch's permutation (`default_rng(seed + epoch)`, as JAX's), and rank
+    ``rank`` loads, transforms and collates its own slice of them, at
+    ``rank * scenes_per_device``, into a bucket of ``num_points`` slots
+    (post-Mix3D). With ``microbatch`` m > 1 the bucket is m micro buckets
+    stacked on a leading axis (JAX's `_collate_micro`), each holding
+    ``scenes_per_device / m`` scenes padded to ``num_points / m``, with
+    Mix3D inside each micro bucket and none across them.
+
+    The augmentations draw from ``default_rng((seed, epoch, step,
+    0xC0FFEE))`` on rank 0, as JAX draws its first device's; rank r > 0
+    draws from ``(seed, epoch, step, 0xC0FFEE, r)``, where JAX's device r
+    continues the first device's stream (replaying those draws would cost
+    every rank the host work of all the ranks before it).
     """
 
     def __init__(
@@ -44,21 +55,20 @@ class TrainLoader:
         prefetch: int = 2,
         pair_feat_keys: Optional[Sequence[str]] = None,
         microbatch: int = 1,
+        rank: int = 0,
     ):
-        if num_devices != 1:
-            raise NotImplementedError(
-                f'num_devices={num_devices}: data parallelism is not ported '
-                '(ROADMAP Queue 1: "Microbatches and more than one device")')
-        if microbatch != 1:
-            raise NotImplementedError(
-                'gradient microbatches are not ported (ROADMAP Queue 1: '
-                '"Microbatches and more than one device")')
         if pair_feat_keys is not None:
             raise NotImplementedError(
                 'paired views (MSC pretraining) are not ported (ROADMAP Queue 1: '
                 '"The model zoo and the rest of the engine and data")')
+        if not 0 <= rank < num_devices:
+            raise ValueError(f"rank {rank} of num_devices={num_devices}")
+        if microbatch < 1 or scenes_per_device % microbatch or num_points % microbatch:
+            raise ValueError(f"microbatch={microbatch} must divide scenes_per_device="
+                             f"{scenes_per_device} and num_points={num_points}")
         self.dataset = dataset
         self.num_devices = num_devices
+        self.rank = rank
         self.scenes_per_device = scenes_per_device
         self.num_points = num_points
         self.mix_prob = mix_prob
@@ -66,9 +76,11 @@ class TrainLoader:
         self.feat_dim = feat_dim
         self.drop_last = drop_last
         self.prefetch = prefetch
+        self.microbatch = microbatch
         self.scenes_per_batch = num_devices * scenes_per_device
 
     def __len__(self) -> int:
+        """Global batches per epoch (every rank takes one slice of each)."""
         n = len(self.dataset)
         if self.drop_last:
             return n // self.scenes_per_batch
@@ -79,14 +91,21 @@ class TrainLoader:
         return rng.permutation(len(self.dataset))
 
     def _make_batch(self, idxs: Sequence[int], epoch: int, step: int):
-        rng = np.random.default_rng((self.seed, epoch, step, 0xC0FFEE))
-        per_device: List[List[Dict]] = []
-        for d in range(self.num_devices):
-            scene_ids = idxs[d * self.scenes_per_device: (d + 1) * self.scenes_per_device]
-            scenes = [self.dataset.get(int(i), rng) for i in scene_ids]
-            per_device.append(mix3d(scenes, rng, self.mix_prob))
-        return collate_sharded(per_device, self.num_points, self.scenes_per_device,
-                               self.feat_dim)
+        """This rank's bucket of the global batch ``idxs``."""
+        key = (self.seed, epoch, step, 0xC0FFEE) + ((self.rank,) if self.rank else ())
+        rng = np.random.default_rng(key)
+        spd = self.scenes_per_device
+        scene_ids = idxs[self.rank * spd: (self.rank + 1) * spd]
+        scenes = [self.dataset.get(int(i), rng) for i in scene_ids]
+        if self.microbatch == 1:
+            return collate_scenes(mix3d(scenes, rng, self.mix_prob), self.num_points,
+                                  spd, self.feat_dim)
+        spm = spd // self.microbatch
+        ppm = self.num_points // self.microbatch
+        micros = [collate_scenes(mix3d(scenes[m * spm: (m + 1) * spm], rng, self.mix_prob),
+                                 ppm, spm, self.feat_dim)
+                  for m in range(self.microbatch)]
+        return {k: np.stack([mb[k] for mb in micros]) for k in micros[0]}
 
     def _batches(self, idxs: np.ndarray, epoch: int) -> Iterator[Dict[str, np.ndarray]]:
         for step in range(len(self)):

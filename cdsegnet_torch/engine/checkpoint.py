@@ -6,8 +6,12 @@ the newest ``keep_last`` are kept) in one directory. Each is one file written
 with `torch.save`, atomically (``<name>.tmp``, then `os.replace`, as the
 reference does). A checkpoint is the dict that `snapshot` makes: the model's
 ``state_dict`` and the step, plus the optimizer's and the generators' states
-when given them. Orbax checkpoints of the JAX package are not read; carry
-JAX weights over with `utils.weights.load_jax_variables`.
+when given them. In a process group of several ranks (`parallel.dist`) only
+rank 0 writes, every rank waits at a barrier after each write, every rank
+reads, and a checkpoint carries every rank's generators (``rank_generators``),
+each rank restoring its own. Orbax checkpoints of the JAX package are read
+through `convert_jax_checkpoint.py` (repository root), which writes the
+model and the step of one in this format (`utils.weights.load_jax_train_state`).
 """
 
 from __future__ import annotations
@@ -17,16 +21,24 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from cdsegnet_torch.parallel import dist
+
 
 def snapshot(model: torch.nn.Module, step: int = 0, optimizer=None,
              generators: Optional[Dict[str, torch.Generator]] = None) -> Dict[str, Any]:
     """The state a checkpoint holds: ``model`` (its ``state_dict``),
-    ``step``, and ``optimizer`` and ``generators`` when given."""
+    ``step``, and ``optimizer`` and ``generators`` when given. With
+    ``generators`` in a group of several ranks every rank must call it: it
+    gathers each rank's generator states into ``rank_generators`` (rank
+    0's are also ``generators``)."""
     state: Dict[str, Any] = dict(model=model.state_dict(), step=int(step))
     if optimizer is not None:
         state["optimizer"] = optimizer.state_dict()
     if generators is not None:
-        state["generators"] = {k: g.get_state() for k, g in generators.items()}
+        ranks = dist.all_gather_object({k: g.get_state() for k, g in generators.items()})
+        state["generators"] = ranks[0]
+        if len(ranks) > 1:
+            state["rank_generators"] = ranks
     return state
 
 
@@ -41,12 +53,16 @@ class CheckpointManager:
 
     def save(self, state: Dict[str, Any], name: str = "model_last",
              overwrite: bool = True) -> None:
+        """Write ``state`` as ``name`` (rank 0; in a group, every rank
+        calls it and waits until the file is in place)."""
         path = self._path(name)
         if not overwrite and os.path.exists(path):
             raise FileExistsError(path)
-        tmp = path + ".tmp"
-        torch.save(state, tmp)
-        os.replace(tmp, path)
+        if dist.is_main():
+            tmp = path + ".tmp"
+            torch.save(state, tmp)
+            os.replace(tmp, path)
+        dist.barrier()
 
     def save_epoch(self, state: Dict[str, Any], epoch: int, is_best: bool,
                    save_snapshot: bool = False) -> None:
@@ -55,7 +71,9 @@ class CheckpointManager:
             self.save(state, "model_best")
         if save_snapshot:
             self.save(state, f"epoch_{epoch}")
-            self._gc_snapshots()
+            if dist.is_main():
+                self._gc_snapshots()
+            dist.barrier()
 
     def _gc_snapshots(self) -> None:
         snaps = sorted(
@@ -71,16 +89,23 @@ class CheckpointManager:
                 generators: Optional[Dict[str, torch.Generator]] = None
                 ) -> Optional[Dict[str, Any]]:
         """Load checkpoint ``name`` into ``model`` (strictly) and, when
-        given, ``optimizer`` and ``generators``; returns the checkpoint, or
-        None when there is none."""
+        given, ``optimizer`` and this rank's ``generators`` (a checkpoint
+        of another number of ranks raises); returns the checkpoint, or None
+        when there is none."""
         state = self.restore_raw(name)
         if state is None:
             return None
+        if generators:
+            ranks = state.get("rank_generators", [state["generators"]])
+            if len(ranks) != dist.world_size():
+                raise ValueError(f"checkpoint {name!r} holds the generators of "
+                                 f"{len(ranks)} ranks, this run has {dist.world_size()}")
         model.load_state_dict(state["model"])
         if optimizer is not None:
             optimizer.load_state_dict(state["optimizer"])
-        for k, g in (generators or {}).items():
-            g.set_state(state["generators"][k])
+        if generators:
+            for k, g in generators.items():
+                g.set_state(ranks[dist.rank()][k])
         return state
 
     def restore_raw(self, name: str = "model_last") -> Optional[Dict[str, Any]]:

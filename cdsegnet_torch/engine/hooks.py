@@ -6,7 +6,11 @@ stack (`configs/_base_/default_runtime.py`): CheckpointLoader,
 IterationTimer, InformationWriter, SemSegEvaluator, CheckpointSaver; a
 config may add PreciseEvaluator. A hook reads and writes the trainer it is
 bound to (``hook.trainer``): its model, optimizer, generators, checkpoint
-manager, storage, logger and ``comm_info``.
+manager, storage, logger and ``comm_info``. In a process group of several
+ranks (`parallel.dist`) every hook runs on every rank: the evaluator splits
+the val scenes over the ranks and sums their histograms, the information
+writer and the files act on rank 0, and the checkpoint loader reads on
+every rank.
 
 Not ported, each raising `NotImplementedError` when built:
 `InsSegEvaluator`, `ClsEvaluator` and the profiling hook `RuntimeProfiler`.
@@ -22,6 +26,7 @@ import torch
 
 from cdsegnet_torch.engine.checkpoint import snapshot
 from cdsegnet_torch.engine.test import NoiseFn, SemSegTester
+from cdsegnet_torch.parallel import dist
 from cdsegnet_torch.utils.misc import AverageMeter, intersection_and_union_torch
 from cdsegnet_torch.utils.registry import Registry
 
@@ -58,9 +63,10 @@ def build_hooks(cfgs) -> list:
 class CheckpointLoader(HookBase):
     """Resume the whole training state from `model_last` when ``resume`` is
     set and it exists: the model, the optimizer's moments and count, and the
-    step's generators; or load the model alone (parameters and running
-    statistics) from the checkpoint ``weight`` names (reference
-    `hooks/misc.py:207-249`)."""
+    step's generators (each rank its own); or load the model alone
+    (parameters and running statistics) from the checkpoint ``weight``
+    names (reference `hooks/misc.py:207-249`), such as one that
+    `convert_jax_checkpoint.py` wrote from a JAX run. Every rank reads."""
 
     def __init__(self, keywords="", replacement=None):
         self.keywords = keywords
@@ -119,6 +125,8 @@ class InformationWriter(HookBase):
         self.log_interval = log_interval
 
     def after_step(self):
+        if not dist.is_main():
+            return
         tr = self.trainer
         step = tr.step
         metrics = tr.comm_info.get("metrics", {})
@@ -142,20 +150,30 @@ class SemSegEvaluator(HookBase):
     trainer's `EvalLoader` bucket), the argmax and the intersection/union
     histograms on the device, one host copy at the end. The c-branch noise
     of scene i is drawn from a device generator seeded with ``seed +
-    epoch``, or taken from ``noise_fn(i, bucket, c_in)``."""
+    epoch``, or taken from ``noise_fn(i, bucket, c_in)``.
+
+    Over several ranks, rank ``i % world`` evaluates scene i, and the integer
+    histograms are summed over the ranks: the result equals one rank's.
+    Every rank runs every scene's val pipeline and draws every scene's
+    noise in order, so that the data and noise streams stay those of one
+    rank. ``histograms`` keeps the last summed (intersection, union,
+    target)."""
 
     def __init__(self, interval: int = 1, noise_fn: Optional[NoiseFn] = None):
         self.interval = interval
         self.noise_fn = noise_fn
+        self.histograms = None
 
     def after_epoch(self):
         tr = self.trainer
         if tr.val_loader is None or (tr.epoch + 1) % self.interval != 0:
             return
         num_classes = tr.cfg.data.num_classes
+        world, rank = dist.world_size(), dist.rank()
         sums = torch.zeros((3, num_classes), dtype=torch.int64, device=tr.device)
         gen = torch.Generator(tr.device).manual_seed(tr.seed + tr.epoch)
         c_in = getattr(tr.model, "c_in_channels", None)
+        draw_noise = getattr(tr.model, "draw_ssi_noise", None)
         dev = lambda x: torch.as_tensor(x, device=tr.device)
         for index, (batch, scene) in enumerate(tr.val_loader):
             if "origin_coord" in scene:
@@ -163,17 +181,24 @@ class SemSegEvaluator(HookBase):
                     'val scenes with origin_coord (1-NN remap of the predictions, '
                     'knn_remap_labels) are not ported (ROADMAP Queue 1: "The model '
                     'zoo and the rest of the engine and data")')
+            mine = index % world == rank
+            bucket, feat_dim = batch["feat"].shape
             noise = None
             if self.noise_fn is not None:
-                bucket = batch["coord"].shape[0]
-                noise = torch.as_tensor(
-                    self.noise_fn(index, bucket, c_in or batch["feat"].shape[-1]),
-                    dtype=torch.float32, device=tr.device)
+                if mine:
+                    noise = torch.as_tensor(self.noise_fn(index, bucket, c_in or feat_dim),
+                                            dtype=torch.float32, device=tr.device)
+            elif draw_noise is not None:
+                noise = draw_noise(bucket, feat_dim, gen, tr.device)
+            if not mine:
+                continue
             out = tr.eval_step(batch, generator=gen, noise=noise)
             sums += torch.stack(intersection_and_union_torch(
                 out["seg_logits"].argmax(-1), dev(batch["segment"]), num_classes,
                 dev(batch["mask"])))
-        inter_sum, union_sum, target_sum = sums.cpu().numpy().astype(np.float64)
+        dist.all_reduce_sum_(sums)
+        self.histograms = sums.cpu().numpy()
+        inter_sum, union_sum, target_sum = self.histograms.astype(np.float64)
         iou = inter_sum / np.maximum(union_sum, 1)
         acc = inter_sum / np.maximum(target_sum, 1)
         miou = float(iou.mean())
@@ -192,7 +217,8 @@ class SemSegEvaluator(HookBase):
 @HOOKS.register_module()
 class CheckpointSaver(HookBase):
     """Save last/best/periodic checkpoints (reference `hooks/misc.py:146-204`):
-    the model, the step, the optimizer and the step's generators."""
+    the model, the step, the optimizer and every rank's generators. Every
+    rank calls it; rank 0 writes."""
 
     def __init__(self, save_freq: Optional[int] = None):
         self.save_freq = save_freq

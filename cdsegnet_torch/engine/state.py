@@ -1,22 +1,22 @@
 """The training and evaluation steps.
 
 Port of `make_train_step` and `make_eval_step` in
-`cdsegnet_tpu/engine/state.py` for one device and one microbatch. The
-training step: forward in training mode, the loss, backward, then the
-optimizer update (keyword clip, AdamW with per-group schedules). The model
-and the optimizer hold the state that JAX's ``TrainState`` carries (the
-parameters and running statistics; the moments and the update count). Three
-generators, seeded once, take the place of the step's rng split: dropout
-and diffusion on the device, shuffle on the CPU. The evaluation step is
-SSI in eval mode (`CNFSegmentor.inference`), or the plain forward's logits.
-Microbatch accumulation and a device mesh are not ported and raise
-`NotImplementedError`. `batch_to_point` turns a collated numpy batch into a
-`PointBatch`.
+`cdsegnet_tpu/engine/state.py`. The training step: forward in training
+mode, the loss and backward on each micro bucket, the mean over the ranks
+of a process group (`parallel.dist`, in place of JAX's `pmean` over the
+mesh), then the optimizer update (keyword clip, AdamW with per-group
+schedules). The model and the optimizer hold the state that JAX's
+``TrainState`` carries (the parameters and running statistics; the moments
+and the update count). Three generators per rank, seeded once, take the
+place of the step's rng split, into which JAX folds the device index:
+dropout and diffusion on the device, shuffle on the CPU. The evaluation
+step is SSI in eval mode (`CNFSegmentor.inference`), or the plain forward's
+logits. `batch_to_point` turns a collated numpy batch into a `PointBatch`.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Union
+from typing import Callable, Dict, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -24,6 +24,7 @@ import torch
 from cdsegnet_torch.engine.optimizer import KeywordAdamW
 from cdsegnet_torch.models.losses import Criteria
 from cdsegnet_torch.models.structure import PointBatch, make_point_batch
+from cdsegnet_torch.parallel import dist
 from cdsegnet_torch.utils.device import resolve_device
 
 
@@ -37,45 +38,99 @@ def batch_to_point(batch: Dict[str, np.ndarray], depth: int, num_scenes: int,
         depth=depth, num_scenes=num_scenes, device=device)
 
 
-def make_generators(seed: int, device: torch.device) -> Dict[str, torch.Generator]:
-    """The step's generators: ``dropout`` and ``diffusion`` on ``device``,
-    ``shuffle`` on the CPU, each seeded from ``seed``."""
-    return dict(dropout=torch.Generator(device).manual_seed(seed),
-                diffusion=torch.Generator(device).manual_seed(seed + 1),
-                shuffle=torch.Generator().manual_seed(seed + 2))
+def rank_seed(seed: int, rank: int) -> int:
+    """The seed of rank ``rank``'s generators: ``seed`` itself on rank 0 (so
+    one process draws what it always drew), a 62-bit seed from numpy's
+    `SeedSequence` of ``(seed, rank)`` on the others."""
+    if rank == 0:
+        return seed
+    return int(np.random.SeedSequence((seed, rank)).generate_state(1, np.uint64)[0] >> 2)
+
+
+def make_generators(seed: int, device: torch.device,
+                    rank: int = 0) -> Dict[str, torch.Generator]:
+    """The step's generators of rank ``rank``: ``dropout`` and ``diffusion``
+    on ``device``, ``shuffle`` on the CPU, each seeded from `rank_seed`."""
+    s = rank_seed(seed, rank)
+    return dict(dropout=torch.Generator(device).manual_seed(s),
+                diffusion=torch.Generator(device).manual_seed(s + 1),
+                shuffle=torch.Generator().manual_seed(s + 2))
+
+
+def _rank_mean_(model: torch.nn.Module, loss: torch.Tensor, microbatch: int) -> None:
+    """Average over the ranks, in place, as JAX's `pmean`s do: the gradients
+    (summed over ``microbatch`` micros; a parameter without a gradient on
+    every rank keeps none, one without a gradient on some ranks counts zero
+    there), the running statistics and ``loss``. One collective."""
+    world = dist.world_size()
+    params = [p for p in model.parameters() if p.requires_grad]
+    has = torch.tensor([float(p.grad is not None) for p in params], device=loss.device)
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+    stats = [b for b in model.buffers() if b.is_floating_point()]
+    dist.flat_all_reduce_(grads + stats + [has, loss])
+    for p, g, h in zip(params, grads, has.tolist()):
+        p.grad = g.div_(microbatch * world) if h else None
+    for b in stats:
+        b.div_(world)
+    loss.div_(world)
 
 
 def make_train_step(model: torch.nn.Module, criteria: Criteria,
                     optimizer: KeywordAdamW, seed: int = 0,
                     device: Optional[Union[str, torch.device]] = None,
-                    microbatch: int = 1, mesh=None) -> Callable[..., Dict]:
+                    microbatch: int = 1) -> Callable[..., Dict]:
     """The step ``step(point, **inject) -> metrics`` on ``device`` (the GPU
     unless the caller names another; raises without one). It draws from
-    ``step.generators`` (`make_generators` of ``seed``), which a checkpoint
-    saves and a resume restores.
+    ``step.generators`` (`make_generators` of ``seed`` and this process's
+    rank), which a checkpoint saves and a resume restores.
+
+    ``microbatch`` > 1: ``point`` is a sequence of that many micro buckets,
+    trained in turn (JAX's `_grads_micro`): the running statistics carry
+    from one micro to the next, the gradients are summed and divided by
+    ``microbatch``, the loss is the micros' mean, and ``valid_points`` and
+    the drops are summed. In a process group of more than one rank the
+    gradients, the loss and the running statistics are then averaged over
+    the ranks (JAX's `pmean` over the mesh) before the keyword clip and
+    AdamW; the batch statistics inside each forward stay the rank's own.
 
     ``inject`` goes to the model's forward (``ts_scene``, ``noise``,
-    ``mse_valid`` and ``perms`` replace the draws). The metrics are ``loss`` (a 0-d
-    tensor, detached), ``valid_points`` (a 0-d tensor) and ``dropped_l1``,
-    ..., one per pooled level: the valid points it lost to overflow.
+    ``mse_valid`` and ``perms`` replace the draws); with micros each value
+    is a sequence, one per micro. The metrics are ``loss`` (a 0-d tensor,
+    detached), ``valid_points`` (a 0-d tensor) and ``dropped_l1``, ..., one
+    per pooled level: the valid points it lost to overflow.
     """
     device = resolve_device(device)
-    if microbatch != 1:
-        raise NotImplementedError("microbatch accumulation is not ported")
-    if mesh is not None:
-        raise NotImplementedError("a device mesh (data parallelism) is not ported")
-    generators = make_generators(seed, device)
+    if microbatch < 1:
+        raise ValueError(f"microbatch={microbatch}")
+    generators = make_generators(seed, device, dist.rank())
+    world = dist.world_size()
 
-    def step(point: PointBatch, **inject) -> Dict:
+    def step(point: Union[PointBatch, Sequence[PointBatch]], **inject) -> Dict:
+        micros = [point] if isinstance(point, PointBatch) else list(point)
+        if len(micros) != microbatch:
+            raise ValueError(f"{len(micros)} micro buckets for microbatch={microbatch}")
+        injects = ([inject] if microbatch == 1 else
+                   [{k: v[i] for k, v in inject.items()} for i in range(microbatch)])
         model.train()
         optimizer.zero_grad()
-        out = model(point, generators=generators, **inject)
-        loss = criteria(out, mode="train")
-        loss.backward()
+        losses, drops = [], []
+        for pt, inj in zip(micros, injects):
+            out = model(pt, generators=generators, **inj)
+            loss = criteria(out, mode="train")
+            loss.backward()
+            losses.append(loss.detach())
+            drops.append(out.get("pyramid_dropped", ()))
+        loss = losses[0] if microbatch == 1 else torch.stack(losses).mean()
+        if world > 1:
+            _rank_mean_(model, loss, microbatch)
+        elif microbatch > 1:
+            for p in model.parameters():
+                if p.grad is not None:
+                    p.grad.div_(microbatch)
         optimizer.step()
-        metrics = dict(loss=loss.detach(), valid_points=point.mask.sum())
-        for i, d in enumerate(out.get("pyramid_dropped", ())):
-            metrics[f"dropped_l{i + 1}"] = d
+        metrics = dict(loss=loss, valid_points=sum(pt.mask.sum() for pt in micros))
+        for i, d in enumerate(zip(*drops)):
+            metrics[f"dropped_l{i + 1}"] = sum(d)
         return metrics
 
     step.generators = generators

@@ -1,7 +1,7 @@
 """Testers: TTA fragment-voting semantic-segmentation evaluation.
 
 Port of `SemSegTester` in `cdsegnet_tpu/engine/test.py` (reference
-`pointcept/engines/test.py:34-414`) on one device. Per scene, every
+`pointcept/engines/test.py:34-414`). Per scene, every
 test-time augmentation is grid-sampled into fragments; each fragment is
 padded into the smallest static bucket that holds it (`DEFAULT_BUCKETS`, as
 in JAX: the bucket sets the pyramid's capacities), gets its geometry
@@ -25,9 +25,20 @@ draw, as JAX draws their initial c state from the same key and shape.
 ``feat_noise_fn(i, shape)`` the perturbation's (tests feed JAX's draws
 through them).
 
-Not ported, each raising `NotImplementedError`: ``num_devices > 1``
-(fragment-parallel inference), ``model_kwargs``
-(models other than `CNFSegmentor` and `PlainSegmentor`), `ClsTester` and
+Fragment-parallel inference, as JAX's tester runs it over its mesh: in a
+process group (`parallel.dist`; `tools/test.py --num-gpus` or ``torchrun``
+builds it) every rank runs every scene's test pipeline with the shared
+numpy generator (its draws depend on each scene's points) and draws every
+fragment's noise in order, and rank ``k % world`` forwards fragment k. The
+probabilities of each group of ``world`` fragments go from their ranks to
+every rank, which adds them into the votes in fragment order: preds and
+records equal one rank's exactly. Rank 0 writes the preds, the cache and
+the submission files. Every mode is grouped so: a DDIM fragment draws
+nothing past its initial state, so MSAI and MSFI split over the ranks as
+SSI does (JAX runs them on one device).
+
+Not ported, each raising `NotImplementedError`: ``model_kwargs`` (models
+other than `CNFSegmentor` and `PlainSegmentor`), `ClsTester` and
 `PartSegTester`.
 """
 
@@ -45,6 +56,7 @@ from cdsegnet_torch.engine.state import batch_to_point
 from cdsegnet_torch.models.builder import build_model
 from cdsegnet_torch.models.segmentor import CNFSegmentor, PlainSegmentor, inference_ddim
 from cdsegnet_torch.models.structure import PointBatch
+from cdsegnet_torch.parallel import dist
 from cdsegnet_torch.utils.device import resolve_device
 from cdsegnet_torch.utils.logger import get_root_logger
 from cdsegnet_torch.utils.misc import intersection_and_union
@@ -61,27 +73,33 @@ FeatNoiseFn = Callable[[int, Tuple[int, ...]], Any]
 @TESTERS.register_module("SemSegTester")
 class SemSegTester:
     """``SemSegTester(cfg, model=None, device=None)``: runs on the GPU
-    unless ``device`` names another (raises without one); builds
-    ``cfg.model`` with seeded random weights when no ``model`` is given
-    (`tools.test.load_state` loads a checkpoint)."""
+    (a rank of a process group on ``cuda:<local_rank>``) unless ``device``
+    names another (raises without one); builds ``cfg.model`` with seeded
+    random weights when no ``model`` is given (`tools.test.load_state`
+    loads a checkpoint). ``num_devices`` > 1 needs a process group of that
+    size."""
 
     def __init__(self, cfg, model: Optional[torch.nn.Module] = None,
                  device: Optional[Union[str, torch.device]] = None,
                  verbose: bool = True):
         self.cfg = cfg
-        self.device = resolve_device(device)
-        self.logger = get_root_logger(name="cdsegnet_torch.test")
+        num_devices = cfg.get("num_devices") or dist.world_size()
+        if num_devices != dist.world_size():
+            if not dist.is_initialized():
+                raise RuntimeError(
+                    f"num_devices={num_devices}: testing on more than one GPU needs a "
+                    "process group (tools/test.py --num-gpus, or torchrun)")
+            raise ValueError(f"num_devices={num_devices} in a process group of "
+                             f"{dist.world_size()}")
+        self.device = (dist.rank_device(device) if dist.is_initialized()
+                       else resolve_device(device))
+        self.logger = get_root_logger(name="cdsegnet_torch.test", rank=dist.rank())
         self.verbose = verbose
         self.inference_mode = cfg.get("inference_mode", "SSI")
         self.inference_step = cfg.get("inference_step", 1)
         if self.inference_mode not in ("SSI", "MSAI", "MSFI"):
             raise ValueError(f"inference_mode={self.inference_mode!r}: "
                              "'SSI', 'MSAI' or 'MSFI'")
-        if (cfg.get("num_devices") or 1) > 1:
-            raise NotImplementedError(
-                "num_devices > 1: fragment-parallel inference over several "
-                'GPUs is not ported (ROADMAP Queue 1: "Microbatches and more '
-                'than one device")')
         if cfg.get("model_kwargs"):
             raise NotImplementedError(
                 "model_kwargs: models other than CNFSegmentor and "
@@ -105,32 +123,39 @@ class SemSegTester:
         self.generator = torch.Generator(self.device).manual_seed(self.seed)
 
     def _prepare_fragment(self, frag: Dict, index: int, noise_fn: Optional[NoiseFn],
-                          feat_noise_fn: Optional[FeatNoiseFn] = None
-                          ) -> Tuple[int, PointBatch, torch.Tensor]:
+                          feat_noise_fn: Optional[FeatNoiseFn] = None,
+                          collate: bool = True
+                          ) -> Tuple[int, Optional[PointBatch], torch.Tensor]:
         """Collate one fragment into its bucket on the device, perturb its
         features when ``noise_level`` is set, and draw its c-branch noise;
-        ``feat_noise_fn`` and ``noise_fn`` replace the two draws."""
+        ``feat_noise_fn`` and ``noise_fn`` replace the two draws. Without
+        ``collate`` only the draws are made (another rank forwards it) and
+        the point is None."""
         n_frag = frag["coord"].shape[0]
         bucket = pick_bucket(n_frag, self.buckets)
-        batch = collate_scenes([frag], bucket, 1)
+        feat_shape = (bucket, frag["feat"].shape[-1])
+        batch = collate_scenes([frag], bucket, 1) if collate else None
         if self.noise_level is not None:
             # robustness protocol: gaussian-perturbed features
-            feat = torch.as_tensor(batch["feat"], device=self.device)
             if feat_noise_fn is None:
-                draw = torch.randn(feat.shape, generator=self.generator,
+                draw = torch.randn(feat_shape, generator=self.generator,
                                    device=self.device)
-            else:
-                draw = torch.as_tensor(feat_noise_fn(index, tuple(feat.shape)),
+            elif collate:
+                draw = torch.as_tensor(feat_noise_fn(index, feat_shape),
                                        dtype=torch.float32, device=self.device)
-                if draw.shape != feat.shape:
+                if tuple(draw.shape) != feat_shape:
                     raise ValueError(f"feat_noise_fn gave shape {tuple(draw.shape)}, "
-                                     f"expected {tuple(feat.shape)}")
-            batch["feat"] = feat + self.noise_level * draw
-        point = batch_to_point(batch, self.depth, 1, self.device)
-        c_in = getattr(self.model, "c_in_channels", batch["feat"].shape[-1])
+                                     f"expected {feat_shape}")
+            if collate:
+                batch["feat"] = (torch.as_tensor(batch["feat"], device=self.device)
+                                 + self.noise_level * draw)
+        point = batch_to_point(batch, self.depth, 1, self.device) if collate else None
+        c_in = getattr(self.model, "c_in_channels", feat_shape[1])
         if noise_fn is None:
             noise = torch.randn((bucket, c_in), generator=self.generator,
                                 dtype=torch.float32, device=self.device)
+        elif not collate:
+            noise = None
         else:
             noise = torch.as_tensor(noise_fn(index, bucket, c_in),
                                     dtype=torch.float32, device=self.device)
@@ -164,20 +189,6 @@ class SemSegTester:
         logits = self.forward_fragment(point, noise)
         return torch.softmax(logits[:n_frag].float(), dim=-1)
 
-    def predict_scene(self, scene: Dict, first_index: int = 0,
-                      noise_fn: Optional[NoiseFn] = None,
-                      feat_noise_fn: Optional[FeatNoiseFn] = None) -> np.ndarray:
-        """The voted prediction of every raw point of ``scene`` (a test-mode
-        dataset item), its fragments numbered from ``first_index``."""
-        votes = torch.zeros((scene["segment"].size, self.cfg.data.num_classes),
-                            dtype=torch.float32, device=self.device)
-        for i, frag in enumerate(scene["fragment_list"]):
-            probs = self.predict_fragment(frag, first_index + i, noise_fn,
-                                          feat_noise_fn)
-            votes.index_add_(0, torch.as_tensor(frag["index"], device=self.device),
-                             probs)
-        return votes.argmax(-1).cpu().numpy()
-
     def _finalize_scene(self, ds, name: str, pred: np.ndarray,
                         segment: np.ndarray):
         """Meters + per-scene record + log + submission for one finished
@@ -197,7 +208,7 @@ class SemSegTester:
                 f"Test [{self._scene_done}/{self._scene_total}] {name}: "
                 f"scene mIoU {miou_scene:.4f}"
             )
-        if cfg.get("submission", False):
+        if cfg.get("submission", False) and dist.is_main():
             self.write_submission(ds, name, pred)
 
     def test(self, noise_fn: Optional[NoiseFn] = None,
@@ -205,33 +216,24 @@ class SemSegTester:
         """Evaluate ``cfg.data.test``; returns the mIoU and sets ``records``
         (per scene) and ``result`` (``miou``, ``macc``, ``allacc``). A
         scene whose ``result/<name>_pred.npy`` exists is read from it and
-        takes no forward."""
+        takes no forward. In a process group the fragments are forwarded
+        over the ranks, and every rank ends with the same records and
+        result."""
         cfg = self.cfg
         ds = build_dataset(dict(cfg.data.test))
         num_classes = cfg.data.num_classes
         save_dir = os.path.join(self.save_path, "result")
-        os.makedirs(save_dir, exist_ok=True)
+        if dist.is_main():
+            os.makedirs(save_dir, exist_ok=True)
+        dist.barrier()
         self._inter_sum = np.zeros(num_classes)
         self._union_sum = np.zeros(num_classes)
         self._target_sum = np.zeros(num_classes)
         self._scene_done = 0
         self._scene_total = len(ds)
         self.generator.manual_seed(self.seed)
-        np_rng = np.random.default_rng(self.seed)
         self.records = {}
-        index = 0
-        for idx in range(len(ds)):
-            scene = ds.get(idx, np_rng)
-            name = scene["name"]
-            segment = scene["segment"]
-            cache = os.path.join(save_dir, f"{name}_pred.npy")
-            if os.path.isfile(cache):
-                self._finalize_scene(ds, name, np.load(cache), segment)
-                continue
-            pred = self.predict_scene(scene, index, noise_fn, feat_noise_fn)
-            index += len(scene["fragment_list"])
-            np.save(cache, pred)
-            self._finalize_scene(ds, name, pred, segment)
+        self._test_scenes(ds, save_dir, noise_fn, feat_noise_fn)
         inter_sum, union_sum, target_sum = (
             self._inter_sum, self._union_sum, self._target_sum
         )
@@ -247,6 +249,72 @@ class SemSegTester:
             f"{self.result['macc']:.4f} allAcc {self.result['allacc']:.4f}"
         )
         return self.result["miou"]
+
+    def _test_scenes(self, ds, save_dir: str, noise_fn: Optional[NoiseFn],
+                     feat_noise_fn: Optional[FeatNoiseFn]) -> None:
+        """Every scene in turn, its fragments in order: fragment k is
+        forwarded by rank ``k % world`` (every one on a single process);
+        each group of ``world`` consecutive fragments is shared by every
+        rank and voted in fragment order. Scenes finish in order."""
+        world, rank = dist.world_size(), dist.rank()
+        np_rng = np.random.default_rng(self.seed)
+        group = []  # (scene entry, raw indices, probs or their row count)
+        scenes = []  # scene entries in order: name, segment, votes, pending, pred
+        index = 0
+        for idx in range(len(ds)):
+            scene = ds.get(idx, np_rng)
+            name = scene["name"]
+            cache = os.path.join(save_dir, f"{name}_pred.npy")
+            entry = dict(name=name, segment=scene["segment"], pred=None, pending=0)
+            scenes.append(entry)
+            if dist.broadcast_object(os.path.isfile(cache) if rank == 0 else None):
+                entry.update(pred=np.load(cache), cached=True)
+                self._finish_scenes(ds, scenes, save_dir)
+                continue
+            entry["votes"] = torch.zeros((scene["segment"].size, self.cfg.data.num_classes),
+                                         dtype=torch.float32, device=self.device)
+            entry["pending"] = len(scene["fragment_list"])
+            for frag in scene["fragment_list"]:
+                if index % world == rank:
+                    probs = self.predict_fragment(frag, index, noise_fn, feat_noise_fn)
+                else:  # another rank forwards it: only its draws
+                    probs, _, _ = self._prepare_fragment(frag, index, noise_fn,
+                                                         feat_noise_fn, collate=False)
+                group.append((entry, frag["index"], probs))
+                index += 1
+                if len(group) == world:
+                    self._vote_group(group)
+                    group = []
+                    self._finish_scenes(ds, scenes, save_dir)
+            self._finish_scenes(ds, scenes, save_dir)
+        if group:
+            self._vote_group(group)
+            self._finish_scenes(ds, scenes, save_dir)
+        assert not scenes, f"unfinished scenes: {[e['name'] for e in scenes]}"
+
+    def _vote_group(self, group) -> None:
+        """Share every fragment's probabilities of ``group`` from the rank
+        that forwarded it (the j-th from rank j), and add them into their
+        scenes' votes in fragment order."""
+        num_classes = self.cfg.data.num_classes
+        probs = [p.contiguous() if torch.is_tensor(p) else
+                 torch.empty((p, num_classes), dtype=torch.float32, device=self.device)
+                 for _, _, p in group]
+        for j, p in enumerate(probs):
+            dist.broadcast_(p, src=j)
+        for (entry, raw_index, _), p in zip(group, probs):
+            entry["votes"].index_add_(0, torch.as_tensor(raw_index, device=self.device), p)
+            entry["pending"] -= 1
+
+    def _finish_scenes(self, ds, scenes, save_dir: str) -> None:
+        """Finalize the leading scenes whose fragments are all voted."""
+        while scenes and (scenes[0]["pred"] is not None or scenes[0]["pending"] == 0):
+            e = scenes.pop(0)
+            if e["pred"] is None:
+                e["pred"] = e.pop("votes").argmax(-1).cpu().numpy()
+            if dist.is_main() and not e.get("cached"):
+                np.save(os.path.join(save_dir, f"{e['name']}_pred.npy"), e["pred"])
+            self._finalize_scene(ds, e["name"], e["pred"], e["segment"])
 
     def write_submission(self, ds, name: str, pred: np.ndarray):
         """Benchmark submission files (reference `test.py:329-370`).

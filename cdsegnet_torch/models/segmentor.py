@@ -92,11 +92,13 @@ class CNFSegmentor(nn.Module):
                                                   beta_end, T, dm_min_snr)
                          if dm else None)
 
+    def _c_from_feat(self, feat_dim: int) -> bool:
+        """Whether the c-branch's clean input is the features (their channel
+        count matches ``c_in_channels``) or else the coordinates."""
+        return feat_dim == self.c_in_channels
+
     def _c_x0(self, point: PointBatch) -> torch.Tensor:
-        # features when the channel count matches, else coordinates
-        if point.feat.shape[-1] == self.c_in_channels:
-            return point.feat
-        return point.coord
+        return point.feat if self._c_from_feat(point.feat.shape[-1]) else point.coord
 
     def _scene_t_emb(self, ts_scene: torch.Tensor, batch: torch.Tensor):
         """Broadcast per-scene step embeddings to points (pads clipped)."""
@@ -165,6 +167,22 @@ class CNFSegmentor(nn.Module):
                    n_target=point.segment, seg_valid=seg_valid)
         return out
 
+    def _ssi_from_noise(self) -> bool:
+        return self.condition and self.dm and self.dm_input == "xt"
+
+    def draw_ssi_noise(self, num_points: int, feat_dim: int,
+                       generator: Optional[torch.Generator] = None,
+                       device=None) -> Optional[torch.Tensor]:
+        """The c-branch noise that SSI starts from, for a bucket of
+        ``num_points`` slots with ``feat_dim`` feature channels: N(0, 1) of
+        `_c_x0`'s shape from ``generator`` on ``device``, or None (nothing
+        drawn) when SSI feeds no noise. `inference` draws through it, and so
+        does the evaluator for the scenes another rank forwards."""
+        if not self._ssi_from_noise():
+            return None
+        shape = (num_points, feat_dim if self._c_from_feat(feat_dim) else 3)
+        return torch.randn(shape, generator=generator, dtype=torch.float32, device=device)
+
     @torch.no_grad()
     def inference(self, point: PointBatch, noise: Optional[torch.Tensor] = None,
                   geometry=None,
@@ -179,11 +197,9 @@ class CNFSegmentor(nn.Module):
         c_x0 = self._c_x0(point)
         t = 0
         c_feat = c_x0
-        if self.dm and self.dm_input == "xt":
-            if noise is None:
-                noise = torch.randn(c_x0.shape, generator=generator,
-                                    dtype=torch.float32, device=c_x0.device)
-            c_feat = noise
+        if self._ssi_from_noise():
+            c_feat = noise if noise is not None else self.draw_ssi_noise(
+                *point.feat.shape, generator=generator, device=c_x0.device)
             t = self.T - 1
         ts_scene = torch.full((point.num_scenes,), t, dtype=torch.int32,
                               device=c_x0.device)

@@ -2,13 +2,15 @@
 
 Usage, from the root of a checkout::
 
-    python -m cdsegnet_torch.tools.profile_train --out DIR [--trainer]
+    python -m cdsegnet_torch.tools.profile_train --out DIR [--trainer | --microbatch M]
 
 Without ``--trainer``: builds the model, criteria and optimizer of
 `configs/scannet/cdsegnet.py` (random weights from a seed) as `chip_smoke.py`
 trains them, on the config's synthetic bucket (2 scenes, 204,800 slots,
-serialization depth 12), then reports for one training step (forward, GLS
-loss, backward, AdamW):
+serialization depth 12; with ``--microbatch 2`` two micro buckets of
+102,400 slots, one scene each, trained in turn as `chip_smoke.py` phase 13
+does), then reports for one training step (forward, GLS loss, backward,
+AdamW):
 
 - the host-clock step time (median of 5 after 3 warm-ups, each ending in a
   synchronize) and the peak device memory;
@@ -33,7 +35,8 @@ then profiles the trainer's validation SSI on the val room (seed 0) in the
 warm-ups, `torch.profiler` over 2 calls).
 
 The kernel tables and the host operators by self CPU time go to
-``<out>/profile_train.txt`` (or ``profile_trainer.txt`` and
+``<out>/profile_train.txt`` (``profile_train_micro<M>.txt`` with
+``--microbatch``; ``profile_trainer.txt`` and
 ``profile_eval.txt``); the code is `profile_ssi`'s.
 """
 
@@ -70,6 +73,8 @@ def main() -> None:
                     help="profile the trainer's epoch and validation SSI")
     ap.add_argument("--rooms", type=int, default=ROOMS,
                     help="--trainer: synthetic train rooms (two per iteration)")
+    ap.add_argument("--microbatch", type=int, default=1,
+                    help="micro buckets per step (1 or 2, the config's values)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_train needs a CUDA device")
@@ -89,18 +94,23 @@ def main() -> None:
                           total_steps=TOTAL_STEPS,
                           param_dicts=[dict(p) for p in conf["param_dicts"]],
                           device="cuda")
-    step_fn = make_train_step(model, build_model_criteria(cfg), opt, device="cuda")
-    point = synthetic_point_batch(conf["bucket_num_points"], conf["scenes_per_device"],
-                                  depth=depth, seed=0, device="cuda")
-    step = lambda: step_fn(point)
+    m = args.microbatch
+    step_fn = make_train_step(model, build_model_criteria(cfg), opt, device="cuda",
+                              microbatch=m)
+    points = [synthetic_point_batch(conf["bucket_num_points"] // m,
+                                    conf["scenes_per_device"] // m, depth=depth, seed=s,
+                                    device="cuda") for s in range(m)]
+    step = lambda: step_fn(points[0] if m == 1 else points)
 
     torch.cuda.reset_peak_memory_stats()
-    res = dict(card=card_name(), slots=point.num_points,
-               n_valid=int(point.mask.sum().item()), step_ms=host_ms(step, 3, 5))
+    res = dict(card=card_name(), microbatch=m, slots=sum(p.num_points for p in points),
+               n_valid=sum(int(p.mask.sum().item()) for p in points),
+               step_ms=host_ms(step, 3, 5))
     res.update(peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
                points_per_s=res["n_valid"] / (res["step_ms"] / 1e3))
     print("train " + json.dumps(res), flush=True)
-    profile_steps(step, 2, res, os.path.join(args.out, "profile_train.txt"))
+    name = "profile_train.txt" if m == 1 else f"profile_train_micro{m}.txt"
+    profile_steps(step, 2, res, os.path.join(args.out, name))
 
 
 def profile_trainer(out: str, rooms: int) -> None:

@@ -3,15 +3,19 @@
 Usage:
     python -m cdsegnet_torch.tools.test --config-file configs/scannet/cdsegnet.py \
         --checkpoint model_best [--options data.test.data_root=... ...] \
-        [--device cpu]
+        [--num-gpus N] [--device cpu]
 
 Counterpart of `tools/test.py`. ``--checkpoint`` names a checkpoint written
 by the port's `engine.checkpoint.CheckpointManager` under
-``<save_path>/model`` (an absolute path works too); orbax checkpoints of the
-JAX package are not read. It runs on the GPU unless ``--device`` names
+``<save_path>/model`` (an absolute path works too); an orbax checkpoint of
+the JAX package is read after `convert_jax_checkpoint.py` (repository root)
+has written it in that format. It runs on the GPU unless ``--device`` names
 another device, and raises when there is no GPU and none is named.
+``--num-gpus N`` (or ``num_devices`` in the config) tests fragment-parallel
+on N ranks spawned by `parallel.dist.launch`, as `tools/train.py` trains;
+under ``torchrun`` each process joins the group the environment describes.
 `main(argv)` takes the arguments as a list and returns the tester after its
-run. The inference rule is a config option: ``--options inference_mode=MSAI
+run, or None when it spawned the ranks. The inference rule is a config option: ``--options inference_mode=MSAI
 inference_step=5`` (or ``MSFI``) runs the DDIM loop per fragment in place of
 single-step inference.
 """
@@ -20,6 +24,7 @@ from __future__ import annotations
 
 import argparse
 import os
+import sys
 from typing import List, Optional, Union
 
 import torch
@@ -28,6 +33,7 @@ from cdsegnet_torch.engine.checkpoint import CheckpointManager
 from cdsegnet_torch.engine.config import Config, parse_options
 from cdsegnet_torch.engine.test import TESTERS
 from cdsegnet_torch.models.builder import build_model
+from cdsegnet_torch.parallel import dist
 from cdsegnet_torch.utils.device import resolve_device
 
 
@@ -63,19 +69,42 @@ def main(argv: Optional[List[str]] = None):
     ap.add_argument("--config-file", required=True)
     ap.add_argument("--checkpoint", default="model_best")
     ap.add_argument("--options", nargs="*", default=None)
+    ap.add_argument("--num-gpus", type=int, default=None,
+                    help="ranks to test on (default: the config's num_devices, or 1)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the GPU)")
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = ap.parse_args(argv)
     cfg = Config.fromfile(args.config_file)
     cfg.merge_from_dict(parse_options(args.options))
-    device = resolve_device(args.device)
-    model = load_state(cfg, args.checkpoint, device)
-    tester = TESTERS.build(
-        dict(cfg.get("test", dict(type="SemSegTester"))),
-        cfg=cfg, model=model, device=device,
-    )
-    tester.test()
-    return tester
+    backend = cfg.get("dist_backend")
+    torchrun = dist.init_from_env(args.device, backend)
+    try:
+        if dist.is_initialized():
+            cfg.num_devices = dist.world_size()
+            device = dist.rank_device(args.device)
+        else:
+            cfg.num_devices = args.num_gpus or cfg.get("num_devices") or 1
+            device = resolve_device(args.device)
+            if cfg.num_devices > 1:
+                dist.launch(rank_main, cfg.num_devices, args=(argv,), backend=backend,
+                            device=args.device)
+                return None
+        model = load_state(cfg, args.checkpoint, device)
+        tester = TESTERS.build(
+            dict(cfg.get("test", dict(type="SemSegTester"))),
+            cfg=cfg, model=model, device=device,
+        )
+        tester.test()
+        return tester
+    finally:
+        if torchrun:
+            dist.destroy()
+
+
+def rank_main(argv: Optional[List[str]]) -> None:
+    """One spawned rank: `main` inside the process group `launch` built."""
+    main(argv)
 
 
 if __name__ == "__main__":

@@ -8,6 +8,8 @@ or unrolled (``<stage>_blocks/block`` with a leading depth axis, or
 ``<stage>_block{i}``) and fused or unfused (``enc_dual*``/``dec_dual*``
 blocks). Flax ``Dense`` kernels ``(in, out)`` become ``nn.Linear`` weights
 ``(out, in)``; conv weights keep ``(K, C_in, C_out)``. Loading is strict.
+`load_jax_train_state` does the same from a JAX ``TrainState`` as orbax
+restores it without a target (`convert_jax_checkpoint.py`).
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ from __future__ import annotations
 import math
 import re
 from collections.abc import Mapping
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -122,13 +124,16 @@ def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...
     return out
 
 
-def load_jax_variables(module: nn.Module, tree: Mapping) -> None:
+def load_jax_variables(module: nn.Module, tree: Mapping,
+                       keep: Sequence[str] = ()) -> List[str]:
     """Fill ``module`` (a port segmentor or backbone) from the JAX variables
     ``{"params": ..., "batch_stats": ...}`` of the same model.
 
     Strict: every leaf maps to exactly one port parameter or buffer of the
-    same shape, and every port parameter and buffer is filled; otherwise it
-    raises ``ValueError`` and leaves ``module`` unchanged.
+    same shape, and every port parameter and buffer but those named in
+    ``keep`` is filled; otherwise it raises ``ValueError`` and leaves
+    ``module`` unchanged. Returns the names in ``keep`` that the tree did
+    not fill (they keep their values).
     """
     from cdsegnet_torch.models.ptv3 import PointTransformerV3
 
@@ -159,12 +164,42 @@ def load_jax_variables(module: nn.Module, tree: Mapping) -> None:
                 raise ValueError(f"{name}: shape {arr.shape} != "
                                  f"{tuple(targets[name].shape)}")
             values[name] = torch.from_numpy(np.ascontiguousarray(arr))
-    missing = sorted(set(targets) - set(values))
+    missing = sorted(set(targets) - set(values) - set(keep))
     if missing:
         raise ValueError(f"not filled from the JAX tree: {missing}")
     with torch.no_grad():
         for name, val in values.items():
             targets[name].copy_(val)
+    return sorted(set(keep) - set(values))
+
+
+# the timestep MLP and each c-block's projection of its embedding
+_T_MLP = re.compile(r"backbone\.(fc_t[12]|[^.]+_block\d+\.t_mlp)\.")
+
+
+def load_jax_train_state(module: nn.Module, raw: Mapping) -> Tuple[int, List[str]]:
+    """Fill ``module`` from a JAX ``TrainState`` tree (``params``,
+    ``batch_stats``, ``step``; the optimizer state is not read) and return
+    ``(step, kept)``.
+
+    Strict as `load_jax_variables`, with one exception: a Baseline
+    (`CNFSegmentor` with ``dm=False``) trained by JAX has no timestep MLP
+    (``fc_t1``, ``fc_t2``) and no c-block ``t_mlp``, because JAX initialises
+    through the training forward, which embeds no timestep when ``dm=False``
+    (ROADMAP Queue 3). Those tensors of the port then keep the values
+    ``module`` holds (the port's seeded initializer when `build_model` made
+    it); their names are returned in ``kept``. Only SSI reads them, at
+    t = 0; no training step does.
+    """
+    from cdsegnet_torch.models.segmentor import CNFSegmentor
+
+    keep: List[str] = []
+    if isinstance(module, CNFSegmentor) and not module.dm:
+        keep = [n for n, _ in module.named_parameters() if _T_MLP.match(n)]
+    kept = load_jax_variables(module, dict(params=raw["params"],
+                                           batch_stats=raw.get("batch_stats", {})),
+                              keep=keep)
+    return int(np.asarray(raw["step"])), kept
 
 
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:

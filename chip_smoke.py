@@ -33,9 +33,9 @@ Phases, each fatal on failure:
    validity, g zero on invalid rows), in bf16 and f32, timed beside their
    bounds, the plain version and `scaled_dot_product_attention`; then
    boundary layouts (scenes and patches that cut the kernels' tiles at odd
-   offsets, padding rows, D = 32), and the nuScenes training batch's shapes
-   (bf16 timed, f32 checked); every forward and backward run twice,
-   bit-equal;
+   offsets, padding rows, D = 32), the nuScenes training batch's shapes and
+   phase 13's micro bucket (102,400 slots, one scene) (bf16 timed, f32
+   checked); every forward and backward run twice, bit-equal;
 6. train: the CNF training step of the same config at its bucket (2 scenes,
    204,800 slots, serialization depth 12; bf16, shuffled curves, drop_path
    0.3, MSE subsampling, GLS, AdamW + OneCycle with the "block" group):
@@ -95,9 +95,30 @@ Phases, each fatal on failure:
 12. ddim: MSAI (``inference_step=5``) through the tester CLI on phase 8's
    room with its first augmentation: 6 forwards of 36 launches per fragment,
    no plain attention; MSFI on one fragment; that fragment's MSAI logits
-   through the kernel against the plain route (`TOL_DDIM`).
+   through the kernel against the plain route (`TOL_DDIM`);
+13. micro: the training step of phase 6's config with ``microbatch=2``
+   through `make_train_step`: two micro buckets of 102,400 slots, one
+   synthetic scene each (3 warm-ups, 5 timed steps): 72 + 72 + 72 launches
+   per step, no plain attention, finite losses; step ms and the peak memory
+   beside phase 6's at microbatch 1;
+14. ranks: process groups on this one card. (a) Two gloo ranks, both on
+   cuda:0, spawned by `parallel.dist.launch`, train the config at full width
+   through the training CLI (`num_devices=2`, ``microbatch=2``, 2 epochs of 2
+   steps on phase 9's rooms, phase 8's room and ``room_scene(5)`` as the val
+   set, one per rank); a second run stops after epoch 1 (a hook registered
+   in the ranks raises) and a third resumes it; PyTorch's deterministic
+   kernels on. After every step both
+   ranks' parameters and running statistics must be bit-equal; the resumed
+   run's checkpoint bit-equal to the uninterrupted one's (model, optimizer,
+   both ranks' generators); the summed val histograms equal to one
+   process's evaluation of the same weights. (b) The tester CLI on two gloo
+   ranks over phase 8's room, first augmentation: records, result and preds
+   equal to one process's, each rank forwarding fragments ``k % 2`` (32
+   launches each). (c) The same tester call on a one-rank NCCL group.
+   Times from these runs are of two processes sharing one card, not of
+   several GPUs.
 
-The last three lines are a JSON summary of the kernels, the card's name and
+Each phase prints its wall time (``phase <name> wall``). The last three lines are a JSON summary of the kernels, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``. Without a GPU, or
 outside a checkout of the repository, it exits non-zero and prints no result.
 """
@@ -118,6 +139,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 
@@ -176,6 +198,9 @@ TIME_CONFIG = "scannet/cdsegnet_time.py"
 # the timing protocol's rooms: about 200,000 raw points, and phase 8's room
 TIME_ROOMS = (dict(seed=5, cell=0.023), dict(seed=ROOM_SEED))
 TIME_BUCKETS = (262144, 524288)  # their whole-scene fragments
+MICRO_SEEDS = (0, 1)  # phase 13's two micro buckets, one scene each
+VAL_ROOM_SEED = 5  # phase 14's second val room
+RANKS_MSAI_STEPS = 2  # phase 14b's MSAI on two ranks: 3 DDIM forwards a fragment
 
 
 def fail(msg: str) -> None:
@@ -838,7 +863,7 @@ def phase_test(torch, config, cfg, tmp, n_raw, scene, n_launches, card):
                    (PointTransformerV3, "precompute_geometry", recording_drops(drops)),
                    (SemSegTester, "test", timed("test", sync=True)),
                    (datasets.DefaultDataset, "get", timed("data")),
-                   (SemSegTester, "predict_scene", timed("scene", sync=True)),
+                   (SemSegTester, "_test_scenes", timed("scene", sync=True)),
                    (SemSegTester, "predict_fragment", timed("fragments", sync=True)),
                    (SemSegTester, "forward_fragment", recording_forward(
                        torch, frags, plain_calls, lambda: dict(drops=drops[0])))]
@@ -933,8 +958,9 @@ def phase_test(torch, config, cfg, tmp, n_raw, scene, n_launches, card):
     split = dict(
         scene_s=times["test"], data_s=times["data"], forward_s=forward_s,
         fragment_prep_s=times["fragments"] - forward_s,
-        votes_argmax_s=times["scene"] - times["fragments"],
-        other_s=times["test"] - times["data"] - times["scene"],
+        # the scene loop less its data and fragments: votes, argmax, cache
+        votes_argmax_s=times["scene"] - times["data"] - times["fragments"],
+        other_s=times["test"] - times["scene"],
         ssi_ms_median=statistics.median(ssi_ms),
         ssi_ms_quartiles=statistics.quantiles(ssi_ms, n=4),
         fragments=n_frag, raw_points=n_raw,
@@ -1655,6 +1681,417 @@ def phase_ddim(torch, config, cfg, tmp, ckpt, n_launches, card):
     return dict(msai, msfi=msfi, route_gap=gap, per_fragment=per, card=card)
 
 
+def phase_micro(torch, conf, cfg, micros, n_launches, peak_mb1, card):
+    """Phase 13: the flagship training step with ``microbatch=2`` through
+    `make_train_step`: two micro buckets of ``n_train / 2`` slots, one scene
+    each, trained in turn (3 warm-ups, then 5 timed steps). Every step must
+    launch each kernel twice per attention block, no plain attention; the
+    loss finite, no point dropped. Prints the step time and the peak memory
+    beside phase 6's at microbatch 1 (``peak_mb1``)."""
+    from cdsegnet_torch.engine.state import make_train_step
+    from cdsegnet_torch.ops import flash_attention as fa
+
+    start = time.perf_counter()
+    torch.cuda.empty_cache()
+    model, criteria, opt = train_setup(torch, conf, cfg)
+    step = make_train_step(model, criteria, opt, seed=0, device="cuda", microbatch=2)
+    plain_calls = [0]
+    want = 2 * n_launches
+    torch.cuda.reset_peak_memory_stats()
+    times, losses, per_step = [], [], []
+    with patched((fa, "patch_attention", counting_plain(plain_calls))):
+        for i in range(8):  # 3 warm-ups, then 5 timed steps
+            fa.reset_launch_counts()
+            plain_calls[0] = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = step(micros)
+            torch.cuda.synchronize()
+            if i >= 3:
+                times.append(time.perf_counter() - t0)
+            losses.append(m["loss"].item())
+            per_step.append(dict(fwd=fa.patch_attention_fwd.launches,
+                                 fwd_lse=fa.patch_attention_fwd.lse_launches,
+                                 bwd_dq=fa.patch_attention_bwd_dq.launches,
+                                 bwd_dkdv=fa.patch_attention_bwd_dkdv.launches,
+                                 plain=plain_calls[0],
+                                 dropped=[int(m[f"dropped_l{k}"]) for k in range(1, 5)]))
+    n_valid = sum(int(p.mask.sum().item()) for p in micros)
+    step_ms = statistics.median(times) * 1e3
+    result = dict(step_ms=step_ms, step_ms_all=[t * 1e3 for t in times],
+                  points_per_s=n_valid / (step_ms / 1e3), n_valid=n_valid,
+                  micro_slots=[p.num_points for p in micros], launches=per_step[0],
+                  losses=losses, peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                  peak_mem_gib_microbatch1=peak_mb1,
+                  phase_s=time.perf_counter() - start, card=card)
+    print("micro " + json.dumps(result), flush=True)
+    want_step = dict(fwd=want, fwd_lse=want, bwd_dq=want, bwd_dkdv=want, plain=0,
+                     dropped=[0, 0, 0, 0])
+    if any(c != want_step for c in per_step):
+        fail(f"microbatch steps launched {per_step}, expected {want_step} each")
+    if not np.isfinite(losses).all():
+        fail(f"non-finite microbatch loss {losses}")
+    del model, opt, step
+    torch.cuda.empty_cache()
+    return result
+
+
+def _rank_setup():
+    """A spawned rank of phase 14 on the card: the same math flags as the
+    parent, deterministic kernels where PyTorch has them (an atomic
+    scatter-add may otherwise sum in another order on each run)."""
+    import torch
+
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    deterministic(torch, True)
+    return torch
+
+
+def deterministic(torch, on: bool) -> None:
+    """PyTorch's deterministic kernels on or off (warning, not failing, on an
+    operation without one); uninitialized memory is left as it is, since
+    the attention kernels write every row of their outputs."""
+    import torch.utils.deterministic
+
+    torch.use_deterministic_algorithms(on, warn_only=True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+
+
+def rank_train(argv, out_dir):
+    """Phase 14a, one rank: the training CLI (`tools/train.py`'s `main`)
+    inside the group `launch` built, with a hook that, after every step,
+    compares this rank's parameters and running statistics with rank 0's
+    (max |delta|, and bit for bit) and records the step's host-clock time
+    and launches, and each epoch's summed validation histograms; and a hook
+    that stops the run after epoch 1 where the hooks name it (each rank
+    writes its records and waits for the other before raising)."""
+    torch = _rank_setup()
+    from cdsegnet_torch.engine import hooks
+    from cdsegnet_torch.ops import flash_attention as fa
+    from cdsegnet_torch.parallel import dist
+    from cdsegnet_torch.tools import train as train_tool
+
+    records = dict(steps=[], evals=[])
+    counts = lambda: [fa.patch_attention_fwd.launches, fa.patch_attention_fwd.lse_launches,
+                      fa.patch_attention_bwd_dq.launches, fa.patch_attention_bwd_dkdv.launches]
+
+    class ChipSmokeRanks(hooks.HookBase):
+        def before_step(self):
+            torch.cuda.synchronize()
+            self.t0, self.c0 = time.perf_counter(), counts()
+
+        def after_step(self):
+            tr = self.trainer
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - self.t0) * 1e3
+            launches = [a - b for a, b in zip(counts(), self.c0)]
+            flat = torch.cat([t.detach().reshape(-1).float() for t in
+                              list(tr.model.parameters()) + list(tr.model.buffers())])
+            ref = dist.broadcast_(flat.clone(), 0)
+            records["steps"].append(dict(
+                step=tr.step, ms=ms, launches=launches, loss=tr.comm_info["metrics"]["loss"],
+                dropped=[tr.comm_info["metrics"].get(f"dropped_l{k}") for k in range(1, 5)],
+                max_abs_diff=(flat - ref).abs().max().item(), equal=torch.equal(flat, ref)))
+
+        def after_epoch(self):
+            ev = next(h for h in self.trainer.hooks if isinstance(h, hooks.SemSegEvaluator))
+            records["evals"].append(dict(epoch=self.trainer.epoch,
+                                         histograms=ev.histograms.tolist()))
+
+    def dump():
+        records.update(peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                       backend=torch.distributed.get_backend(), warnings=caught)
+        with open(os.path.join(out_dir, f"train_rank{dist.rank()}.json"), "w") as f:
+            json.dump(records, f)
+
+    class ChipSmokeStop(hooks.HookBase):
+        def after_epoch(self):
+            if self.trainer.epoch == 0:
+                dump()
+                dist.barrier()
+                raise Stopped("stopped after epoch 1")
+
+    hooks.HOOKS.register_module("ChipSmokeRanks", ChipSmokeRanks)
+    hooks.HOOKS.register_module("ChipSmokeStop", ChipSmokeStop)
+    with warnings_recorded() as caught:
+        train_tool.main(argv)
+    dump()
+
+
+def rank_test(argv, out_dir, tag):
+    """Phase 14b and 14c, one rank: the tester CLI (`tools/test.py`'s
+    `main`) inside the group `launch` built; records, launches and the
+    fragments this rank forwarded."""
+    torch = _rank_setup()
+    from cdsegnet_torch.engine.test import SemSegTester
+    from cdsegnet_torch.ops import flash_attention as fa
+    from cdsegnet_torch.parallel import dist
+    from cdsegnet_torch.tools import test as test_tool
+
+    forwarded = []
+
+    def counting(fn):
+        def run(self, point, noise):
+            forwarded.append(int(point.mask.sum().item()))
+            return fn(self, point, noise)
+        return run
+
+    fa.reset_launch_counts()
+    with patched((SemSegTester, "forward_fragment", counting)), \
+            warnings_recorded() as caught:
+        tester = test_tool.main(argv)
+    out = dict(records={n: {k: v.tolist() for k, v in r.items()}
+                        for n, r in tester.records.items()},
+               result=tester.result, launches=fa.patch_attention_fwd.launches,
+               forwarded=forwarded, backend=torch.distributed.get_backend(),
+               world=dist.world_size(), warnings=caught)
+    with open(os.path.join(out_dir, f"{tag}_rank{dist.rank()}.json"), "w") as f:
+        json.dump(out, f)
+
+
+@contextlib.contextmanager
+def warnings_recorded():
+    """The distinct warning messages raised in the block (a determinism
+    warning names an operation without a deterministic kernel), in the list
+    it yields as they come."""
+    import warnings
+
+    caught = []
+
+    def keep(message, *args, **kwargs):
+        text = str(message)[:300]
+        if text not in caught:
+            caught.append(text)
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = keep
+        yield caught
+
+
+def phase_ranks(torch, config, cfg, tmp, ckpt, n_train_launches, n_launches, card):
+    """Phase 14: the trainer and the tester on process groups, on this one
+    card. (a) two gloo ranks (both on cuda:0) train the flagship config at
+    full width with microbatch 2 through the training CLI, 2 epochs of 2
+    steps on phase 9's rooms with two val rooms (one per rank); a second run
+    stops after epoch 1 and a third resumes it: ranks bit-equal after every
+    step, the resumed run bit-equal to the uninterrupted one, the summed
+    val histograms equal to one process's evaluation of the same weights.
+    (b) the tester CLI on two gloo ranks over phase 8's room (first
+    augmentation), in SSI and in MSAI: records and preds equal to one
+    process's, each rank forwarding its share. (c) the SSI tester call on a
+    one-rank NCCL group."""
+    from cdsegnet_torch.data.datasets import build_dataset
+    from cdsegnet_torch.data.loader import EvalLoader
+    from cdsegnet_torch.engine.checkpoint import CheckpointManager
+    from cdsegnet_torch.engine.config import Config
+    from cdsegnet_torch.engine.hooks import SemSegEvaluator
+    from cdsegnet_torch.engine.state import make_eval_step
+    from cdsegnet_torch.models.builder import build_model
+    from cdsegnet_torch.ops import flash_attention as fa
+    from cdsegnet_torch.parallel import dist
+    from cdsegnet_torch.tools import test as test_tool
+    from cdsegnet_torch.utils.synthetic import room_scene
+
+    start = time.perf_counter()
+    torch.cuda.empty_cache()
+    out_dir = os.path.join(tmp, "ranks_out")
+    root = os.path.join(tmp, "ranks_data")
+    for d in (os.path.join(root, "train"), os.path.join(root, "val"), out_dir):
+        os.makedirs(d)
+    for name in sorted(os.listdir(os.path.join(tmp, "data", "train"))):
+        os.symlink(os.path.join(tmp, "data", "train", name),
+                   os.path.join(root, "train", name))
+    os.symlink(os.path.join(tmp, "data", "val", "scene0000_00.pth"),
+               os.path.join(root, "val", "scene0000_00.pth"))
+    torch.save(room_scene(VAL_ROOM_SEED), os.path.join(root, "val", "scene0001_00.pth"))
+
+    # (a) training on two gloo ranks
+    hook_cfg = [dict(type="CheckpointLoader"), dict(type="InformationWriter", log_interval=1),
+                dict(type="SemSegEvaluator"), dict(type="CheckpointSaver", save_freq=1),
+                dict(type="ChipSmokeRanks")]
+
+    def train_argv(save, *extra):
+        return ["--config-file", config, "--num-gpus", "2", "--device", "cuda:0",
+                "--options", "epoch=2", "eval_epoch=2", "save_freq_threshold=1",
+                "microbatch=2", "dist_backend=gloo", "data.train.loop=2",
+                f"save_path={save}", f"hooks={hook_cfg!r}",
+                f"data.train.data_root={root}", f"data.val.data_root={root}", *extra]
+
+    runs = {}
+    whole, resumed = os.path.join(tmp, "ranks_whole"), os.path.join(tmp, "ranks_resumed")
+    stop_cfg = hook_cfg + [dict(type="ChipSmokeStop")]
+    for name, save, extra in (("whole", whole, ()),
+                              ("stopped", resumed, (f"hooks={stop_cfg!r}",)),
+                              ("resumed", resumed, ("resume=True",))):
+        run_dir = os.path.join(out_dir, name)
+        os.makedirs(run_dir)
+        t0 = time.perf_counter()
+        stopped = False
+        try:
+            dist.launch(rank_train, 2, args=(train_argv(save, *extra), run_dir),
+                        backend="gloo", device="cuda:0", timeout=600)
+        except Exception as e:  # the deliberate stop, and nothing else
+            stopped = name == "stopped" and "stopped after epoch 1" in str(e)
+            if not stopped:
+                raise
+        if (name == "stopped") != stopped:
+            fail(f"the {name} run {'did not stop' if name == 'stopped' else 'stopped'}")
+        ranks = [json.load(open(os.path.join(run_dir, f"train_rank{r}.json")))
+                 for r in (0, 1)]
+        runs[name] = dict(wall_s=time.perf_counter() - t0, ranks=ranks,
+                          files=sorted(os.listdir(os.path.join(save, "model"))))
+        print(f"ranks train {name} " + json.dumps(dict(
+            wall_s=runs[name]["wall_s"], files=runs[name]["files"],
+            backend=[r["backend"] for r in ranks],
+            peak_mem_gib=[r["peak_mem_gib"] for r in ranks],
+            steps=[[dict(s, rank=i) for s in r["steps"]] for i, r in enumerate(ranks)],
+            warnings=ranks[0]["warnings"])), flush=True)
+    if runs["stopped"]["files"] != ["epoch_1", "model_best", "model_last"]:
+        fail(f"checkpoints after the stopped run: {runs['stopped']['files']}")
+    want = [2 * n_train_launches] * 4
+    for name, n_steps in (("whole", 4), ("stopped", 2), ("resumed", 2)):
+        for r in runs[name]["ranks"]:
+            steps = r["steps"]
+            if len(steps) != n_steps or r["backend"] != "gloo":
+                fail(f"{name}: {len(steps)} steps on backend {r['backend']}")
+            bad = [s for s in steps if s["launches"] != want or not s["equal"]
+                   or s["max_abs_diff"] != 0 or not np.isfinite(s["loss"]) or any(s["dropped"])]
+            if bad:
+                fail(f"{name}: steps with launches other than {want}, ranks that differ, "
+                     f"a non-finite loss or drops: {bad}")
+    a = CheckpointManager(os.path.join(whole, "model")).restore_raw("model_last")
+    b = CheckpointManager(os.path.join(resumed, "model")).restore_raw("model_last")
+    same = dict(
+        step=a["step"] == b["step"] == 4,
+        model=all(torch.equal(v, b["model"][k]) for k, v in a["model"].items()),
+        optimizer=a["optimizer"]["count"] == b["optimizer"]["count"] and all(
+            torch.equal(v, b["optimizer"]["opt"]["state"][i][k])
+            for i, st in a["optimizer"]["opt"]["state"].items() for k, v in st.items()),
+        generators=len(a["rank_generators"]) == 2 and all(
+            torch.equal(x[k], y[k]) for x, y in zip(a["rank_generators"], b["rank_generators"])
+            for k in x))
+    print(f"ranks resume {json.dumps(same)}", flush=True)
+    if not all(same.values()):
+        fail(f"the resumed two-rank run differs from the uninterrupted one: {same}")
+
+    # the val histograms of the last epoch against one process's evaluation
+    conf = Config.fromfile(config)
+    model = build_model(cfg, device="cuda")
+    model.load_state_dict(a["model"])
+    del a, b
+    stub = types.SimpleNamespace(
+        cfg=conf, epoch=1, seed=conf.get("seed") or 0, model=model,
+        device=torch.device("cuda"), logger=Log(), comm_info={}, storage=Storage(),
+        eval_step=make_eval_step(model, conf.serialization_depth, 1, "cuda"),
+        val_loader=EvalLoader(build_dataset(dict(conf.data.val, data_root=root)),
+                              num_points=conf.get("val_num_points", 1 << 19)))
+    evaluator = SemSegEvaluator()
+    evaluator.trainer = stub
+    deterministic(torch, True)
+    try:
+        evaluator.after_epoch()
+    finally:
+        deterministic(torch, False)
+    got = [r["evals"][-1]["histograms"] for r in runs["whole"]["ranks"]]
+    hist = dict(one_process=evaluator.histograms.tolist(), ranks=got,
+                equal=all(g == evaluator.histograms.tolist() for g in got),
+                labelled=int(evaluator.histograms[2].sum()))
+    print(f"ranks eval {json.dumps(hist)}", flush=True)
+    if not hist["equal"] or hist["labelled"] == 0:
+        fail("the two ranks' summed val histograms are not one process's")
+    del model, stub, evaluator
+    torch.cuda.empty_cache()
+
+    # (b), (c) the tester on phase 8's room, its first augmentation, in SSI
+    # and in MSAI (each rank runs the DDIM loop of its own fragments)
+    first_aug = [copy.deepcopy(conf.data.test.test_cfg.aug_transform[0])]
+    modes = dict(ssi=((), n_launches),
+                 msai=(("inference_mode=MSAI", f"inference_step={RANKS_MSAI_STEPS}"),
+                       (RANKS_MSAI_STEPS + 1) * n_train_launches))
+
+    def test_argv(save, mode):
+        return ["--config-file", config, "--checkpoint", ckpt, "--device", "cuda:0",
+                "--options", f"data.test.data_root={os.path.join(tmp, 'data')}",
+                f"save_path={save}",
+                f"data.test.test_cfg.aug_transform={json.loads(json.dumps(first_aug))!r}",
+                *modes[mode][0]]
+
+    ones = {}  # one process's run of each mode: records, result, launches
+    for mode in modes:
+        fa.reset_launch_counts()
+        deterministic(torch, True)
+        try:
+            one = test_tool.main(test_argv(os.path.join(tmp, f"ranks_one_{mode}"), mode))
+        finally:
+            deterministic(torch, False)
+        ones[mode] = dict(records={n: {k: v.tolist() for k, v in rec.items()}
+                                   for n, rec in one.records.items()},
+                          result=one.result, launches=fa.patch_attention_fwd.launches)
+        del one
+        torch.cuda.empty_cache()
+    one_launches = ones["ssi"]["launches"]
+    n_frag = one_launches // n_launches
+    if ones["msai"]["launches"] != n_frag * modes["msai"][1]:
+        fail(f"one process's MSAI ran {ones['msai']['launches']} launches, expected "
+             f"{n_frag} x {modes['msai'][1]}")
+    tests = {}
+    for tag, world, backend, mode in (("gloo2", 2, "gloo", "ssi"), ("nccl1", 1, "nccl", "ssi"),
+                                      ("msai_gloo2", 2, "gloo", "msai")):
+        t0 = time.perf_counter()
+        dist.launch(rank_test, world,
+                    args=(test_argv(os.path.join(tmp, f"ranks_{tag}"), mode), out_dir, tag),
+                    backend=backend, device="cuda:0", timeout=300)
+        ranks = [json.load(open(os.path.join(out_dir, f"{tag}_rank{r}.json")))
+                 for r in range(world)]
+        preds_equal = np.array_equal(
+            np.load(os.path.join(tmp, f"ranks_{tag}", "result", "scene0000_00_pred.npy")),
+            np.load(os.path.join(tmp, f"ranks_one_{mode}", "result", "scene0000_00_pred.npy")))
+        tests[tag] = dict(
+            wall_s=time.perf_counter() - t0, backend=[r["backend"] for r in ranks],
+            launches=[r["launches"] for r in ranks],
+            forwarded=[len(r["forwarded"]) for r in ranks],
+            records_equal=all(r["records"] == ones[mode]["records"] for r in ranks),
+            result_equal=all(r["result"] == ones[mode]["result"] for r in ranks),
+            preds_equal=preds_equal, warnings=ranks[0]["warnings"])
+        print(f"ranks test {tag} " + json.dumps(tests[tag]), flush=True)
+        share = [len(range(r, n_frag, world)) for r in range(world)]
+        t = tests[tag]
+        if (t["backend"] != [backend] * world or t["forwarded"] != share
+                or t["launches"] != [modes[mode][1] * k for k in share]
+                or not (t["records_equal"] and t["result_equal"] and preds_equal)):
+            fail(f"the {mode} tester on {world} {backend} rank(s) is not one process's "
+                 f"({n_frag} fragments, shares {share}): {t}")
+    result = dict(
+        train={k: dict(wall_s=r["wall_s"],
+                       step_ms=[[s["ms"] for s in rk["steps"]] for rk in r["ranks"]],
+                       peak_mem_gib=[rk["peak_mem_gib"] for rk in r["ranks"]])
+               for k, r in runs.items()},
+        resume=same, eval=dict(equal=hist["equal"], labelled=hist["labelled"]),
+        test=dict(fragments=n_frag, one_process_launches=one_launches,
+                  one_process_msai_launches=ones["msai"]["launches"],
+                  **{k: dict(wall_s=v["wall_s"], launches=v["launches"]) for k, v in tests.items()}),
+        phase_s=time.perf_counter() - start, card=card)
+    print("ranks " + json.dumps(result), flush=True)
+    return result
+
+
+class Log:
+    """A logger that keeps nothing (phase 14's one-process evaluation)."""
+
+    def info(self, msg):
+        pass
+
+    warning = info
+
+
+class Storage:
+    def put_scalar(self, name, value):
+        pass
+
+
 def step_sums(rows, direction):
     """bf16 sums per training step in ``direction`` over the rows' launches,
     each timed on its level's real scene ids and validity."""
@@ -1666,6 +2103,18 @@ def step_sums(rows, direction):
         ms=per_step("ms"), plain_ms=per_step("plain_ms"), bound_ms=per_step("bound_ms"),
         bound_by="operations" if per_step("ops_ms") >= per_step("bytes_ms") else "bytes",
         library_ms=per_step("library_ms"))
+
+
+class PhaseClock:
+    """Prints the wall time of each phase since the previous mark."""
+
+    def __init__(self, start: float):
+        self.last = start
+
+    def __call__(self, name: str) -> None:
+        now = time.perf_counter()
+        print(f"phase {name} wall {now - self.last:.1f} s", flush=True)
+        self.last = now
 
 
 def kernel_entry(name, source, replaces, launches, rows, direction):
@@ -1708,6 +2157,7 @@ def run_phases(torch, config: str, runtime: str, tmp: str, start: float) -> int:
 
     card = card_line()
     print(f"card {card}", flush=True)
+    clock = PhaseClock(start)
 
     took = cuda_build.build(*SOURCES)
     for name in SOURCES:
@@ -1725,6 +2175,7 @@ def run_phases(torch, config: str, runtime: str, tmp: str, start: float) -> int:
     for kernel in ("fwd_mma_kernel", "bwd_dq_mma_kernel", "bwd_dkdv_mma_kernel"):
         if not any(kernel in fn and count > 0 for fn, count in hmma.items()):
             fail(f"the bf16 {kernel} has no tensor-core instruction")
+    clock("build")
 
     from cdsegnet_torch.data.collate import collate_scenes, pick_bucket
     from cdsegnet_torch.engine.state import batch_to_point
@@ -1790,7 +2241,9 @@ def run_phases(torch, config: str, runtime: str, tmp: str, start: float) -> int:
           f"{[int(x.dropped) for x in lv[1:]]}", flush=True)
     nus_rows = phase_kernels(torch, lv, launches, patch, path="nuscenes")
     del lv
+    clock("kernels")
     ssi = phase_ssi(torch, cfg, model, point, len(launches), card)
+    clock("ssi")
     # per forward: summed over the path's launches, each timed on its
     # level's real scene ids and validity
     print("ssi kernel per forward " + json.dumps(forward_sums(rows)), flush=True)
@@ -1817,27 +2270,54 @@ def run_phases(torch, config: str, runtime: str, tmp: str, start: float) -> int:
     print(f"nuscenes train bucket: level sizes {[x.size for x in lv]}, dropped per level "
           f"{[int(x.dropped) for x in lv[1:]]}", flush=True)
     nus_train_rows = phase_train_kernels(torch, lv, train_launches, patch, path="nuscenes")
+    # phase 13's micro buckets: half the slots, one scene each
+    micros = [synthetic_point_batch(n_train // 2, n_scenes // 2, depth=depth, seed=s,
+                                    device="cuda") for s in MICRO_SEEDS]
+    micro_rows = []  # both micros' rows: a microbatch-2 step runs each once
+    for i, micro_point in enumerate(micros):
+        lv, _ = train_model.backbone.precompute_geometry(micro_point)
+        print(f"micro bucket {i}: {n_train // 2} slots, {n_scenes // 2} scene, "
+              f"{int(micro_point.mask.sum().item())} valid, level sizes "
+              f"{[x.size for x in lv]}, dropped per level "
+              f"{[int(x.dropped) for x in lv[1:]]}", flush=True)
+        micro_rows += phase_train_kernels(torch, lv, train_launches, patch,
+                                          path=f"micro{i}")
     del train_model, train_levels, lv
     torch.cuda.empty_cache()
+    clock("train kernels")
     train = phase_train(torch, conf, cfg, train_point, len(train_launches), card)
     torch.cuda.empty_cache()
+    clock("train")
     phase_train_gap(torch, conf, cfg)
     torch.cuda.empty_cache()
+    clock("train route gap")
     test = phase_test(torch, config, cfg, tmp, n_raw, test_scene, len(launches), card)
     del test_scene
     torch.cuda.empty_cache()
+    clock("test")
     train_cli = phase_train_cli(torch, config, tmp, len(train_launches), len(launches),
                                 card)
     torch.cuda.empty_cache()
+    clock("train cli")
     gap_point = synthetic_point_batch(GAP_POINTS, 1, depth=12, seed=1, device="cuda")
     variants = phase_variants(torch, point, gap_point, train_point, nus, card)
     del gap_point, train_point
     phase_nuscenes_test(torch, nus, len(launches), card)
     del nus
     torch.cuda.empty_cache()
+    clock("variants")
     ckpt = os.path.join(tmp, "exp", "model", "model_last")  # phase 8's checkpoint
     timing = phase_time(torch, config, time_root, ckpt, len(launches), card)
+    clock("time")
     ddim = phase_ddim(torch, config, cfg, tmp, ckpt, len(train_launches), card)
+    clock("ddim")
+    micro = phase_micro(torch, conf, cfg, micros, len(train_launches), train["peak_mem_gib"],
+                        card)
+    del micros
+    clock("micro")
+    ranks = phase_ranks(torch, config, cfg, tmp, ckpt, len(train_launches), len(launches),
+                        card)
+    clock("ranks")
 
     tpu = "cdsegnet_tpu/ops/pallas/flash_attention.py"
     bwd_src = f"cdsegnet_torch/csrc/{BWD_KERNEL}.cu"
@@ -1879,7 +2359,16 @@ def run_phases(torch, config: str, runtime: str, tmp: str, start: float) -> int:
                         ddim=dict(forward_sums(test_rows + cdec_rows),
                                   launches=ddim["per_fragment"],
                                   fragments=ddim["fragments"],
-                                  fragment_ms=ddim["ms_median"]))),
+                                  fragment_ms=ddim["ms_median"]),
+                        # per microbatch-2 step: times from phase 5 (each
+                        # micro bucket's rows), launches from phase 13
+                        micro=dict(step_sums(micro_rows, "fwd"),
+                                   launches=micro["launches"]["fwd"]),
+                        # per tester fragment on phase 14's ranks: times from
+                        # phase 3 (the fragment rows), launches per rank
+                        ranks=dict(forward_sums(test_rows),
+                                   launches=ranks["test"]["gloo2"]["launches"],
+                                   fragments=ranks["test"]["fragments"]))),
     ]
     for name, direction in (("patch_attention_bwd_dq", "dq"),
                             ("patch_attention_bwd_dkdv", "dkdv")):
@@ -1893,7 +2382,9 @@ def run_phases(torch, config: str, runtime: str, tmp: str, start: float) -> int:
                 train_launch_sums(nus_train_rows if v == NUSCENES else train_rows,
                                   attention_launches(load_config(v).model.backbone,
                                                      c_decoder=True), direction),
-                launches=r["step_launches"][counted]) for v, r in variants.items()})))
+                launches=r["step_launches"][counted]) for v, r in variants.items()},
+                micro=dict(step_sums(micro_rows, direction),
+                           launches=micro["launches"][counted]))))
     print(f"wall time {time.perf_counter() - start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)

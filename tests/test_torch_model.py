@@ -303,8 +303,14 @@ def test_port_imports_no_jax():
                    "data/collate.py", "tools/test.py", "utils/registry.py",
                    "utils/logger.py", "utils/misc.py", "engine/train.py",
                    "engine/hooks.py", "engine/events.py", "data/loader.py",
-                   "utils/tbwriter.py", "tools/train.py", "tools/test_time.py"):
+                   "utils/tbwriter.py", "tools/train.py", "tools/test_time.py",
+                   "parallel/dist.py"):
         assert os.path.join(REPO, "cdsegnet_torch", module) in files, module
     bad = [(f, m) for f in files for m in _imports(f)
-           if m.split(".")[0] in FORBIDDEN]
+           if m.split(".")[0] in FORBIDDEN + ("convert_jax_checkpoint",)]
     assert not bad, bad
+    # the converter bridges the two: it imports orbax, and nothing of the
+    # JAX package
+    converter = list(_imports(os.path.join(REPO, "convert_jax_checkpoint.py")))
+    assert "orbax.checkpoint" in converter
+    assert not [m for m in converter if m.split(".")[0] == "cdsegnet_tpu"], converter

@@ -138,14 +138,15 @@ def test_semseg_tester_matches_jax(ref, tmp_path):
         return p
 
     tester.predict_fragment = record_probs
-    per_scene = []
-    predict_scene = tester.predict_scene
+    per_scene = []  # (first fragment, fragment count) of each scene, in order
+    finalize = tester._finalize_scene
 
-    def record_scene(scene, first_index=0, noise_fn=None, feat_noise_fn=None):
-        per_scene.append((first_index, len(scene["fragment_list"])))
-        return predict_scene(scene, first_index, noise_fn, feat_noise_fn)
+    def record_scene(ds, name, pred, segment):
+        first = sum(count for _, count in per_scene)
+        per_scene.append((first, len(probs) - first))
+        return finalize(ds, name, pred, segment)
 
-    tester.predict_scene = record_scene
+    tester._finalize_scene = record_scene
     calls = []
 
     def jax_noise(index, bucket, c_in):
@@ -352,7 +353,9 @@ def test_tester_and_cli_refuse_the_cpu_unless_asked(ref, tmp_path, monkeypatch):
     pytest.param(dict(inference_mode="MSFI", model=dict(
         type="DefaultSegmentor", backbone=dict(TINY_MODEL["backbone"], condition=False))),
         ValueError, id="change1"),
-    pytest.param(dict(num_devices=2), NotImplementedError, id="change2"),
+    # fragment-parallel testing is ported: num_devices=2 without a process
+    # group is refused
+    pytest.param(dict(num_devices=2), RuntimeError, id="change2"),
     pytest.param(dict(model_kwargs=dict(condition="ScanNet")), NotImplementedError,
                  id="change3")])
 def test_unported_tester_paths_raise(change, error, tmp_path):

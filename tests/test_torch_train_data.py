@@ -1,6 +1,5 @@
 """Port training data pipeline against the JAX package: the seven training
-augmentations of `configs/scannet/cdsegnet.py`, Mix3D, one-device
-collation, the ScanNet dataset in train mode with ``loop``, `TrainLoader`
+augmentations of `configs/scannet/cdsegnet.py`, Mix3D, the ScanNet dataset in train mode with ``loop``, `TrainLoader`
 over two epochs and `EvalLoader`. The same numpy seeds go into both
 packages; outputs must be equal array for array."""
 
@@ -139,14 +138,6 @@ def test_mix3d_matches_jax(n_scenes, mix_prob):
     assert merged_any == (mix_prob > 0 and n_scenes > 1)
 
 
-def test_collate_sharded_matches_jax():
-    per_device = [mix_scenes(2, 5)]
-    want = jcollate.collate_sharded(per_device, 256, 2)
-    got = tcollate.collate_sharded(per_device, 256, 2)
-    assert_same(got, want)
-    assert got["coord"].shape == (1, 256, 3)
-
-
 @pytest.fixture
 def smoke_root(tmp_path):
     root = str(tmp_path / "data")
@@ -212,9 +203,9 @@ def test_train_loader_matches_jax_over_two_epochs(smoke_root, jax_numpy_host_ops
         got = list(tl.epoch(epoch))
         assert len(got) == len(want) == 4
         for g, w in zip(got, want):
-            assert_same(g, w)
-            assert g["coord"].shape == (1, 300, 3)
-            mixed += int((g["batch"][0][g["mask"][0]] == 0).all())
+            assert_same(g, {k: v[0] for k, v in w.items()})  # JAX's device axis
+            assert g["coord"].shape == (300, 3)
+            mixed += int((g["batch"][g["mask"]] == 0).all())
             n_batches += 1
     assert n_batches == 8 and 0 < mixed < 8  # some batches were merged by Mix3D
     # the loader drops the last incomplete batch, as JAX's does
@@ -263,10 +254,15 @@ def test_eval_loader_matches_jax(smoke_root, jax_numpy_host_ops):
         assert gb["coord"].shape == (512, 3)
 
 
-@pytest.mark.parametrize("kwargs", [dict(num_devices=2), dict(microbatch=2),
-                                    dict(pair_feat_keys=("color", "normal"))])
-def test_unported_loader_options_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+@pytest.mark.parametrize("kwargs,error,match", [
+    # ranks and micro buckets are ported: a rank outside the devices, or a
+    # microbatch that does not divide the scenes, is refused
+    pytest.param(dict(num_devices=2, rank=2), ValueError, "rank 2", id="kwargs0"),
+    pytest.param(dict(microbatch=3), ValueError, "must divide", id="kwargs1"),
+    pytest.param(dict(pair_feat_keys=("color", "normal")), NotImplementedError,
+                 "ROADMAP", id="kwargs2")])
+def test_unported_loader_options_raise(kwargs, error, match):
+    with pytest.raises(error, match=match):
         tloader.TrainLoader([], **kwargs)
 
 

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from cdsegnet_torch.engine.checkpoint import snapshot
+from cdsegnet_torch.engine.state import rank_seed
 from cdsegnet_torch.engine.test import NoiseFn, SemSegTester
 from cdsegnet_torch.parallel import dist
 from cdsegnet_torch.utils.misc import AverageMeter, intersection_and_union_torch
@@ -150,7 +151,10 @@ class SemSegEvaluator(HookBase):
     trainer's `EvalLoader` bucket), the argmax and the intersection/union
     histograms on the device, one host copy at the end. The c-branch noise
     of scene i is drawn from a device generator seeded with ``seed +
-    epoch``, or taken from ``noise_fn(i, bucket, c_in)``.
+    epoch``, or taken from ``noise_fn(i, bucket, c_in)``. A model without
+    `CNFSegmentor.draw_ssi_noise` (an ablation segmentor) draws its own SSI
+    start, from a generator seeded for scene i from ``(seed + epoch, i)``,
+    so that its draws do not depend on which rank evaluates the scene.
 
     Over several ranks, rank ``i % world`` evaluates scene i, and the integer
     histograms are summed over the ranks: the result equals one rank's.
@@ -192,7 +196,11 @@ class SemSegEvaluator(HookBase):
                 noise = draw_noise(bucket, feat_dim, gen, tr.device)
             if not mine:
                 continue
-            out = tr.eval_step(batch, generator=gen, noise=noise)
+            g = gen
+            if draw_noise is None and self.noise_fn is None:
+                g = torch.Generator(tr.device).manual_seed(
+                    rank_seed(tr.seed + tr.epoch, index + 1))
+            out = tr.eval_step(batch, generator=g, noise=noise)
             sums += torch.stack(intersection_and_union_torch(
                 out["seg_logits"].argmax(-1), dev(batch["segment"]), num_classes,
                 dev(batch["mask"])))

@@ -9,8 +9,10 @@ schedules). The model and the optimizer hold the state that JAX's
 ``TrainState`` carries (the parameters and running statistics; the moments
 and the update count). Three generators per rank, seeded once, take the
 place of the step's rng split, into which JAX folds the device index:
-dropout and diffusion on the device, shuffle on the CPU. The evaluation
-step is SSI in eval mode (`CNFSegmentor.inference`), or the plain forward's
+dropout and diffusion on the device, shuffle on the CPU. Both steps are
+generic over the model's output dict (the CNF and ablation segmentors, plain
+PTv3). The evaluation step is SSI in eval mode (the model's ``inference``:
+`CNFSegmentor`'s or an ablation segmentor's), or the plain forward's
 logits. `batch_to_point` turns a collated numpy batch into a `PointBatch`.
 """
 
@@ -143,7 +145,8 @@ def make_eval_step(model: torch.nn.Module, depth: int, num_scenes: int,
     """The step ``step(batch, generator=None, noise=None) -> dict(seg_logits)``
     on ``device`` (the GPU unless the caller names another; raises without
     one): a collated batch through SSI in eval mode, without gradients. A
-    `CNFSegmentor` draws its c-branch noise from ``generator`` unless
+    model with an ``inference`` method (`CNFSegmentor`, the ablation
+    segmentors) runs it, drawing its noise from ``generator`` unless
     ``noise`` is given; other models evaluate through the plain forward and
     give its ``n_pred`` as ``seg_logits``."""
     device = resolve_device(device)

@@ -37,9 +37,16 @@ the submission files. Every mode is grouped so: a DDIM fragment draws
 nothing past its initial state, so MSAI and MSFI split over the ranks as
 SSI does (JAX runs them on one device).
 
-Not ported, each raising `NotImplementedError`: ``model_kwargs`` (models
-other than `CNFSegmentor` and `PlainSegmentor`), `ClsTester` and
-`PartSegTester`.
+Models other than `CNFSegmentor` go through their plain forward in eval
+mode and give its ``seg_logits``, else ``n_pred``, as JAX's tester sends
+them. For an ablation segmentor (`models.ablation_segmentors`) that is its
+training forward in eval mode: it draws a timestep and its noise and reads
+the fragment's labels. Its draws come from a generator seeded for each
+fragment from ``(cfg.seed, fragment index)``, so that they do not depend on
+which rank forwards the fragment.
+
+Not ported, each raising `NotImplementedError`: ``model_kwargs`` (the PPT
+``condition`` of the model zoo), `ClsTester` and `PartSegTester`.
 """
 
 from __future__ import annotations
@@ -52,9 +59,9 @@ import torch
 
 from cdsegnet_torch.data.collate import collate_scenes, pick_bucket
 from cdsegnet_torch.data.datasets import build_dataset
-from cdsegnet_torch.engine.state import batch_to_point
+from cdsegnet_torch.engine.state import batch_to_point, rank_seed
 from cdsegnet_torch.models.builder import build_model
-from cdsegnet_torch.models.segmentor import CNFSegmentor, PlainSegmentor, inference_ddim
+from cdsegnet_torch.models.segmentor import CNFSegmentor, inference_ddim
 from cdsegnet_torch.models.structure import PointBatch
 from cdsegnet_torch.parallel import dist
 from cdsegnet_torch.utils.device import resolve_device
@@ -102,16 +109,10 @@ class SemSegTester:
                              "'SSI', 'MSAI' or 'MSFI'")
         if cfg.get("model_kwargs"):
             raise NotImplementedError(
-                "model_kwargs: models other than CNFSegmentor and "
-                'PlainSegmentor are not ported (ROADMAP Queue 1: "The model zoo '
-                'and the rest of the engine and data")')
+                "model_kwargs (the model zoo's PPT condition) is not ported "
+                '(ROADMAP Queue 1: "The model zoo and the rest of the engine and data")')
         self.model = (model if model is not None
                       else build_model(dict(cfg.model), device=self.device)).eval()
-        if not isinstance(self.model, (CNFSegmentor, PlainSegmentor)):
-            raise NotImplementedError(
-                f"{type(self.model).__name__}: only CNFSegmentor and "
-                'PlainSegmentor are ported (ROADMAP Queue 1: "The model zoo and '
-                'the rest of the engine and data")')
         if self.inference_mode != "SSI" and not isinstance(self.model, CNFSegmentor):
             raise ValueError(f"inference_mode={self.inference_mode!r} needs a "
                              "CNFSegmentor (DefaultSegmentorV2)")
@@ -121,6 +122,8 @@ class SemSegTester:
         self.save_path = cfg.get("save_path", "exp/default")
         self.seed = cfg.get("seed") or 0
         self.generator = torch.Generator(self.device).manual_seed(self.seed)
+        # the draws of a plain forward that draws (the ablation segmentors)
+        self.fragment_generator = torch.Generator(self.device)
 
     def _prepare_fragment(self, frag: Dict, index: int, noise_fn: Optional[NoiseFn],
                           feat_noise_fn: Optional[FeatNoiseFn] = None,
@@ -150,6 +153,8 @@ class SemSegTester:
                 batch["feat"] = (torch.as_tensor(batch["feat"], device=self.device)
                                  + self.noise_level * draw)
         point = batch_to_point(batch, self.depth, 1, self.device) if collate else None
+        if collate:
+            self.fragment_generator.manual_seed(rank_seed(self.seed, index + 1))
         c_in = getattr(self.model, "c_in_channels", feat_shape[1])
         if noise_fn is None:
             noise = torch.randn((bucket, c_in), generator=self.generator,
@@ -168,7 +173,8 @@ class SemSegTester:
     def forward_fragment(self, point: PointBatch, noise: torch.Tensor) -> torch.Tensor:
         """Logits ``(bucket, num_classes)`` of one padded fragment: its
         geometry pyramid, then one SSI forward, or the DDIM loop from
-        ``noise`` in the MSAI and MSFI modes."""
+        ``noise`` in the MSAI and MSFI modes; another model's plain forward
+        in eval mode (its draws from ``fragment_generator``)."""
         geometry = self.model.backbone.precompute_geometry(point)
         if self.inference_mode != "SSI":
             return inference_ddim(self.model, point, step=self.inference_step,
@@ -177,7 +183,9 @@ class SemSegTester:
         if isinstance(self.model, CNFSegmentor):
             return self.model.inference(point, noise=noise,
                                         geometry=geometry)["seg_logits"]
-        return self.model(point, geometry=geometry)["n_pred"]
+        out = self.model(point, geometry=geometry,
+                         generators=dict(diffusion=self.fragment_generator))
+        return out["seg_logits"] if "seg_logits" in out else out["n_pred"]
 
     def predict_fragment(self, frag: Dict, index: int,
                          noise_fn: Optional[NoiseFn] = None,

@@ -1,10 +1,11 @@
 """Config-dict factories for the ported models.
 
-Port of the `DefaultSegmentorV2`, `DefaultSegmentor` and `PT-v3m1` entries of
-`cdsegnet_tpu/models/builder.py`: reference-style config dicts (such as the
-``model`` dict of `configs/scannet/cdsegnet.py`) map to module fields with
-the same kwarg translation. `build_model_criteria` builds the losses named
-in the same dict.
+Port of the `DefaultSegmentorV2`, `DefaultSegmentor`, `PT-v3m1` and NCF
+ablation entries of `cdsegnet_tpu/models/builder.py`: reference-style config
+dicts (such as the ``model`` dict of `configs/scannet/cdsegnet.py`) map to
+module fields with the same kwarg translation. `build_model_criteria`
+builds the losses named in the same dict. The model zoo's types are not
+ported: `MODELS` raises `NotImplementedError` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -13,10 +14,12 @@ from typing import Any, Dict, Optional, Union
 
 import torch
 
+from cdsegnet_torch.models.ablation_segmentors import ABLATIONS
 from cdsegnet_torch.models.losses import Criteria, build_criteria
 from cdsegnet_torch.models.ptv3 import PointTransformerV3
 from cdsegnet_torch.models.segmentor import CNFSegmentor, PlainSegmentor
 from cdsegnet_torch.utils.device import resolve_device
+from cdsegnet_torch.utils.registry import Registry
 from cdsegnet_torch.utils.weights import init_weights
 
 _ORDER_ALIASES = {"z_trans": "z-trans", "hilbert_trans": "hilbert-trans"}
@@ -31,6 +34,11 @@ _SEGMENTOR_KEYS = {
     "num_classes", "T", "beta_start", "beta_end", "noise_schedule", "dm",
     "dm_input", "dm_target", "dm_min_snr", "condition", "c_in_channels",
 }
+_ABLATIONS = {cls.__name__: cls for cls in ABLATIONS}
+# the types of the JAX package's registry that the port does not build yet
+MODELS = Registry("models")
+MODELS.register_unported(("DefaultClassifier",),
+                         "The model zoo and the rest of the engine and data")
 
 
 def _norm_orders(order):
@@ -85,6 +93,12 @@ def _build(cfg: Dict[str, Any]) -> torch.nn.Module:
                             **kwargs)
     if kind == "DefaultSegmentor":
         return PlainSegmentor(backbone=_build(cfg.pop("backbone")))
+    if kind in _ABLATIONS:
+        backbone = _build(cfg.pop("backbone"))
+        kwargs = {k: v for k, v in cfg.items() if k in _SEGMENTOR_KEYS}
+        return _ABLATIONS[kind](backbone=backbone, t_dim=cfg.get("T_dim", 128), **kwargs)
+    if kind in MODELS:
+        return MODELS.build(dict(cfg, type=kind))
     raise NotImplementedError(f"model type {kind!r} is not ported")
 
 

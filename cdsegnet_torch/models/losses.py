@@ -1,13 +1,13 @@
 """Masked losses and the Criteria combiner (EW / GLS).
 
 Port of the parts of `cdsegnet_tpu/models/losses.py` that the CNF training
-step uses. Every loss takes explicit validity masks instead of boolean
-indexing, as in JAX, so shapes stay static. GLS for CDSegNet is
-``loss = sqrt(MSE * (CE + Lovasz))`` with task_num=2.
+step and the ablation segmentors use. Every loss takes explicit validity
+masks instead of boolean indexing, as in JAX, so shapes stay static. GLS for
+CDSegNet is ``loss = sqrt(MSE * (CE + Lovasz))`` with task_num=2.
 
-Loss kinds no CDSegNet config uses (focal, binary focal, dice, CAC
-distillation, D3PM KL, PointGroup offsets) are not ported: `Criteria` raises
-`NotImplementedError` for them.
+Loss kinds that neither uses (focal, binary focal, dice, CAC distillation,
+PointGroup offsets) are not ported: `Criteria` raises `NotImplementedError`
+for them.
 """
 
 from __future__ import annotations
@@ -83,6 +83,17 @@ def lovasz_softmax_loss(logits: torch.Tensor, target: torch.Tensor,
     return (losses * present).sum() / torch.clamp(present.sum(), min=1.0)
 
 
+def d3pm_kl_loss(pred_q_logits: torch.Tensor, true_q_logits: torch.Tensor,
+                 valid: torch.Tensor) -> torch.Tensor:
+    """KL(q(x_{t-1} | x_t, x0) || p(x_{t-1} | x_t, x0_hat)) over valid
+    points: the D3PM posterior matching term of the discrete-diffusion
+    ablations."""
+    logp = torch.log_softmax(pred_q_logits.float(), dim=-1)
+    logq = torch.log_softmax(true_q_logits.float(), dim=-1)
+    kl = (torch.exp(logq) * (logq - logp)).sum(-1)
+    return masked_mean(kl, valid)
+
+
 def subsample_valid(valid: torch.Tensor, batch: torch.Tensor, num_scenes: int,
                     per_scene: int,
                     generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -116,7 +127,7 @@ _ALLOWED_KEYS = {
     "OffsetL1Loss": {"type", "loss_weight"},
     "OffsetCosineLoss": {"type", "loss_weight"},
 }
-_PORTED = ("MSELoss", "CrossEntropyLoss", "LovaszLoss", "SmoothCELoss")
+_PORTED = ("MSELoss", "CrossEntropyLoss", "LovaszLoss", "SmoothCELoss", "D3PMKLLoss")
 
 
 class Criteria:
@@ -164,6 +175,12 @@ class Criteria:
                 terms.append(w * cross_entropy_loss(
                     out[pk], out[cfg.get("target", "n_target")], out["seg_valid"],
                     label_smoothing=smoothing, weight=cfg.get("weight")))
+            elif kind == "D3PMKLLoss":
+                pk = cfg.get("pred", "d3pm_pred_q")
+                if pk not in out:
+                    continue
+                terms.append(w * d3pm_kl_loss(
+                    out[pk], out[cfg.get("target", "d3pm_true_q")], out["seg_valid"]))
             else:  # LovaszLoss
                 pk = cfg.get("pred", "n_pred")
                 if pk not in out:

@@ -1,4 +1,5 @@
-"""Building blocks: Dense, masked BatchNorm, LayerNorm, MLP, DropPath, SubMConv.
+"""Building blocks: Dense, masked BatchNorm, LayerNorm, MLP, dropout, DropPath,
+SubMConv.
 
 Port of `cdsegnet_tpu/models/modules.py`. Parameters are float32 and carry
 the flax names (``scale``/``bias`` for norms, ``weight`` (K, C_in, C_out)
@@ -15,7 +16,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from cdsegnet_torch.ops.subm_conv import blocked_subm_conv_apply, subm_conv_apply
+from cdsegnet_torch.ops.subm_conv import (
+    blocked_k3_conv_apply,
+    blocked_subm_conv_apply,
+    subm_conv_apply,
+)
 
 
 class Dense(nn.Linear):
@@ -90,16 +95,58 @@ class LayerNorm(nn.Module):
 
 
 class Mlp(nn.Module):
-    """Transformer FFN: fc1 -> exact GELU -> fc2."""
+    """Transformer FFN: fc1 -> exact GELU -> dropout -> fc2 -> dropout."""
 
-    def __init__(self, in_features: int, hidden: int, out: int,
+    def __init__(self, in_features: int, hidden: int, out: int, drop: float = 0.0,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.drop = drop
         self.fc1 = Dense(in_features, hidden, dtype=dtype)
         self.fc2 = Dense(hidden, out, dtype=dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(F.gelu(self.fc1(x)))
+    def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
+        det = not self.training
+        x = dropout(F.gelu(self.fc1(x)), self.drop, det, generator)
+        return dropout(self.fc2(x), self.drop, det, generator)
+
+
+class DropoutDraws:
+    """The ``"dropout"`` generator with the elementwise dropout keep masks
+    given in call order (tests feed JAX's): `dropout` takes the next mask,
+    `drop_path` still draws from ``generator``."""
+
+    def __init__(self, generator: Optional[torch.Generator], masks):
+        self.generator = generator
+        self.masks = list(masks)
+
+    def next_mask(self, shape) -> torch.Tensor:
+        if not self.masks:
+            raise ValueError("more dropout calls than injected masks")
+        m = self.masks.pop(0)
+        if tuple(m.shape) != tuple(shape):
+            raise ValueError(f"injected dropout mask {tuple(m.shape)} for an input "
+                             f"of shape {tuple(shape)}")
+        return m
+
+
+def dropout(x: torch.Tensor, rate: float, deterministic: bool = True,
+            generator=None) -> torch.Tensor:
+    """flax ``nn.Dropout``: elementwise keep mask of probability ``1 -
+    rate``, kept entries divided by it; the identity when ``deterministic``
+    or at rate 0. The mask is drawn from ``generator`` (on ``x``'s device),
+    or is the next of a `DropoutDraws`."""
+    if deterministic or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    if isinstance(generator, DropoutDraws):
+        m = generator.next_mask(x.shape).to(x.device)
+    elif generator is None:
+        raise ValueError("dropout needs an explicit torch.Generator")
+    else:
+        m = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    # the keep probability rounded to x's dtype first, as in JAX
+    return torch.where(m, x / torch.tensor(keep, dtype=x.dtype),
+                       torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def drop_path(x: torch.Tensor, rate: float, deterministic: bool = True,
@@ -108,6 +155,8 @@ def drop_path(x: torch.Tensor, rate: float, deterministic: bool = True,
     rate 0. The keep mask is drawn from ``generator`` (on ``x``'s device)."""
     if deterministic or rate == 0.0:
         return x
+    if isinstance(generator, DropoutDraws):
+        generator = generator.generator
     if generator is None:
         raise ValueError("stochastic depth needs an explicit torch.Generator")
     # the keep probability in float32, rounded to x's dtype for the rescale,
@@ -131,10 +180,10 @@ def conv_weight(kernel_volume: int, c_in: int, c_out: int) -> nn.Parameter:
 class SubMConv(nn.Module):
     """Submanifold conv over a precomputed neighbor table.
 
-    ``stem_mode`` picks the k125 formulation: ``"gather"`` (one (N, 125)
-    row gather), ``"blocked"`` (27 block-row gathers through the stride-2
-    parity structure; exact only without overflow) or ``"cond"`` (blocked
-    when ``no_overflow``, else gather). The blocked k27 form is not ported.
+    ``stem_mode`` picks the formulation of a k125 or k27 conv: ``"gather"``
+    (one (N, K) row gather), ``"blocked"`` (27 or 8 block-row gathers through
+    the stride-2 parity structure; exact only without overflow) or
+    ``"cond"`` (blocked when ``no_overflow``, else gather).
     """
 
     def __init__(self, in_channels: int, out_channels: int, kernel_volume: int,
@@ -152,11 +201,13 @@ class SubMConv(nn.Module):
                              and self.kernel_volume in (27, 125)) else "gather"
         if mode not in ("gather", "blocked", "cond"):
             raise ValueError(f"unknown conv mode {mode!r}")
-        if mode != "gather" and self.kernel_volume == 27:
-            raise NotImplementedError("the blocked k27 xCPE is not ported")
         if mode == "gather" or (mode == "cond" and not no_overflow):
             return subm_conv_apply(f, neighbor_idx, self.weight, self.bias)
         grid_coord, pmask, parent_inverse, child_nbr = blocked_geom
+        if self.kernel_volume == 27:
+            return blocked_k3_conv_apply(
+                f, self.weight, grid_coord=grid_coord, mask=pmask,
+                parent_inverse=parent_inverse, child_nbr=child_nbr, bias=self.bias)
         out = blocked_subm_conv_apply(
             f, self.weight, grid_coord=grid_coord, mask=pmask,
             parent_inverse=parent_inverse, child_nbr=child_nbr,

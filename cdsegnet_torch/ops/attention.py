@@ -4,10 +4,14 @@ Port of `cdsegnet_tpu/ops/attention.py`. Every level keeps one flat sorted
 array, reshaped to ``(num_patches, patch_size)``; cross-scene and padding keys
 are masked out. `patch_attention` is the reference that the CUDA kernel
 (`cdsegnet_torch.ops.flash_attention`) is held against, and the route the
-port takes on the CPU.
+port takes on the CPU. With ``bias=`` (the relative-position bias of
+``enable_rpe``) it is the only route on any device, as in JAX, where the
+biased attention is XLA and never the Pallas kernel.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -29,6 +33,7 @@ def patch_attention(
     patch_size: int,
     scale: float,
     upcast_softmax: bool = True,
+    bias: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Masked patch attention over serialized order.
 
@@ -40,6 +45,8 @@ def patch_attention(
       patch_size: window size K; N must be a multiple of K.
       scale: softmax scale (usually D**-0.5).
       upcast_softmax: compute logits and softmax in float32.
+      bias: optional (P, H, K, K) additive logit bias, added in the logits'
+        dtype after the scale.
 
     Returns:
       (N, H, D) attention output in serialized order, dtype of ``v``.
@@ -55,6 +62,8 @@ def patch_attention(
     mp = valid_sorted.reshape(p, patch_size)
 
     logits = _logits(qp, kp, scale, upcast_softmax)
+    if bias is not None:
+        logits = logits + bias.to(logits.dtype)
     allowed = (bp[:, :, None] == bp[:, None, :]) & mp[:, None, :]
     logits = logits.masked_fill(~allowed[:, None], NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(v.dtype)

@@ -8,8 +8,10 @@ features, so no index ever falls outside the gathered tensor.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
+import numpy as np
 import torch
 
 from cdsegnet_torch.models.structure import _parity_bits, _parity_select_tables
@@ -192,3 +194,72 @@ def blocked_stem_apply(
         parent_inverse=parent_inverse, child_nbr=child_nbr,
     )
     return out[:, :coa], out[:, coa:]
+
+
+@functools.lru_cache(maxsize=None)
+def _blocked_k3_tables():
+    """Static tables of the k3 blocked form: ``cols8[g]``, the 8 of the
+    child k3 row's 27 columns that are the parity-relevant octant of parity
+    class g (per axis the offsets {pb-1, pb}: a point's 27 taps lie in those
+    clusters); ``sel[g, k]``, the flat (local cluster * 8 + parity) slot of
+    tap k for parity class g (injective per g)."""
+    offs = [(x, y, z) for x in (-1, 0, 1) for y in (-1, 0, 1) for z in (-1, 0, 1)]
+    cols8 = np.zeros((8, 8), np.int64)
+    sel = np.zeros((8, 27), np.int64)
+    for g in range(8):
+        pb = ((g >> 2) & 1, (g >> 1) & 1, g & 1)
+        for loc in range(8):
+            b = ((loc >> 2) & 1, (loc >> 1) & 1, loc & 1)
+            e = [pb[a] - 1 + b[a] for a in range(3)]
+            cols8[g, loc] = ((e[0] + 1) * 3 + (e[1] + 1)) * 3 + (e[2] + 1)
+        for k, d in enumerate(offs):
+            e = [(pb[a] + d[a]) // 2 for a in range(3)]
+            r = [(pb[a] + d[a]) % 2 for a in range(3)]
+            b = [e[a] - (pb[a] - 1) for a in range(3)]
+            loc = (b[0] << 2) | (b[1] << 1) | b[2]
+            sel[g, k] = loc * 8 + ((r[0] << 2) | (r[1] << 1) | r[2])
+    return cols8, sel
+
+
+def blocked_k3_conv_apply(
+    feat: torch.Tensor,
+    weight: torch.Tensor,
+    *,
+    grid_coord: torch.Tensor,
+    mask: torch.Tensor,
+    parent_inverse: torch.Tensor,
+    child_nbr: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """k3 (27-tap) submanifold conv via the stride-2 parity structure: 8
+    block-row gathers of 8C channels per point instead of 27 row gathers,
+    and one parity-scattered (64C, 8 C_out) matmul (the k3 form of
+    `blocked_subm_conv_apply`; the xCPE of ``xcpe_mode`` "blocked" and
+    "cond"). Exact under the same preconditions: no pooled-level overflow.
+
+    Args:
+      feat: (N, C); weight: (27, C, C_out) in `kernel_offsets(3)` order.
+      grid_coord/mask: this level's voxels (level L).
+      parent_inverse: (N,) level-L point -> level-(L+1) cluster slot.
+      child_nbr: (M, 27) the level-(L+1) k3 table (missing = M).
+    Returns: (N, C_out) in ``feat.dtype``.
+    """
+    cols8_np, sel_np = _blocked_k3_tables()
+    cols8 = torch.as_tensor(cols8_np, device=feat.device)
+    sel = torch.as_tensor(sel_np, device=feat.device)
+    c, co = feat.shape[1], weight.shape[2]
+    m = child_nbr.shape[0]
+
+    pb = _parity_bits(grid_coord).long()
+    row = torch.where(mask & (parent_inverse < m - 1), parent_inverse.long(), m)
+    nbr27 = child_nbr[row.clamp(max=m - 1)].long()
+    nbr27 = torch.where((row < m)[:, None], nbr27, m)  # (N, 27)
+    # each point's parity-relevant octant of its cluster's k3 row
+    nbr8 = torch.gather(nbr27, 1, cols8[pb])
+
+    g_idx = torch.arange(8, device=feat.device).repeat_interleave(27)
+    k_idx = torch.arange(27, device=feat.device).repeat(8)
+    w_all = feat.new_zeros((64, c, 8, co))
+    w_all[sel.reshape(-1), :, g_idx, :] = weight.to(feat.dtype)[k_idx]
+    out = _blocked_stem(feat, pb, row, nbr8, w_all.reshape(64 * c, 8 * co), m)
+    return out if bias is None else out + bias.to(out.dtype)

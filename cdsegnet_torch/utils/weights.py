@@ -206,14 +206,23 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     """Draw weights from the same families as the flax initializers:
     ``lecun_normal`` for Dense kernels and zeros for biases;
     ``variance_scaling(1, fan_in, uniform)`` for (K, C_in, C_out) conv
-    weights; ones and zeros for norms; running mean 0 and variance 1."""
+    weights and the Restomer's depthwise (3, 1, C) ones; ones and zeros for
+    norms; a truncated normal of std 0.02 for the RPE table; ones for the
+    Restomer's temperature; ones (0.5 for the ``b_`` gates) for a transfer
+    gate's ``feat_scale``; running mean 0 and variance 1."""
     from cdsegnet_torch.models.modules import Dense, LayerNorm, MaskedBatchNorm
 
     with torch.no_grad():
         for name, p in module.named_parameters():
             owner = module.get_submodule(name.rsplit(".", 1)[0]) if "." in name else module
             leaf = name.rsplit(".", 1)[-1]
-            if isinstance(owner, Dense) and leaf == "weight":
+            if leaf == "rpe_table":
+                nn.init.trunc_normal_(p, 0.0, 0.02, -0.04, 0.04, generator=generator)
+            elif leaf == "temperature":
+                p.fill_(1.0)
+            elif leaf == "feat_scale":
+                p.fill_(0.5 if owner.tm_feat.startswith("b_") else 1.0)
+            elif isinstance(owner, Dense) and leaf == "weight":
                 # flax lecun_normal: truncated normal at +-2 std, rescaled
                 std = math.sqrt(1.0 / p.shape[1]) / 0.87962566103423978
                 nn.init.trunc_normal_(p, 0.0, std, -2 * std, 2 * std,

@@ -116,7 +116,31 @@ Phases, each fatal on failure:
    equal to one process's, each rank forwarding fragments ``k % 2`` (32
    launches each). (c) The same tester call on a one-rank NCCL group.
    Times from these runs are of two processes sharing one card, not of
-   several GPUs.
+   several GPUs;
+15. options: three models with the rest of the PTv3 surface at the full
+   width of the ScanNet config (random weights from a seed): (a) FreeU
+   (b_factor 1.2, s_factor 0.9 at the finest decoder stage), bidirectional
+   transfer with the b_channel_scale gate, proj_drop 0.1 and the cond
+   xCPE; (b) the Restomer, the lr_scale gate and the blocked xCPE; (c) RPE
+   attention with every patch at 128. Each: one SSI on phase 4's scene, its
+   route gap on a 32,768-slot scene (``TOL_TEST``), and the training step
+   on phase 6's bucket (3 warm-ups, median of 5; peak memory). (a) and (b)
+   take 32 kernel launches per SSI and 36 + 36 + 36 per step and no plain
+   attention; (c) launches nothing: every self-attention takes the biased
+   plain route (32 per SSI, 36 per step). Then the shipped model's SSI ms
+   with the gather, blocked and cond xCPE, blocked against gather within
+   ``TOL_TEST`` in bf16 and within 1e-5 of max |logits| in f32;
+16. ablations: ③ ContinuousDM, ④ CCDM, ⑤ DiscreteDM, ⑥ CDDM and DM, the
+   ScanNet model with its type swapped and the labels' branch given 20
+   input channels: one SSI on phase 4's scene (32 launches, DM 26), its
+   route gap (``TOL_TEST``), one training step through `make_train_step`
+   on phase 6's bucket (36 + 36 + 36, DM 26 + 26 + 26; drops per level; a
+   second step timed; peak memory), MSAI (5 steps: 6 forwards of 36
+   launches, DM 26) and MSFI on phase 8's first fragment; then ⑥ through
+   the training CLI on phase 9's rooms (one evaluated epoch of 2 steps,
+   checkpoints) and the tester CLI on phase 8's room with its first
+   augmentation through the non-CNF route (36 launches per fragment, every
+   raw point a prediction).
 
 Each phase prints its wall time (``phase <name> wall``). The last three lines are a JSON summary of the kernels, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``. Without a GPU, or
@@ -2078,6 +2102,440 @@ def phase_ranks(torch, config, cfg, tmp, ckpt, n_train_launches, n_launches, car
     return result
 
 
+# phase 15's option models at the full width of the ScanNet config: (a) FreeU
+# (the JAX test's factors), bidirectional transfer with the b_channel_scale
+# gate, dropout and the cond xCPE; (b) the Restomer, the lr_scale gate and the
+# blocked xCPE; (c) RPE attention at patch 128 (the plain biased route)
+PATCH_FIELDS = ("c_enc_patch_size", "c_dec_patch_size", "n_enc_patch_size",
+                "n_dec_patch_size")
+OPTION_MODELS = {
+    "a": dict(b_factor=(1.2, 1.0, 1.0, 1.0), s_factor=(0.9, 1.0, 1.0, 1.0),
+              tm_bidirectional=True, tm_feat="b_channel_scale", proj_drop=0.1,
+              xcpe_mode="cond"),
+    "b": dict(tm_restomer=True, tm_feat="lr_scale", xcpe_mode="blocked"),
+    "c": dict(enable_rpe=True),
+}
+RPE_PATCH = 128
+# phase 16's ablation segmentors: the ScanNet model with its type swapped,
+# the diffused labels' branch given num_classes input channels (as the JAX
+# package's tests set them), and the criteria of each family
+ABLATIONS = ("ContinuousDMSegmentor", "CCDMSegmentor", "DiscreteDMSegmentor",
+             "CDDMSegmentor", "DMSegmentor")
+ABLATION_MSAI_STEPS = 5  # 6 DDIM forwards
+
+
+def option_cfg(cfg, name):
+    """The config's model with option model ``name``'s backbone fields."""
+    c = copy.deepcopy(cfg)
+    c["backbone"].update(OPTION_MODELS[name])
+    if name == "c":
+        for f in PATCH_FIELDS:
+            c["backbone"][f] = (RPE_PATCH,) * len(c["backbone"][f])
+    return c
+
+
+def ablation_cfg(cfg, kind):
+    """The config's model as ablation ``kind``: channels as the JAX
+    package's tests set them (③⑤: the c-branch takes the labels; ④⑥: the
+    n-branch; DM: one branch), and its criteria."""
+    c = copy.deepcopy(cfg)
+    bb = c["backbone"]
+    k = c["num_classes"]
+    mse = dict(type="MSELoss", loss_weight=1.0, ignore_index=-1)
+    ce = dict(type="CrossEntropyLoss", loss_weight=1.0, ignore_index=-1)
+    lovasz = dict(type="LovaszLoss", mode="multiclass", loss_weight=1.0, ignore_index=-1)
+    kl = dict(type="D3PMKLLoss", loss_weight=1.0)
+    if kind in ("ContinuousDMSegmentor", "DiscreteDMSegmentor"):
+        bb["c_in_channels"] = k
+        c["c_in_channels"] = k
+    elif kind in ("CCDMSegmentor", "CDDMSegmentor"):
+        bb["n_in_channels"] = k
+    else:
+        bb.update(condition=False, n_in_channels=k)
+        c["condition"] = False
+    crit = {"ContinuousDMSegmentor": ([mse, ce, lovasz], "GLS"),
+            "CCDMSegmentor": ([mse, ce, lovasz], "GLS"),
+            "DiscreteDMSegmentor": ([kl, ce, lovasz], "EW"),
+            "CDDMSegmentor": ([mse, kl, ce, lovasz], "EW"),
+            "DMSegmentor": ([kl, ce, lovasz], "EW")}[kind]
+    c.update(type=kind, criteria=crit[0], loss_type=crit[1])
+    return c
+
+
+def set_xcpe_mode(model, mode):
+    """The xCPE formulation of every block of ``model`` (one set of
+    weights: the formulations share their parameters)."""
+    model.backbone.xcpe_mode = mode
+    for m in model.modules():
+        if hasattr(m, "conv_mode"):
+            m.conv_mode = mode
+
+
+def route_counters(torch, plain_calls, biased_calls):
+    """`patched` entries counting the plain attention route (the kernel
+    wrapper's alternative) and the biased plain attention of RPE blocks."""
+    from cdsegnet_torch.models import ptv3
+    from cdsegnet_torch.ops import flash_attention as fa
+
+    return ((fa, "patch_attention", counting_plain(plain_calls)),
+            (ptv3, "patch_attention", counting_plain(biased_calls)))
+
+
+def step_counts(fa, plain_calls, biased_calls):
+    return dict(fwd=fa.patch_attention_fwd.launches,
+                fwd_lse=fa.patch_attention_fwd.lse_launches,
+                bwd_dq=fa.patch_attention_bwd_dq.launches,
+                bwd_dkdv=fa.patch_attention_bwd_dkdv.launches,
+                plain=plain_calls[0], biased=biased_calls[0])
+
+
+def ssi_gap(torch, logits_k, logits_p, valid):
+    """Kernel route against plain route on softmax probabilities
+    (``TOL_TEST``'s measures)."""
+    pk = torch.softmax(logits_k.float(), -1)[valid]
+    pp = torch.softmax(logits_p.float(), -1)[valid]
+    return dict(max_abs_dp=(pk - pp).abs().max().item(),
+                argmax_agree=(pk.argmax(1) == pp.argmax(1)).float().mean().item())
+
+
+def timed_ms(torch, fn, reps):
+    """Synchronized host-clock ms of ``reps`` calls after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def phase_options(torch, conf, cfg, point, gap_point, train_point, card):
+    """Phase 15: option models (a), (b), (c) of `OPTION_MODELS` at full
+    width (random weights from seed 0), each in turn: one SSI on phase 4's
+    scene (launches, plain and biased attention calls, finite logits, host
+    ms), its route gap against the plain attention route on the 32,768-slot
+    scene (``TOL_TEST``), and the training step of the config's optimizer on
+    phase 6's bucket (the first step counted, then 3 warm-ups and the median
+    of 5; peak memory). (a), (b): 32 kernel launches per SSI and 36 + 36 +
+    36 per step, no plain attention; (c): no kernel launch, every
+    self-attention through the biased plain route (32 per SSI, 36 per step
+    forward). Then the xCPE formulations of the shipped model on phase 4's
+    scene: SSI ms of "gather", "blocked" and "cond"; blocked against gather
+    within ``TOL_TEST`` in bf16 and within 1e-5 of max |logits| with the
+    whole model in f32."""
+    from cdsegnet_torch.engine.optimizer import build_optimizer
+    from cdsegnet_torch.engine.state import make_train_step
+    from cdsegnet_torch.models.builder import build_model, build_model_criteria
+    from cdsegnet_torch.ops import flash_attention as fa
+
+    plain_calls, biased_calls = [0], [0]
+    results = {}
+    gen = lambda seed: torch.Generator(device="cuda").manual_seed(seed)
+    noise = torch.randn((point.num_points, 6), generator=gen(7), device="cuda")
+    gnoise = torch.randn((gap_point.num_points, 6), generator=gen(8), device="cuda")
+    for name in OPTION_MODELS:
+        start = time.perf_counter()
+        c = option_cfg(cfg, name)
+        rpe = name == "c"
+        n_ssi = len(attention_launches(c["backbone"]))
+        n_step = len(attention_launches(c["backbone"], c_decoder=True))
+        model = build_model(c, device="cuda", generator=torch.Generator().manual_seed(0))
+        ssi = lambda pt, nz: model.inference(pt, noise=nz)["seg_logits"]
+        fa.reset_launch_counts()
+        plain_calls[0] = biased_calls[0] = 0
+        with patched(*route_counters(torch, plain_calls, biased_calls)):
+            torch.cuda.reset_peak_memory_stats()
+            logits = ssi(point, noise)
+            torch.cuda.synchronize()
+            ssi_counts = step_counts(fa, plain_calls, biased_calls)
+            ssi_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            ssi_times = timed_ms(torch, lambda: ssi(point, noise), 3)
+        want_ssi = dict(fwd=0 if rpe else n_ssi, fwd_lse=0, bwd_dq=0, bwd_dkdv=0,
+                        plain=0, biased=n_ssi if rpe else 0)
+        finite = bool(torch.isfinite(logits[point.mask]).all().item())
+        lk = ssi(gap_point, gnoise)
+        set_attention_route(model, False)
+        lp = ssi(gap_point, gnoise)
+        set_attention_route(model, None)
+        gap = dict(ssi_gap(torch, lk, lp, gap_point.mask), slots=gap_point.num_points)
+        del lk, lp, logits
+
+        model.train()
+        opt = build_optimizer(dict(conf["optimizer"]), model, dict(conf["scheduler"]),
+                              total_steps=TRAIN_TOTAL_STEPS,
+                              param_dicts=[dict(p) for p in conf["param_dicts"]],
+                              clip_keywords=conf.get("gredient_clip", []), device="cuda")
+        step = make_train_step(model, build_model_criteria(c), opt, seed=0, device="cuda")
+        fa.reset_launch_counts()
+        plain_calls[0] = biased_calls[0] = 0
+        with patched(*route_counters(torch, plain_calls, biased_calls)):
+            torch.cuda.reset_peak_memory_stats()
+            metrics = step(train_point)
+            torch.cuda.synchronize()
+            counts = step_counts(fa, plain_calls, biased_calls)
+            losses, times = [metrics["loss"].item()], []
+            for i in range(8):  # 3 warm-ups, then 5 timed steps
+                t0 = time.perf_counter()
+                m = step(train_point)
+                torch.cuda.synchronize()
+                losses.append(m["loss"].item())
+                if i >= 3:
+                    times.append((time.perf_counter() - t0) * 1e3)
+        k = 0 if rpe else n_step
+        want_step = dict(fwd=k, fwd_lse=k, bwd_dq=k, bwd_dkdv=k, plain=0,
+                         biased=n_step if rpe else 0)
+        result = dict(options=OPTION_MODELS[name], patch=RPE_PATCH if rpe else 1024,
+                      ssi_launches=ssi_counts, ssi_ms=statistics.median(ssi_times),
+                      ssi_ms_all=ssi_times, ssi_peak_mem_gib=ssi_peak, route_gap=gap,
+                      step_launches=counts, losses=losses,
+                      dropped_per_level=[int(metrics[f"dropped_l{i}"]) for i in range(1, 5)],
+                      step_ms=statistics.median(times), step_ms_all=times,
+                      step_slots=train_point.num_points,
+                      peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                      phase_s=time.perf_counter() - start, card=card)
+        print(f"options {name} " + json.dumps(result), flush=True)
+        if ssi_counts != want_ssi or not finite:
+            fail(f"option model {name}: SSI counts {ssi_counts}, expected {want_ssi}, "
+                 f"or non-finite logits")
+        if gap["max_abs_dp"] > TOL_TEST[0] or gap["argmax_agree"] < TOL_TEST[1]:
+            fail(f"option model {name}: SSI through the kernel disagrees with the "
+                 f"plain route {gap}")
+        if counts != want_step or not np.isfinite(losses).all():
+            fail(f"option model {name}: step counts {counts}, expected {want_step}, "
+                 f"or non-finite losses {losses}")
+        results[name] = result
+        del model, opt, step, metrics, m
+        torch.cuda.empty_cache()
+
+    # the xCPE formulations of the shipped model, one set of weights
+    model = build_model(cfg, device="cuda", generator=torch.Generator().manual_seed(0))
+    xcpe, logits = {}, {}
+    for mode in ("gather", "blocked", "cond"):
+        set_xcpe_mode(model, mode)
+        logits[mode] = model.inference(point, noise=noise)["seg_logits"]
+        xcpe[mode] = timed_ms(torch, lambda: model.inference(point, noise=noise), 5)
+    bf16_gap = ssi_gap(torch, logits["blocked"], logits["gather"], point.mask)
+    del model, logits
+    f32 = copy.deepcopy(cfg)
+    f32["backbone"].update(dtype="float32", upcast_softmax=True)
+    model = build_model(f32, device="cuda", generator=torch.Generator().manual_seed(0))
+    got = {}
+    for mode in ("gather", "blocked"):
+        set_xcpe_mode(model, mode)
+        got[mode] = model.inference(point, noise=noise)["seg_logits"][point.mask]
+    f32_gap = dict(max_abs_dlogits=(got["blocked"] - got["gather"]).abs().max().item(),
+                   max_abs_logits=got["gather"].abs().max().item())
+    del model, got
+    torch.cuda.empty_cache()
+    results["xcpe"] = dict(ssi_ms={m: statistics.median(t) for m, t in xcpe.items()},
+                           ssi_ms_all=xcpe, blocked_vs_gather_bf16=bf16_gap,
+                           blocked_vs_gather_f32=f32_gap, card=card)
+    print("options xcpe " + json.dumps(results["xcpe"]), flush=True)
+    if bf16_gap["max_abs_dp"] > TOL_TEST[0] or bf16_gap["argmax_agree"] < TOL_TEST[1]:
+        fail(f"the blocked xCPE disagrees with the gather in bf16: {bf16_gap}")
+    if f32_gap["max_abs_dlogits"] > 1e-5 * f32_gap["max_abs_logits"]:
+        fail(f"the blocked xCPE disagrees with the gather in f32: {f32_gap}")
+    return results
+
+
+def phase_ablations(torch, config, conf, cfg, tmp, point, gap_point, train_point,
+                    msai_point, n_raw, card):
+    """Phase 16: the ablation segmentors of `ABLATIONS` at full width
+    (random weights from seed 0), each in turn: one SSI on phase 4's scene
+    (32 launches, DM 26; no plain attention), its route gap on the
+    32,768-slot scene (``TOL_TEST``), one training step of the config's
+    optimizer through `make_train_step` on phase 6's bucket (36 + 36 + 36
+    launches, DM 26 + 26 + 26; finite loss; drops per level; a second step
+    timed; peak memory), `inference_multistep` MSAI (``ABLATION_MSAI_STEPS``
+    steps: 6 forwards of 36 launches, DM 26) and MSFI on phase 8's first
+    fragment. Then ⑥ through the training CLI on phase 9's rooms (one
+    evaluated epoch of 2 steps, checkpoints) and the tester CLI on phase 8's
+    room with its first augmentation (the non-CNF route: every fragment 36
+    launches, every raw point a prediction)."""
+    from cdsegnet_torch.engine.optimizer import build_optimizer
+    from cdsegnet_torch.engine.state import make_train_step
+    from cdsegnet_torch.models.ablation_segmentors import inference_multistep
+    from cdsegnet_torch.models.builder import build_model, build_model_criteria
+    from cdsegnet_torch.ops import flash_attention as fa
+
+    plain_calls, biased_calls = [0], [0]
+    results = {}
+    for kind in ABLATIONS:
+        start = time.perf_counter()
+        c = ablation_cfg(cfg, kind)
+        n_ssi = len(attention_launches(c["backbone"]))
+        n_step = len(attention_launches(c["backbone"], c_decoder=True))
+        model = build_model(c, device="cuda", generator=torch.Generator().manual_seed(0))
+
+        def ssi(pt, seed):
+            g = torch.Generator(device="cuda").manual_seed(seed)
+            return model.inference(pt, generator=g)["seg_logits"]
+
+        fa.reset_launch_counts()
+        plain_calls[0] = biased_calls[0] = 0
+        with patched(*route_counters(torch, plain_calls, biased_calls)):
+            logits = ssi(point, 7)
+            torch.cuda.synchronize()
+            ssi_counts = step_counts(fa, plain_calls, biased_calls)
+            ssi_times = timed_ms(torch, lambda: ssi(point, 7), 3)
+        finite = bool(torch.isfinite(logits[point.mask]).all().item())
+        lk = ssi(gap_point, 8)
+        set_attention_route(model, False)
+        lp = ssi(gap_point, 8)
+        set_attention_route(model, None)
+        gap = dict(ssi_gap(torch, lk, lp, gap_point.mask), slots=gap_point.num_points)
+        del lk, lp, logits
+
+        model.train()
+        opt = build_optimizer(dict(conf["optimizer"]), model, dict(conf["scheduler"]),
+                              total_steps=TRAIN_TOTAL_STEPS,
+                              param_dicts=[dict(p) for p in conf["param_dicts"]],
+                              clip_keywords=conf.get("gredient_clip", []), device="cuda")
+        step = make_train_step(model, build_model_criteria(c), opt, seed=0, device="cuda")
+        fa.reset_launch_counts()
+        plain_calls[0] = biased_calls[0] = 0
+        with patched(*route_counters(torch, plain_calls, biased_calls)):
+            torch.cuda.reset_peak_memory_stats()
+            metrics = step(train_point)
+            torch.cuda.synchronize()
+            counts = step_counts(fa, plain_calls, biased_calls)
+            t0 = time.perf_counter()
+            m2 = step(train_point)
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+        model.eval()
+        msai = {}
+        for mode in ("avg", "final"):
+            g = torch.Generator(device="cuda").manual_seed(9)
+            fa.reset_launch_counts()
+            plain_calls[0] = 0
+            with patched(*route_counters(torch, plain_calls, biased_calls)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = inference_multistep(model, msai_point, step=ABLATION_MSAI_STEPS,
+                                          mode=mode, generator=g)
+                torch.cuda.synchronize()
+            msai[mode] = dict(launches=fa.patch_attention_fwd.launches, plain=plain_calls[0],
+                              ms=(time.perf_counter() - t0) * 1e3,
+                              finite=bool(torch.isfinite(out[msai_point.mask]).all().item()))
+        per = (ABLATION_MSAI_STEPS + 1) * n_step
+        losses = [metrics["loss"].item(), m2["loss"].item()]
+        want_ssi = dict(fwd=n_ssi, fwd_lse=0, bwd_dq=0, bwd_dkdv=0, plain=0, biased=0)
+        want_step = dict(fwd=n_step, fwd_lse=n_step, bwd_dq=n_step, bwd_dkdv=n_step,
+                         plain=0, biased=0)
+        result = dict(ssi_launches=ssi_counts, ssi_ms=statistics.median(ssi_times),
+                      ssi_ms_all=ssi_times, route_gap=gap, step_launches=counts,
+                      losses=losses,
+                      dropped_per_level=[int(metrics[f"dropped_l{i}"]) for i in range(1, 5)],
+                      second_step_ms=step_ms, step_slots=train_point.num_points,
+                      peak_mem_gib=peak, multistep=msai, multistep_per_fragment=per,
+                      fragment_slots=msai_point.num_points,
+                      phase_s=time.perf_counter() - start, card=card)
+        print(f"ablation {kind} " + json.dumps(result), flush=True)
+        if ssi_counts != want_ssi or not finite:
+            fail(f"{kind}: SSI counts {ssi_counts}, expected {want_ssi}, or non-finite")
+        if gap["max_abs_dp"] > TOL_TEST[0] or gap["argmax_agree"] < TOL_TEST[1]:
+            fail(f"{kind}: SSI through the kernel disagrees with the plain route {gap}")
+        if counts != want_step or not np.isfinite(losses).all():
+            fail(f"{kind}: step counts {counts}, expected {want_step}, or non-finite "
+                 f"losses {losses}")
+        if any(r["launches"] != per or r["plain"] or not r["finite"] for r in msai.values()):
+            fail(f"{kind}: multistep {msai}, expected {per} launches each")
+        results[kind] = dict(result, n_ssi=n_ssi, n_step=n_step)
+        del model, opt, step, metrics, m2, out
+        torch.cuda.empty_cache()
+    results["cli"] = ablation_clis(torch, config, conf, cfg, tmp, n_raw, card)
+    return results
+
+
+def ablation_clis(torch, config, conf, cfg, tmp, n_raw, card):
+    """⑥ (`CDDMSegmentor`) through the training CLI on phase 9's rooms,
+    one evaluated epoch of 2 steps, then the tester CLI on phase 8's room
+    with its first augmentation from the run's ``model_last``."""
+    from cdsegnet_torch.ops import flash_attention as fa
+    from cdsegnet_torch.tools import test as test_tool
+    from cdsegnet_torch.tools import train as train_tool
+
+    kind = "CDDMSegmentor"
+    c = ablation_cfg(cfg, kind)
+    n_step = len(attention_launches(c["backbone"], c_decoder=True))
+    n_ssi = len(attention_launches(c["backbone"]))
+    model_opts = [f"model.type={kind}",
+                  f"model.backbone.n_in_channels={c['backbone']['n_in_channels']}",
+                  f"model.criteria={c['criteria']!r}", f"model.loss_type={c['loss_type']}"]
+    data_root = os.path.join(tmp, "data")
+    save = os.path.join(tmp, "ablation_train")
+    hook_cfg = [dict(type="CheckpointLoader"), dict(type="IterationTimer", warmup_iter=2),
+                dict(type="InformationWriter", log_interval=1),
+                dict(type="SemSegEvaluator"), dict(type="CheckpointSaver")]
+    argv = ["--config-file", config, "--options", "epoch=1", "eval_epoch=1",
+            f"save_path={save}", f"hooks={hook_cfg!r}",
+            f"data.train.data_root={data_root}", f"data.val.data_root={data_root}",
+            *model_opts]
+    plain_calls, biased_calls = [0], [0]
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    with patched(*route_counters(torch, plain_calls, biased_calls)):
+        trainer = train_tool.main(argv)
+        torch.cuda.synchronize()
+    train = dict(wall_s=time.perf_counter() - t0, steps=trainer.step,
+                 launches=step_counts(fa, plain_calls, biased_calls),
+                 files=sorted(os.listdir(os.path.join(save, "model"))),
+                 miou=trainer.comm_info.get("current_metric_value"),
+                 metrics=[json.loads(x) for x in
+                          open(os.path.join(save, "metrics.jsonl")).read().splitlines()])
+    print("ablation train cli " + json.dumps(train), flush=True)
+    want = dict(fwd=2 * n_step + n_ssi, fwd_lse=2 * n_step, bwd_dq=2 * n_step,
+                bwd_dkdv=2 * n_step, plain=0, biased=0)
+    if train["steps"] != 2 or train["launches"] != want or \
+            not {"model_best", "model_last"} <= set(train["files"]):
+        fail(f"{kind} training CLI: {train['steps']} steps, launches "
+             f"{train['launches']} (expected {want}), checkpoints {train['files']}")
+    if not all(np.isfinite(r["loss"]) for r in train["metrics"] if "loss" in r) or \
+            not 0.0 <= train["miou"] <= 1.0:
+        fail(f"{kind} training CLI: non-finite losses or mIoU {train['miou']}")
+    del trainer
+    torch.cuda.empty_cache()
+
+    conf_test = load_config("scannet/cdsegnet.py")
+    first_aug = [copy.deepcopy(conf_test.data.test.test_cfg.aug_transform[0])]
+    out = os.path.join(tmp, "ablation_test")
+    argv = ["--config-file", config, "--checkpoint",
+            os.path.join(save, "model", "model_last"), "--options",
+            f"data.test.data_root={data_root}", f"save_path={out}",
+            f"data.test.test_cfg.aug_transform={json.loads(json.dumps(first_aug))!r}",
+            *model_opts]
+    from cdsegnet_torch.engine.test import SemSegTester
+
+    frags, plain = [], [0]
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    with patched((fa, "patch_attention", counting_plain(plain)),
+                 (SemSegTester, "forward_fragment", recording_forward(torch, frags, plain))):
+        tester = test_tool.main(argv)
+    torch.cuda.synchronize()
+    (pred_file,) = os.listdir(os.path.join(out, "result"))
+    pred = np.load(os.path.join(out, "result", pred_file))
+    test = dict(wall_s=time.perf_counter() - t0, fragments=len(frags),
+                per_fragment=sorted({f["launches"] for f in frags}),
+                plain=sum(f["plain"] for f in frags),
+                ms_median=statistics.median(f["ms"] for f in frags),
+                predicted=int(pred.size), raw_points=n_raw,
+                classes_predicted=int(np.unique(pred).size), result=tester.result)
+    print("ablation test cli " + json.dumps(test), flush=True)
+    if not frags or test["per_fragment"] != [n_step] or test["plain"] or \
+            not all(f["finite"] for f in frags):
+        fail(f"{kind} tester: launches per fragment {test['per_fragment']} (expected "
+             f"{n_step}), plain {test['plain']}, or non-finite logits")
+    if pred.size != n_raw or pred.min() < 0 or pred.max() >= cfg["num_classes"]:
+        fail(f"{kind} tester: {pred.size} predictions for {n_raw} raw points")
+    return dict(train=train, test=test, card=card)
+
+
 class Log:
     """A logger that keeps nothing (phase 14's one-process evaluation)."""
 
@@ -2204,8 +2662,9 @@ def run_phases(torch, config: str, runtime: str, tmp: str, start: float) -> int:
     n_raw, test_scene = tester_scene(torch, config, tmp)
     frag = test_scene["fragment_list"][0]
     bucket = pick_bucket(len(frag["coord"]), DEFAULT_BUCKETS)
-    frag_levels, _ = model.backbone.precompute_geometry(
-        batch_to_point(collate_scenes([frag], bucket, 1), depth, 1, "cuda"))
+    # phase 16's multistep fragment
+    frag_point = batch_to_point(collate_scenes([frag], bucket, 1), depth, 1, "cuda")
+    frag_levels, _ = model.backbone.precompute_geometry(frag_point)
     print(f"test fragment 0: {len(frag['coord'])} points in the {bucket} bucket, level "
           f"sizes {[lv.size for lv in frag_levels]}, dropped per level "
           f"{[lv.dropped for lv in frag_levels[1:]]}", flush=True)
@@ -2301,7 +2760,6 @@ def run_phases(torch, config: str, runtime: str, tmp: str, start: float) -> int:
     clock("train cli")
     gap_point = synthetic_point_batch(GAP_POINTS, 1, depth=12, seed=1, device="cuda")
     variants = phase_variants(torch, point, gap_point, train_point, nus, card)
-    del gap_point, train_point
     phase_nuscenes_test(torch, nus, len(launches), card)
     del nus
     torch.cuda.empty_cache()
@@ -2318,6 +2776,19 @@ def run_phases(torch, config: str, runtime: str, tmp: str, start: float) -> int:
     ranks = phase_ranks(torch, config, cfg, tmp, ckpt, len(train_launches), len(launches),
                         card)
     clock("ranks")
+    options = phase_options(torch, conf, cfg, point, gap_point, train_point, card)
+    clock("options")
+    ablations = phase_ablations(torch, config, conf, cfg, tmp, point, gap_point, train_point,
+                                frag_point, n_raw, card)
+    del gap_point, train_point, frag_point
+    torch.cuda.empty_cache()
+    clock("ablations")
+    # this slice's paths through the kernels: times from phases 3 and 5 (the
+    # same levels, heads and head dims), launches counted in phases 15-16
+    kernel_models = {f"option_{n}": option_cfg(cfg, n)["backbone"] for n in ("a", "b")}
+    kernel_models.update({k: ablation_cfg(cfg, k)["backbone"] for k in ABLATIONS})
+    slice_runs = {f"option_{n}": options[n] for n in ("a", "b")}
+    slice_runs.update({k: ablations[k] for k in ABLATIONS})
 
     tpu = "cdsegnet_tpu/ops/pallas/flash_attention.py"
     bwd_src = f"cdsegnet_torch/csrc/{BWD_KERNEL}.cu"
@@ -2368,7 +2839,29 @@ def run_phases(torch, config: str, runtime: str, tmp: str, start: float) -> int:
                         # phase 3 (the fragment rows), launches per rank
                         ranks=dict(forward_sums(test_rows),
                                    launches=ranks["test"]["gloo2"]["launches"],
-                                   fragments=ranks["test"]["fragments"]))),
+                                   fragments=ranks["test"]["fragments"]),
+                        # per SSI on phase 4's scene and per training step of
+                        # each option and ablation model
+                        slice_ssi={n: dict(launch_sums(rows, attention_launches(bb)),
+                                           launches=slice_runs[n]["ssi_launches"]["fwd"],
+                                           ssi_ms=slice_runs[n]["ssi_ms"])
+                                   for n, bb in kernel_models.items()},
+                        slice_train={n: dict(
+                            train_launch_sums(train_rows, attention_launches(
+                                bb, c_decoder=True), "fwd"),
+                            launches=slice_runs[n]["step_launches"]["fwd"])
+                            for n, bb in kernel_models.items()},
+                        # per DDIM forward of each ablation (c-decoder
+                        # included; DM has one branch): times from phase 3's
+                        # fragment rows; launches per MSAI fragment of 6
+                        ablation_msai={k: dict(
+                            forward_sums(test_rows + cdec_rows) if k != "DMSegmentor"
+                            else launch_sums(test_rows, attention_launches(
+                                kernel_models[k])),
+                            forwards=ABLATION_MSAI_STEPS + 1,
+                            launches=ablations[k]["multistep"]["avg"]["launches"],
+                            fragment_ms=ablations[k]["multistep"]["avg"]["ms"])
+                            for k in ABLATIONS})),
     ]
     for name, direction in (("patch_attention_bwd_dq", "dq"),
                             ("patch_attention_bwd_dkdv", "dkdv")):
@@ -2384,7 +2877,10 @@ def run_phases(torch, config: str, runtime: str, tmp: str, start: float) -> int:
                                                      c_decoder=True), direction),
                 launches=r["step_launches"][counted]) for v, r in variants.items()},
                 micro=dict(step_sums(micro_rows, direction),
-                           launches=micro["launches"][counted]))))
+                           launches=micro["launches"][counted]),
+                slice_train={n: dict(train_launch_sums(train_rows, attention_launches(
+                    bb, c_decoder=True), direction), launches=slice_runs[n]["step_launches"][
+                        counted]) for n, bb in kernel_models.items()})))
     print(f"wall time {time.perf_counter() - start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)

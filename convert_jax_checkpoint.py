@@ -19,7 +19,11 @@ state differ in layout), so the file loads as weights: for the tester
 (``tools/test.py --checkpoint``) or for fine-tuning (``weight=`` in the
 trainer's config), not as a run to resume (``resume=True``). A Baseline
 (``dm=False``) trained by JAX has no ``fc_t1``/``fc_t2``: the port's seeded
-initializer fills them, and the script names them.
+initializer fills them, and the script names them. Every model type the
+port builds converts the same way, the ablation segmentors (③–⑥, DM) and
+the PTv3 options (RPE tables, the Restomer's depthwise convs and
+temperature, the transfer gates, ``cross_block1``) included: the bridge maps
+each tensor by its flax name, so the script needs nothing per type.
 
 This script imports orbax, and through it JAX: run it where orbax is
 installed. Nothing in ``cdsegnet_torch/`` or ``chip_smoke.py`` imports it;

@@ -243,13 +243,45 @@ def test_weight_loading_is_strict(ref):
         load_jax_variables(m, v)
 
 
-@pytest.mark.parametrize("field,value", [
-    ("xcpe_mode", "cond"), ("enable_rpe", True), ("tm_restomer", True),
-    ("tm_bidirectional", True), ("tm_feat", "channel_scale"),
-    ("b_factor", (1.2, 1.0, 1.0, 1.0))])
-def test_unported_paths_raise(field, value):
-    with pytest.raises(NotImplementedError):
-        tbuild(tiny_cfg(**{field: value}), device="cpu")
+OPTIONS = [("xcpe_mode", "cond"), ("enable_rpe", True), ("tm_restomer", True),
+           ("tm_bidirectional", True), ("tm_feat", "channel_scale"),
+           ("b_factor", (1.2, 1.0, 1.0, 1.0))]
+
+
+def _option_ssi(case):
+    field, value = case
+    jm = jbuild(tiny_cfg(**{field: value}))
+    pt = batches()["fit"]
+    noise = np.random.RandomState(2).randn(N, 6).astype(np.float32)
+    variables = as_numpy(random_variables(jm, pt))
+    logits = jax.jit(lambda v: jm.apply(v, pt, noise, method=JCNF.inference)[
+        "seg_logits"])(variables)
+    return variables, noise, np.asarray(logits)
+
+
+@pytest.fixture(scope="module")
+def option_ref():
+    """JAX SSI of the tiny model with each option of `OPTIONS`, compiled on
+    parallel threads."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(len(OPTIONS)) as ex:
+        return dict(zip(OPTIONS, ex.map(_option_ssi, OPTIONS)))
+
+
+@pytest.mark.parametrize("field,value", OPTIONS)
+def test_option_paths_match_jax(option_ref, field, value):
+    """Each option of the PTv3 surface that the port once refused builds
+    and gives JAX's SSI logits (tests/test_torch_options.py holds each
+    module and the training step)."""
+    variables, noise, want = option_ref[(field, value)]
+    m = tbuild(tiny_cfg(**{field: value}), device="cpu")
+    load_jax_variables(m, variables)
+    pt = batches()["fit"]
+    got = m.inference(to_port(pt), noise=torch.from_numpy(noise))["seg_logits"].numpy()
+    valid = np.asarray(pt.mask)
+    err = np.abs(got - want)[valid].max()
+    assert err <= 1e-5 * np.abs(want[valid]).max() + 1e-6
 
 
 def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
@@ -304,7 +336,7 @@ def test_port_imports_no_jax():
                    "utils/logger.py", "utils/misc.py", "engine/train.py",
                    "engine/hooks.py", "engine/events.py", "data/loader.py",
                    "utils/tbwriter.py", "tools/train.py", "tools/test_time.py",
-                   "parallel/dist.py"):
+                   "parallel/dist.py", "models/ablation_segmentors.py"):
         assert os.path.join(REPO, "cdsegnet_torch", module) in files, module
     bad = [(f, m) for f in files for m in _imports(f)
            if m.split(".")[0] in FORBIDDEN + ("convert_jax_checkpoint",)]

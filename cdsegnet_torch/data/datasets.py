@@ -1,20 +1,24 @@
-"""Datasets: the base dataset, ScanNet, ScanNet200 and nuScenes.
+"""Datasets: the base dataset, ScanNet, ScanNet200, nuScenes, ModelNet40 and
+ShapeNetPart.
 
 Port of `DefaultDataset`, `ScanNetDataset`, `ScanNet200Dataset`,
-`NuScenesDataset` and `build_dataset` of `cdsegnet_tpu/data/datasets.py`
-(reference `pointcept/datasets/{defaults,scannet,nuscenes}.py`): plain
-indexable objects whose
+`NuScenesDataset`, `ModelNetDataset`, `ShapeNetPartDataset` and
+`build_dataset` of `cdsegnet_tpu/data/datasets.py` (reference
+`pointcept/datasets/{defaults,scannet,nuscenes,modelnet,shapenet_part}.py`):
+plain indexable objects whose
 ``get(idx, rng)`` runs the transform pipeline with an explicit numpy
 generator; in test mode it expands every test-time augmentation into
 fragments. Scene files are Pointcept `.pth` archives or per-field `.npy`
 directories; nuScenes sweeps are listed by an info pickle and read from
-`.bin` files. The shared decode cache (``cache=True``) and the other
+`.bin` files; ModelNet40 and ShapeNetPart shapes are text files, with the
+shape's class in ``category``. The shared decode cache (``cache=True``) and the other
 datasets of the JAX package are not ported.
 """
 
 from __future__ import annotations
 
 import glob
+import json
 import os
 import pickle
 from copy import deepcopy
@@ -302,6 +306,104 @@ class NuScenesDataset(DefaultDataset):
             19: ig, 20: ig, 21: 5, 22: 8, 23: 9, 24: 10, 25: 11, 26: 12,
             27: 13, 28: 14, 29: ig, 30: 15, 31: ig,
         }
+
+
+@DATASETS.register_module()
+class ShapeNetPartDataset(DefaultDataset):
+    """ShapeNetPart (reference `pointcept/datasets/shapenet_part.py:23-160`):
+    per-shape text files (``x y z nx ny nz part``) under their synset's
+    directory, listed by ``train_test_split/shuffled_<split>_file_list.json``;
+    the category from the synset through ``synsetoffset2category.txt``; 50
+    part classes in 16 category-constrained spans (`category2part`)."""
+
+    CATEGORY2PART = {
+        "Airplane": [0, 1, 2, 3], "Bag": [4, 5], "Cap": [6, 7],
+        "Car": [8, 9, 10, 11], "Chair": [12, 13, 14, 15],
+        "Earphone": [16, 17, 18], "Guitar": [19, 20, 21], "Knife": [22, 23],
+        "Lamp": [24, 25, 26, 27], "Laptop": [28, 29],
+        "Motorbike": [30, 31, 32, 33, 34, 35], "Mug": [36, 37],
+        "Pistol": [38, 39, 40], "Rocket": [41, 42, 43],
+        "Skateboard": [44, 45, 46], "Table": [47, 48, 49],
+    }
+
+    def __init__(self, **kwargs):
+        data_root = kwargs.get("data_root", "data/shapenet_part")
+        self.categories: List[str] = []
+        self.token2category: Dict[str, int] = {}
+        cat_file = os.path.join(data_root, "synsetoffset2category.txt")
+        if os.path.isfile(cat_file):
+            with open(cat_file) as f:
+                for line in f:
+                    ls = line.strip().split()
+                    if len(ls) == 2:
+                        self.token2category[ls[1]] = len(self.categories)
+                        self.categories.append(ls[0])
+        self.category2part = {c: self.CATEGORY2PART.get(c, []) for c in self.categories}
+        super().__init__(**kwargs)
+
+    def get_data_list(self) -> List[str]:
+        splits = [self.split] if isinstance(self.split, str) else list(self.split)
+        out = []
+        for s in splits:
+            split_file = os.path.join(self.data_root, "train_test_split",
+                                      f"shuffled_{s}_file_list.json")
+            with open(split_file) as f:
+                # entries look like "shape_data/<synset>/<name>"
+                out += [os.path.join(self.data_root, *d.split("/")[1:]) + ".txt"
+                        for d in json.load(f)]
+        return out
+
+    def get_data(self, idx: int) -> Dict:
+        path = self.data_list[idx % len(self.data_list)]
+        data = np.loadtxt(path).astype(np.float32)
+        token = os.path.basename(os.path.dirname(path))
+        return dict(coord=data[:, :3], normal=data[:, 3:6],
+                    segment=data[:, 6].astype(np.int64),
+                    category=np.int64(self.token2category.get(token, -1)))
+
+    def get_data_name(self, idx: int) -> str:
+        p = self.data_list[idx % len(self.data_list)]
+        return (f"{os.path.basename(os.path.dirname(p))}_"
+                f"{os.path.splitext(os.path.basename(p))[0]}")
+
+
+@DATASETS.register_module()
+class ModelNetDataset(DefaultDataset):
+    """ModelNet40 classification (reference `pointcept/datasets/modelnet.py`):
+    shapes listed by ``modelnet40_<split>.txt`` (``<class>_<id>`` names),
+    read from ``<class>/<name>.npy`` or the comma-separated
+    ``<class>/<name>.txt``; the label is the class directory's rank among
+    the sorted directories of the root, in ``segment`` (every point) and
+    ``category``; ``normal`` when the file has six columns."""
+
+    def get_data_list(self) -> List[str]:
+        splits = [self.split] if isinstance(self.split, str) else list(self.split)
+        out = []
+        for s in splits:
+            list_file = os.path.join(self.data_root, f"modelnet40_{s}.txt")
+            if os.path.exists(list_file):
+                with open(list_file) as f:
+                    names = [ln.strip() for ln in f]
+                out += [os.path.join(self.data_root, "_".join(n.split("_")[:-1]), n)
+                        for n in names]
+        return out
+
+    def get_data(self, idx: int) -> Dict:
+        path = self.data_list[idx % len(self.data_list)]
+        if os.path.exists(path + ".npy"):
+            pts = np.load(path + ".npy")
+        else:
+            pts = np.loadtxt(path + ".txt", delimiter=",").astype(np.float32)
+        cls_name = os.path.basename(os.path.dirname(path))
+        names = sorted(d for d in os.listdir(self.data_root)
+                       if os.path.isdir(os.path.join(self.data_root, d)))
+        label = names.index(cls_name) if cls_name in names else -1
+        data = dict(coord=pts[:, :3].astype(np.float32),
+                    segment=np.full((pts.shape[0],), label, np.int64),
+                    category=np.int64(label))
+        if pts.shape[1] >= 6:
+            data["normal"] = pts[:, 3:6].astype(np.float32)
+        return data
 
 
 def build_dataset(cfg: Dict):

@@ -4,16 +4,17 @@ Port of `cdsegnet_tpu/engine/hooks.py` (reference
 `pointcept/engines/hooks/{default,builder,misc,evaluator}.py`). The default
 stack (`configs/_base_/default_runtime.py`): CheckpointLoader,
 IterationTimer, InformationWriter, SemSegEvaluator, CheckpointSaver; a
-config may add PreciseEvaluator. A hook reads and writes the trainer it is
-bound to (``hook.trainer``): its model, optimizer, generators, checkpoint
-manager, storage, logger and ``comm_info``. In a process group of several
+config may add PreciseEvaluator, or name ClsEvaluator in place of the
+SemSeg one (`configs/modelnet40/cls_ptv2.py`). A hook reads and writes the
+trainer it is bound to (``hook.trainer``): its model, optimizer,
+generators, checkpoint manager, storage, logger and ``comm_info``. In a process group of several
 ranks (`parallel.dist`) every hook runs on every rank: the evaluator splits
 the val scenes over the ranks and sums their histograms, the information
 writer and the files act on rank 0, and the checkpoint loader reads on
 every rank.
 
 Not ported, each raising `NotImplementedError` when built:
-`InsSegEvaluator`, `ClsEvaluator` and the profiling hook `RuntimeProfiler`.
+`InsSegEvaluator` and the profiling hook `RuntimeProfiler`.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ import torch
 from cdsegnet_torch.engine.checkpoint import snapshot
 from cdsegnet_torch.engine.state import rank_seed
 from cdsegnet_torch.engine.test import NoiseFn, SemSegTester
+from cdsegnet_torch.ops.pointops import knn_remap_labels
 from cdsegnet_torch.parallel import dist
 from cdsegnet_torch.utils.misc import AverageMeter, intersection_and_union_torch
 from cdsegnet_torch.utils.registry import Registry
@@ -156,6 +158,11 @@ class SemSegEvaluator(HookBase):
     start, from a generator seeded for scene i from ``(seed + epoch, i)``,
     so that its draws do not depend on which rank evaluates the scene.
 
+    A val scene with ``origin_coord`` (and ``origin_segment``) is scored on
+    its original points: each takes the prediction of its nearest
+    grid-sampled point (`ops.pointops.knn_remap_labels`, reference
+    `hooks/evaluator.py:132-141`).
+
     Over several ranks, rank ``i % world`` evaluates scene i, and the integer
     histograms are summed over the ranks: the result equals one rank's.
     Every rank runs every scene's val pipeline and draws every scene's
@@ -180,11 +187,6 @@ class SemSegEvaluator(HookBase):
         draw_noise = getattr(tr.model, "draw_ssi_noise", None)
         dev = lambda x: torch.as_tensor(x, device=tr.device)
         for index, (batch, scene) in enumerate(tr.val_loader):
-            if "origin_coord" in scene:
-                raise NotImplementedError(
-                    'val scenes with origin_coord (1-NN remap of the predictions, '
-                    'knn_remap_labels) are not ported (ROADMAP Queue 1: "The model '
-                    'zoo and the rest of the engine and data")')
             mine = index % world == rank
             bucket, feat_dim = batch["feat"].shape
             noise = None
@@ -201,9 +203,16 @@ class SemSegEvaluator(HookBase):
                 g = torch.Generator(tr.device).manual_seed(
                     rank_seed(tr.seed + tr.epoch, index + 1))
             out = tr.eval_step(batch, generator=g, noise=noise)
-            sums += torch.stack(intersection_and_union_torch(
-                out["seg_logits"].argmax(-1), dev(batch["segment"]), num_classes,
-                dev(batch["mask"])))
+            pred, seg, valid = (out["seg_logits"].argmax(-1), dev(batch["segment"]),
+                                dev(batch["mask"]))
+            if "origin_coord" in scene:
+                n_real = int(batch["mask"].sum())
+                pred = knn_remap_labels(dev(scene["origin_coord"]).float(),
+                                        dev(batch["coord"][:n_real]), pred[:n_real])
+                seg = dev(np.asarray(scene["origin_segment"]).reshape(-1))
+                valid = torch.ones_like(seg, dtype=torch.bool)
+            sums += torch.stack(intersection_and_union_torch(pred, seg, num_classes,
+                                                             valid))
         dist.all_reduce_sum_(sums)
         self.histograms = sums.cpu().numpy()
         inter_sum, union_sum, target_sum = self.histograms.astype(np.float64)
@@ -220,6 +229,54 @@ class SemSegEvaluator(HookBase):
         tr.comm_info["current_metric_value"] = miou
         tr.comm_info["current_metric_name"] = "mIoU"
         tr.storage.put_scalar("val/mIoU", miou)
+
+
+@HOOKS.register_module()
+class ClsEvaluator(HookBase):
+    """Shape-classification validation after each ``interval`` epochs
+    (reference `hooks/evaluator.py::ClsEvaluator`): each val shape through
+    the eval step in the `EvalLoader`'s bucket, the argmax of its
+    ``cls_pred`` against its ``category`` (else its first label), the
+    per-class intersection, prediction and target counts on the device and
+    one host copy at the end; logs mIoU, mAcc and allAcc, and exports
+    ``allAcc`` as the checkpoint metric. Over several ranks, rank ``i %
+    world`` evaluates shape i and the counts are summed. ``histograms``
+    keeps the last summed (intersection, prediction, target) counts."""
+
+    def __init__(self, interval: int = 1):
+        self.interval = interval
+        self.histograms = None
+
+    def after_epoch(self):
+        tr = self.trainer
+        if tr.val_loader is None or (tr.epoch + 1) % self.interval != 0:
+            return
+        num_classes = tr.cfg.data.num_classes
+        world, rank = dist.world_size(), dist.rank()
+        counts = torch.zeros((3, num_classes), dtype=torch.int64, device=tr.device)
+        for index, (batch, scene) in enumerate(tr.val_loader):
+            if index % world != rank:
+                continue
+            label = int(np.asarray(scene.get("category", scene["segment"][0])))
+            if not 0 <= label < num_classes:
+                continue
+            pred = tr.eval_step(batch)["cls_pred"][0].argmax()
+            counts[0, label] += (pred == label).long()
+            counts[1].index_add_(0, pred[None], torch.ones_like(pred[None]))
+            counts[2, label] += 1
+        dist.all_reduce_sum_(counts)
+        self.histograms = counts.cpu().numpy()
+        inter, pred_hist, target = self.histograms.astype(np.float64)
+        # union = prediction + target - intersection (reference
+        # `pointcept/utils/misc.py:38-52`)
+        iou = inter / np.maximum(pred_hist + target - inter, 1)
+        acc = inter / np.maximum(target, 1)
+        all_acc = float(inter.sum() / max(target.sum(), 1))
+        tr.logger.info(f"Val result: mIoU {iou.mean():.4f} mAcc {acc.mean():.4f} "
+                       f"allAcc {all_acc:.4f}")
+        tr.comm_info["current_metric_value"] = all_acc
+        tr.comm_info["current_metric_name"] = "allAcc"
+        tr.storage.put_scalar("val/allAcc", all_acc)
 
 
 @HOOKS.register_module()
@@ -271,5 +328,5 @@ class PreciseEvaluator(HookBase):
         self.tester.test()
 
 
-HOOKS.register_unported(("InsSegEvaluator", "ClsEvaluator", "RuntimeProfiler"),
+HOOKS.register_unported(("InsSegEvaluator", "RuntimeProfiler"),
                         "The model zoo and the rest of the engine and data")

@@ -11,7 +11,9 @@ and the update count). Three generators per rank, seeded once, take the
 place of the step's rng split, into which JAX folds the device index:
 dropout and diffusion on the device, shuffle on the CPU. Both steps are
 generic over the model's output dict (the CNF and ablation segmentors, plain
-PTv3). The evaluation step is SSI in eval mode (the model's ``inference``:
+PTv3 and PTv2, and `DefaultClassifier`, whose ``n_pred`` and ``n_target``
+are per scene; a model without ``pyramid_dropped`` reports no drops). The
+evaluation step is SSI in eval mode (the model's ``inference``:
 `CNFSegmentor`'s or an ablation segmentor's), or the plain forward's
 logits. `batch_to_point` turns a collated numpy batch into a `PointBatch`.
 """
@@ -148,7 +150,8 @@ def make_eval_step(model: torch.nn.Module, depth: int, num_scenes: int,
     model with an ``inference`` method (`CNFSegmentor`, the ablation
     segmentors) runs it, drawing its noise from ``generator`` unless
     ``noise`` is given; other models evaluate through the plain forward and
-    give its ``n_pred`` as ``seg_logits``."""
+    give its outputs, with ``n_pred`` as ``seg_logits`` (a classifier's
+    per-scene logits beside its ``cls_pred``)."""
     device = resolve_device(device)
     has_inference = hasattr(type(model), "inference")
 
@@ -159,6 +162,7 @@ def make_eval_step(model: torch.nn.Module, depth: int, num_scenes: int,
         point = batch_to_point(batch, depth, num_scenes, device)
         if has_inference:
             return model.inference(point, noise=noise, generator=generator)
-        return dict(seg_logits=model(point)["n_pred"])
+        out = model(point)
+        return dict(out, seg_logits=out.get("seg_logits", out.get("n_pred")))
 
     return step

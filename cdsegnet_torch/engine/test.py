@@ -45,8 +45,15 @@ the fragment's labels. Its draws come from a generator seeded for each
 fragment from ``(cfg.seed, fragment index)``, so that they do not depend on
 which rank forwards the fragment.
 
+The shape tasks: `ClsTester` runs one forward per shape of a
+`DefaultClassifier` in the smallest bucket that holds it (allAcc, mAcc);
+`PartSegTester` votes fragments as `SemSegTester` does and scores each
+shape by the IoU of its category's parts (instance and category mIoU). Both
+run on one process, as JAX runs them on one device.
+
 Not ported, each raising `NotImplementedError`: ``model_kwargs`` (the PPT
-``condition`` of the model zoo), `ClsTester` and `PartSegTester`.
+``condition`` of the model zoo), and the shape testers on more than one
+rank.
 """
 
 from __future__ import annotations
@@ -362,5 +369,134 @@ class SemSegTester:
             )
 
 
-TESTERS.register_unported(("ClsTester", "PartSegTester"),
-                          "The model zoo and the rest of the engine and data")
+def _one_rank(kind: str) -> None:
+    if dist.world_size() > 1:
+        raise NotImplementedError(
+            f'{kind} on {dist.world_size()} ranks is not ported (ROADMAP Queue 1: '
+            '"The shape testers on more than one rank")')
+
+
+@TESTERS.register_module("ClsTester")
+class ClsTester:
+    """Shape-classification tester (reference `test.py:420-480`): each shape
+    of ``cfg.data.test`` through its pipeline (one numpy generator seeded
+    from ``cfg.seed``), padded into the smallest bucket of ``test_buckets``
+    that holds it, one eval forward of the `DefaultClassifier`; the argmax
+    of its ``cls_pred`` against its ``category`` (else its first label).
+    ``test`` returns allAcc and sets ``records`` (per shape: label, pred and
+    the softmax probabilities) and ``result`` (``allacc``, ``macc``)."""
+
+    def __init__(self, cfg, model: Optional[torch.nn.Module] = None,
+                 device: Optional[Union[str, torch.device]] = None, verbose: bool = True):
+        _one_rank("ClsTester")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.logger = get_root_logger(name="cdsegnet_torch.test")
+        self.verbose = verbose
+        self.model = (model if model is not None
+                      else build_model(dict(cfg.model), device=self.device)).eval()
+        self.depth = cfg.get("serialization_depth", 12)
+        self.buckets = tuple(cfg.get("test_buckets", DEFAULT_BUCKETS))
+        self.seed = cfg.get("seed") or 0
+
+    @torch.no_grad()
+    def test(self) -> float:
+        cfg = self.cfg
+        ds = build_dataset(dict(cfg.data.test))
+        num_classes = cfg.data.num_classes
+        correct = np.zeros(num_classes)
+        total = np.zeros(num_classes)
+        rng = np.random.default_rng(self.seed)
+        self.records = {}
+        for idx in range(len(ds)):
+            shape = ds.get(idx, rng)
+            label = int(np.asarray(shape.get("category", shape["segment"][0])))
+            bucket = pick_bucket(shape["coord"].shape[0], self.buckets)
+            point = batch_to_point(collate_scenes([shape], bucket, 1), self.depth, 1,
+                                   self.device)
+            probs = torch.softmax(self.model(point)["cls_pred"][0].float(), -1).cpu().numpy()
+            pred = int(probs.argmax())
+            total[label] += 1
+            correct[label] += int(pred == label)
+            self.records[ds.get_data_name(idx)] = dict(label=label, pred=pred, probs=probs)
+        seen = total > 0
+        self.result = dict(allacc=float(correct.sum() / max(total.sum(), 1)),
+                           macc=float(np.mean(correct[seen] / total[seen])))
+        self.logger.info(f"Cls result: allAcc {self.result['allacc']:.4f} "
+                         f"mAcc {self.result['macc']:.4f}")
+        return self.result["allacc"]
+
+
+@TESTERS.register_module("PartSegTester")
+class PartSegTester(SemSegTester):
+    """Part-segmentation tester (reference `test.py:483-591`): each shape's
+    fragments voted as `SemSegTester` votes them (`predict_fragment`), then
+    the IoU of each part of the shape's category (`category2part`; a part
+    absent from both the labels and the prediction counts 1.0), averaged per
+    shape. ``test`` returns the instance mIoU (mean over shapes) and sets
+    ``records`` (per shape: category, part IoUs, shape IoU, pred and the
+    number of points some fragment voted for) and
+    ``result`` (``ins_miou``, ``cat_miou``: the mean over categories of
+    their shapes' mean). A dataset without categories is tested as
+    `SemSegTester` tests it."""
+
+    def __init__(self, cfg, model: Optional[torch.nn.Module] = None,
+                 device: Optional[Union[str, torch.device]] = None, verbose: bool = True):
+        _one_rank("PartSegTester")
+        super().__init__(cfg, model=model, device=device, verbose=verbose)
+
+    def test(self, noise_fn: Optional[NoiseFn] = None,
+             feat_noise_fn: Optional[FeatNoiseFn] = None) -> float:
+        cfg = self.cfg
+        ds = build_dataset(dict(cfg.data.test))
+        categories = list(getattr(ds, "categories", []))
+        category2part = dict(getattr(ds, "category2part", {}))
+        if not categories:
+            return super().test(noise_fn, feat_noise_fn)
+        n_cat = len(categories)
+        iou_category = np.zeros(n_cat)
+        iou_count = np.zeros(n_cat)
+        np_rng = np.random.default_rng(self.seed)
+        self.generator.manual_seed(self.seed)
+        self.records = {}
+        index = 0
+        for idx in range(len(ds)):
+            scene = ds.get(idx, np_rng)
+            segment = scene["segment"]
+            votes = torch.zeros((segment.size, cfg.data.num_classes), dtype=torch.float32,
+                                device=self.device)
+            for frag in scene["fragment_list"]:
+                probs = self.predict_fragment(frag, index, noise_fn, feat_noise_fn)
+                votes.index_add_(0, torch.as_tensor(frag["index"], device=self.device),
+                                 probs)
+                index += 1
+            pred = votes.argmax(-1).cpu().numpy()
+            voted = int((votes.sum(-1) > 0).sum().item())
+            cat_idx = int(scene["category"])
+            parts = category2part[categories[cat_idx]]
+            parts_iou = np.zeros(len(parts))
+            for j, part in enumerate(parts):
+                gt, pd = segment == part, pred == part
+                if not gt.any() and not pd.any():
+                    parts_iou[j] = 1.0
+                else:
+                    parts_iou[j] = (gt & pd).sum() / max((gt | pd).sum(), 1)
+            iou_category[cat_idx] += parts_iou.mean()
+            iou_count[cat_idx] += 1
+            self.records[scene["name"]] = dict(category=cat_idx, parts_iou=parts_iou,
+                                               iou=float(parts_iou.mean()), pred=pred,
+                                               voted=voted)
+            if self.verbose:
+                self.logger.info(f"Test [{idx + 1}/{len(ds)}] {scene['name']} "
+                                 f"({categories[cat_idx]}): shape IoU "
+                                 f"{parts_iou.mean():.4f}")
+        self.result = dict(
+            ins_miou=float(iou_category.sum() / max(iou_count.sum(), 1e-10)),
+            cat_miou=float(np.mean(iou_category / np.maximum(iou_count, 1e-10))))
+        for i, name in enumerate(categories):
+            self.logger.info(f"Category {name}: iou "
+                             f"{iou_category[i] / max(iou_count[i], 1e-10):.4f} "
+                             f"({int(iou_count[i])} shapes)")
+        self.logger.info(f"PartSeg result: ins.mIoU {self.result['ins_miou']:.4f} "
+                         f"cat.mIoU {self.result['cat_miou']:.4f}")
+        return self.result["ins_miou"]

@@ -13,7 +13,9 @@ Port of `cdsegnet_tpu/models/ablation_segmentors.py` (reference
   (`losses.d3pm_kl_loss`) and/or CE on ``d3pm_logits``;
 - ⑥ `CDDMSegmentor` (GD + CD): Gaussian diffusion on the features (c),
   D3PM on the labels (n);
-- `DMSegmentor`: D3PM on one semantic branch (``condition=False``).
+- `DMSegmentor`: D3PM on one semantic branch (``condition=False``);
+- `DefaultClassifier`: shape classification from backbone features pooled
+  per scene.
 
 Two deviations of the JAX package from the reference, kept here:
 
@@ -44,6 +46,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from cdsegnet_torch.models.diffusion import DiffusionSchedule, calc_t_emb, time_schedule
+from cdsegnet_torch.models.modules import Dense
 from cdsegnet_torch.models.segmentor import Generators, _seg_valid
 from cdsegnet_torch.models.structure import PointBatch
 
@@ -470,6 +473,64 @@ class DMSegmentor(_DiffusionBase, _D3PMMixin):
 
 ABLATIONS = (ContinuousDMSegmentor, CCDMSegmentor, DiscreteDMSegmentor, CDDMSegmentor,
              DMSegmentor)
+
+
+class DefaultClassifier(nn.Module):
+    """Shape classification head over pooled backbone features (reference
+    `default.py:3329-3367`): a masked mean-pool per scene, then ``cls_fc1``
+    (256), exact GELU, ``cls_fc2`` (128), exact GELU, ``cls_head``.
+
+    ``cls_fc1`` reads the backbone's logits when its ``num_classes`` is above
+    0, else its features, ``backbone_embed_dim`` wide (a PTv2 in feature
+    mode gives its ``dec_channels[0]``). With labels, the per-scene target
+    is the largest label of the scene's valid points (ModelNet fills
+    ``segment`` with the shape's class), -1 for a scene without one, and
+    ``n_pred``, ``n_target``, ``seg_valid`` and ``cls_target`` are exported
+    for `Criteria` and the evaluator."""
+
+    def __init__(self, backbone: nn.Module, num_classes: int = 40,
+                 backbone_embed_dim: int = 512):
+        super().__init__()
+        self.backbone = backbone
+        self.num_classes = num_classes
+        width = getattr(backbone, "num_classes", 0)
+        if width <= 0:
+            width = backbone_embed_dim
+            dec = getattr(backbone, "dec_channels", None)
+            if dec is not None and dec[0] != width:
+                raise ValueError(f"backbone_embed_dim={width}, but the backbone's "
+                                 f"features are dec_channels[0]={dec[0]} wide")
+        self.cls_fc1 = Dense(width, 256)
+        self.cls_fc2 = Dense(256, 128)
+        self.cls_head = Dense(128, num_classes)
+
+    def forward(self, point: PointBatch, geometry=None, generators: Generators = None,
+                perms: Optional[list] = None) -> Dict[str, Any]:
+        gens = generators or {}
+        bb = self.backbone
+        if geometry is None:
+            geometry = bb.precompute_geometry(
+                point, perms=perms if perms is not None
+                else bb.shuffle_perms(gens.get("shuffle")))
+        feat = bb(point, geometry=geometry, generator=gens.get("dropout"))
+        s = point.num_scenes
+        seg_ids = torch.clamp(point.batch, 0, s - 1).long()
+        m = point.mask[:, None].to(feat.dtype)
+        sums = torch.zeros((s, feat.shape[1]), dtype=torch.float32, device=feat.device)
+        sums.index_add_(0, seg_ids, (feat * m).float())
+        cnts = torch.zeros((s, 1), dtype=torch.float32, device=feat.device)
+        cnts.index_add_(0, seg_ids, m.float())
+        pooled = (sums / torch.clamp(cnts, min=1.0)).to(feat.dtype)
+        x = F.gelu(self.cls_fc1(pooled))
+        x = F.gelu(self.cls_fc2(x))
+        logits = self.cls_head(x)
+        out: Dict[str, Any] = dict(cls_pred=logits)
+        if point.segment is not None:
+            labels = torch.where(point.mask, point.segment, -1)
+            tgt = torch.full((s,), -1, dtype=labels.dtype, device=labels.device)
+            tgt.scatter_reduce_(0, seg_ids, labels, "amax", include_self=True)
+            out.update(n_pred=logits, n_target=tgt, seg_valid=tgt >= 0, cls_target=tgt)
+        return out
 
 
 def init_multistep_state(model: nn.Module, point: PointBatch,

@@ -1,11 +1,12 @@
 """Config-dict factories for the ported models.
 
-Port of the `DefaultSegmentorV2`, `DefaultSegmentor`, `PT-v3m1` and NCF
-ablation entries of `cdsegnet_tpu/models/builder.py`: reference-style config
-dicts (such as the ``model`` dict of `configs/scannet/cdsegnet.py`) map to
-module fields with the same kwarg translation. `build_model_criteria`
-builds the losses named in the same dict. The model zoo's types are not
-ported: `MODELS` raises `NotImplementedError` naming their ROADMAP item.
+Port of the `DefaultSegmentorV2`, `DefaultSegmentor`, `PT-v3m1`, NCF
+ablation, `DefaultClassifier` and `PT-v2m1`/`m2`/`m3` entries of
+`cdsegnet_tpu/models/builder.py`: reference-style config dicts (such as the
+``model`` dict of `configs/scannet/cdsegnet.py`) map to module fields with
+the same kwarg translation. `build_model_criteria` builds the losses named
+in the same dict. The rest of the model zoo is not ported: `build_model`
+raises `NotImplementedError` for its types.
 """
 
 from __future__ import annotations
@@ -14,12 +15,13 @@ from typing import Any, Dict, Optional, Union
 
 import torch
 
-from cdsegnet_torch.models.ablation_segmentors import ABLATIONS
+from cdsegnet_torch.models.ablation_segmentors import ABLATIONS, DefaultClassifier
 from cdsegnet_torch.models.losses import Criteria, build_criteria
+from cdsegnet_torch.models.ptv2 import VARIANTS as PTV2_VARIANTS
+from cdsegnet_torch.models.ptv2 import build_ptv2
 from cdsegnet_torch.models.ptv3 import PointTransformerV3
 from cdsegnet_torch.models.segmentor import CNFSegmentor, PlainSegmentor
 from cdsegnet_torch.utils.device import resolve_device
-from cdsegnet_torch.utils.registry import Registry
 from cdsegnet_torch.utils.weights import init_weights
 
 _ORDER_ALIASES = {"z_trans": "z-trans", "hilbert_trans": "hilbert-trans"}
@@ -35,10 +37,6 @@ _SEGMENTOR_KEYS = {
     "dm_input", "dm_target", "dm_min_snr", "condition", "c_in_channels",
 }
 _ABLATIONS = {cls.__name__: cls for cls in ABLATIONS}
-# the types of the JAX package's registry that the port does not build yet
-MODELS = Registry("models")
-MODELS.register_unported(("DefaultClassifier",),
-                         "The model zoo and the rest of the engine and data")
 
 
 def _norm_orders(order):
@@ -49,9 +47,8 @@ def _norm_orders(order):
 
 def build_ptv3(**cfg: Any) -> PointTransformerV3:
     """Translate reference PT-v3m1 kwargs into `PointTransformerV3` fields."""
+    _dtype(cfg)
     dtype = cfg.pop("dtype", torch.float32)
-    if isinstance(dtype, str):
-        dtype = _DTYPES[dtype]
     skip_mode = cfg.pop("skip_connection_mode", "cat")
     skip_scale = cfg.pop("skip_connection_scale", True)
     # n-branch exponential skip scaling is not stage-resolvable in one
@@ -76,6 +73,11 @@ def build_ptv3(**cfg: Any) -> PointTransformerV3:
     return PointTransformerV3(**kwargs)
 
 
+def _dtype(cfg: Dict[str, Any]) -> None:
+    if isinstance(cfg.get("dtype"), str):
+        cfg["dtype"] = _DTYPES[cfg["dtype"]]
+
+
 def _build(cfg: Dict[str, Any]) -> torch.nn.Module:
     cfg = dict(cfg)
     kind = cfg.pop("type")
@@ -97,8 +99,14 @@ def _build(cfg: Dict[str, Any]) -> torch.nn.Module:
         backbone = _build(cfg.pop("backbone"))
         kwargs = {k: v for k, v in cfg.items() if k in _SEGMENTOR_KEYS}
         return _ABLATIONS[kind](backbone=backbone, t_dim=cfg.get("T_dim", 128), **kwargs)
-    if kind in MODELS:
-        return MODELS.build(dict(cfg, type=kind))
+    if kind in PTV2_VARIANTS:
+        _dtype(cfg)
+        return build_ptv2(kind, **{k: tuple(v) if isinstance(v, list) else v
+                                   for k, v in cfg.items()})
+    if kind == "DefaultClassifier":
+        return DefaultClassifier(backbone=_build(cfg.pop("backbone")),
+                                 num_classes=cfg.get("num_classes", 40),
+                                 backbone_embed_dim=cfg.get("backbone_embed_dim", 512))
     raise NotImplementedError(f"model type {kind!r} is not ported")
 
 

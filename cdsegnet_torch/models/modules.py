@@ -1,5 +1,5 @@
-"""Building blocks: Dense, masked BatchNorm, LayerNorm, MLP, dropout, DropPath,
-SubMConv.
+"""Building blocks: Dense, masked BatchNorm (plain and prompt-driven),
+LayerNorm, MLP, dropout, DropPath, SubMConv.
 
 Port of `cdsegnet_tpu/models/modules.py`. Parameters are float32 and carry
 the flax names (``scale``/``bias`` for norms, ``weight`` (K, C_in, C_out)
@@ -75,6 +75,80 @@ class MaskedBatchNorm(nn.Module):
             mean, var = self.mean, self.var
         y = (xf - mean) * torch.rsqrt(var + self.eps)
         return (y * self.scale + self.bias).to(self.dtype)
+
+
+class PDMaskedBatchNorm(nn.Module):
+    """Prompt-driven masked BatchNorm (reference ``PDBatchNorm``,
+    `point_transformer_v2m3_pdnorm.py:27-78`): `MaskedBatchNorm` with one
+    set of parameters and running statistics per condition (dataset),
+    stacked as ``(num_conditions, C)`` and selected by the call's
+    ``condition``; in training only that condition's statistics advance.
+    ``adaptive`` adds the context modulation: ``modulation``, a Dense of
+    ``silu(context)`` (``context_channels`` wide) to a shift and a scale."""
+
+    def __init__(self, features: int, num_conditions: int = 1, adaptive: bool = False,
+                 affine: bool = True, eps: float = 1e-3, momentum: float = 0.01,
+                 context_channels: int = 256, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.num_conditions = num_conditions
+        self.eps = eps
+        self.momentum = momentum
+        self.dtype = dtype
+        k = num_conditions
+        self.register_buffer("mean", torch.zeros(k, features))
+        self.register_buffer("var", torch.ones(k, features))
+        if affine:
+            self.scale = nn.Parameter(torch.ones(k, features))
+            self.bias = nn.Parameter(torch.zeros(k, features))
+        else:
+            self.scale = self.bias = None
+        self.modulation = Dense(context_channels, 2 * features) if adaptive else None
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor, condition: int = 0,
+                context: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if not 0 <= condition < self.num_conditions:
+            raise ValueError(f"condition {condition} out of range {self.num_conditions}")
+        xf = x.float()
+        if self.training:
+            m = mask.float()[:, None]
+            cnt = torch.clamp(m.sum(), min=1.0)
+            mean = (xf * m).sum(0) / cnt
+            var = ((xf - mean).square() * m).sum(0) / cnt
+            with torch.no_grad():
+                unbiased = var * cnt / torch.clamp(cnt - 1.0, min=1.0)
+                self.mean[condition] = ((1 - self.momentum) * self.mean[condition]
+                                        + self.momentum * mean)
+                self.var[condition] = ((1 - self.momentum) * self.var[condition]
+                                       + self.momentum * unbiased)
+        else:
+            mean, var = self.mean[condition], self.var[condition]
+        y = (xf - mean) * torch.rsqrt(var + self.eps)
+        if self.scale is not None:
+            y = y * self.scale[condition] + self.bias[condition]
+        if self.modulation is not None:
+            if context is None:
+                raise ValueError("adaptive PDNorm needs a context vector")
+            shift, scale = self.modulation(F.silu(context.float())).chunk(2, dim=-1)
+            y = y * (1.0 + scale) + shift
+        return y.to(self.dtype)
+
+
+def make_norm(c: int, *, num_conditions: int = 0, adaptive: bool = False,
+              context_channels: int = 256, dtype: torch.dtype = torch.float32):
+    """Plain masked BN, or prompt-driven BN when ``num_conditions > 0``
+    (JAX: `cdsegnet_tpu/models/spunet.py::make_norm`)."""
+    if num_conditions > 0:
+        return PDMaskedBatchNorm(c, num_conditions=num_conditions, adaptive=adaptive,
+                                 context_channels=context_channels, dtype=dtype)
+    return MaskedBatchNorm(c, dtype=dtype)
+
+
+def apply_norm(mod: nn.Module, f: torch.Tensor, mask: torch.Tensor, condition: int = 0,
+               context: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Call a norm of `make_norm`: the condition and context go to PDNorm."""
+    if isinstance(mod, PDMaskedBatchNorm):
+        return mod(f, mask, condition, context)
+    return mod(f, mask)
 
 
 class LayerNorm(nn.Module):

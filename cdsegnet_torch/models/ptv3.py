@@ -571,6 +571,7 @@ class PointTransformerV3(nn.Module):
         self.n_enc_patch_size = tuple(n_enc_patch_size)
         self.capacity_div = tuple(capacity_div)
         self.condition = condition
+        self.num_classes = num_classes
         self.t_dim = t_dim
         self.xcpe_mode = xcpe_mode
         self.n_shifts = _cumshift(n_stride)

@@ -1,6 +1,7 @@
 """Shared geometry pyramid: serialization and pooling structure per level.
 
-Port of `cdsegnet_tpu/models/pyramid.py`. Both CDSegNet branches run on the
+Port of `cdsegnet_tpu/models/pyramid.py`, with the metric-grid pyramid of
+the kNN models (`build_metric_pyramid`). Both CDSegNet branches run on the
 same points, and the c-branch strides visit a subset of the n-branch grids,
 so codes, sort orders, neighbor tables and cluster maps are built once per
 level and shared. Levels have static capacities; padding and empty slots
@@ -40,8 +41,9 @@ class Level:
     parent_inverse: Optional[torch.Tensor] = None  # (Mp,) parent -> slot
     parent_head: Optional[torch.Tensor] = None  # (M,) head parent index
     # number of valid parent points routed to the overflow slot when pooling
-    # into this level: an int32 scalar tensor from `build_pooled_level`, a
-    # Python int once `build_pyramid` has read it (None at level 0)
+    # into this level: an int32 scalar tensor from `build_pooled_level` and
+    # `build_metric_level`, a Python int once `build_pyramid` (or PTv2's
+    # `precompute_geometry`) has read it (None at level 0)
     dropped: Optional[object] = None
 
     @property
@@ -107,11 +109,13 @@ def build_pooled_level(parent: Level, stride: int, capacity: int,
 
     # curve 0 is free: clusters are numbered by rank along curve 0, so the
     # child's order and inverse are the identity and codes[0] is sorted
-    order_t, cs_t = map(torch.stack, zip(*(packed_sort(c, kb_child + 1)
-                                           for c in codes[1:])))
-    order = torch.cat([iota_m[None], order_t])
-    inverse = torch.cat([iota_m[None], _inverse(order_t)])
-    codes_sorted = torch.cat([codes[:1], cs_t])
+    order, inverse, codes_sorted = iota_m[None], iota_m[None], codes[:1]
+    if len(codes) > 1:  # the tail curves: one packed sort each
+        order_t, cs_t = map(torch.stack, zip(*(packed_sort(c, kb_child + 1)
+                                               for c in codes[1:])))
+        order = torch.cat([order, order_t])
+        inverse = torch.cat([inverse, _inverse(order_t)])
+        codes_sorted = torch.cat([codes_sorted, cs_t])
     if perm is not None:
         perm = list(perm)
         codes, order, inverse, codes_sorted = (
@@ -136,6 +140,66 @@ def build_pooled_level(parent: Level, stride: int, capacity: int,
         point=child, pool_sort=sort0, pool_seg=seg_c, pool_valid=valid,
         parent_inverse=parent_inverse, parent_head=head_parent, dropped=dropped,
     )
+
+
+def build_metric_level(parent: Level, grid_size: float, capacity: int) -> Level:
+    """Derive a coarse level by metric voxel clustering (reference PTv2
+    `GridPool`, `point_transformer_v2m2_base.py:229-269`): voxelize ``coord -
+    per-scene min`` at ``grid_size``, cluster equal voxels by one stable
+    argsort of their int64 keys (scene, x, y, z), mean coords. The level has
+    no codes, orders or neighbor tables: kNN models need coords and masks
+    only. ``dropped`` is the int32 count of valid parent points routed to
+    the overflow slot."""
+    pp = parent.point
+    mp, m, s = pp.num_points, capacity, pp.num_scenes
+    dev = pp.coord.device
+    batch_c = torch.clamp(pp.batch, max=s).long()
+    masked = torch.where(pp.mask[:, None], pp.coord, torch.full_like(pp.coord, 1e9))
+    cmin = torch.full((s + 1, 3), float("inf"), dtype=torch.float32, device=dev)
+    cmin.scatter_reduce_(0, batch_c[:, None].expand(-1, 3), masked, "amin",
+                         include_self=True)
+    rel = pp.coord - cmin[batch_c]
+    # a true division by a device tensor (not a multiplication by the
+    # reciprocal of a host scalar), as JAX divides
+    vox = torch.floor(rel / torch.full_like(rel, grid_size)).to(torch.int64)
+    vox = torch.clamp(vox, 0, (1 << 20) - 1)
+    key = (batch_c << 60) | (vox[:, 0] << 40) | (vox[:, 1] << 20) | vox[:, 2]
+    key = torch.where(pp.mask, key, torch.iinfo(torch.int64).max)
+    sort0 = torch.argsort(key, stable=True).to(torch.int32)
+    seg = seg_ops.sorted_segment_ids(key[sort0])
+    seg_c = torch.clamp(seg, max=m - 1).to(torch.int32)
+    mask_sorted = pp.mask[sort0]
+    valid = mask_sorted & (seg < m - 1)
+    dropped = (mask_sorted & (seg >= m - 1)).sum().to(torch.int32)
+
+    first_pos = seg_ops.segment_first_position(seg_c, m)
+    head_parent = sort0[first_pos]
+    new_mask = seg_ops.segment_any(valid, seg_c, m)
+    batch = torch.where(new_mask, pp.batch[head_parent], s).to(torch.int32)
+    coord = seg_ops.segment_reduce(pp.coord[sort0], seg_c, m, reduce="mean",
+                                   valid=valid)
+    grid = torch.where(new_mask[:, None], vox[head_parent], 0).to(torch.int32)
+    parent_inverse = torch.zeros(mp, dtype=torch.int32, device=dev)
+    parent_inverse[sort0.long()] = seg_c
+    child = PointBatch(
+        coord=coord, grid_coord=grid,
+        feat=torch.zeros((m, 1), dtype=torch.float32, device=dev),
+        mask=new_mask, batch=batch, depth=pp.depth, num_scenes=s)
+    return Level(point=child, pool_sort=sort0, pool_seg=seg_c, pool_valid=valid,
+                 parent_inverse=parent_inverse, parent_head=head_parent,
+                 dropped=dropped)
+
+
+def build_metric_pyramid(point: PointBatch, grid_sizes: Sequence[float],
+                         capacities: Sequence[int]) -> List[Level]:
+    """Metric-grid pyramid for kNN models: level 0 is the raw batch (no
+    serialization or neighbor tables), each deeper level clusters its parent
+    at the next grid size (reference PTv2 ``grid_sizes=(0.06, 0.12, 0.24,
+    0.48)``, `point_transformer_v2m2_base.py:465`)."""
+    levels = [Level(point=point)]
+    for gs, cap in zip(grid_sizes, capacities):
+        levels.append(build_metric_level(levels[-1], gs, cap))
+    return levels
 
 
 def _k3(pt: PointBatch) -> torch.Tensor:

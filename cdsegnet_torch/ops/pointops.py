@@ -1,0 +1,253 @@
+"""Neighborhood ops over masked static shapes: kNN, ball query, grouping,
+3-NN interpolation and the evaluator's 1-NN label remap.
+
+Port of `cdsegnet_tpu/ops/pointops.py` (reference CUDA `libs/pointops`).
+The definition is JAX's: squared distances by the expansion
+``|q|^2 - 2 q.r + |r|^2`` in float32, BIG added at invalid references and
+BIG across scenes, then the k smallest, ties to the lower index first (as
+`lax.top_k` orders them). Invalid queries return index N (the guard row)
+and distance BIG; a slot with no in-scene valid reference returns N.
+
+`knn_dense` computes that definition as JAX does, every query against every
+reference in chunks of rows; it is the plain version, run by the tests and
+by `chip_smoke.py`'s check. `knn` computes only valid queries against the
+valid references of their own scene (each scene's points gathered in index
+order, then the results scattered back), which gives exactly the dense
+outputs at a fraction of the work when a bucket is mostly padding or holds
+several scenes. The dot products are elementwise chains of fused
+multiply-adds, as XLA rounds them on the CPU, so both forms give the same
+bits on any device (no TF32, no tiling-dependent sums) and the same order
+among near-ties.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from cdsegnet_torch.ops.subm_conv import _gather_rows
+
+BIG = 1e30
+# distance elements per tile of `knn`: 2^26 float32 (256 MiB) and a few
+# temporaries of that size
+_TILE = 1 << 26
+
+
+def _dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a0 b0 + a1 b1 + a2 b2`` as a chain of fused multiply-adds,
+    ``fma(a2, b2, fma(a1, b1, a0 b0))``: the rounding of XLA's dot and row
+    sum on the CPU (`torch.addcmul` is fused there)."""
+    d = a[..., 0] * b[..., 0]
+    d = torch.addcmul(d, a[..., 1], b[..., 1])
+    return torch.addcmul(d, a[..., 2], b[..., 2])
+
+
+def _dist2(q: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """Squared distances (M, R) by the expansion ``qq - 2 q.r + rr``,
+    clamped at 0."""
+    qq = _dot3(q, q)[:, None]
+    rr = _dot3(r, r)[None, :]
+    d = _dot3(q[:, None, :], r[None, :, :])
+    d = torch.add(qq, d, alpha=-2.0)  # qq - 2 cross: the doubling is exact
+    d += rr
+    return d.clamp_(min=0.0)
+
+
+def _fix_boundary_ties(d, vals, idx, nxt, k):
+    """Rows where the (k+1)-th candidate ties the k-th (below BIG / 2): the
+    k-set itself must take the lowest columns among the tied values."""
+    rows = torch.nonzero((vals[:, k - 1] == nxt) & (nxt < 0.5 * BIG)).flatten()
+    if rows.numel() == 0:
+        return vals, idx
+    sub = d[rows]
+    t = vals[rows, k - 1:k]
+    less = sub < t
+    eq = sub == t
+    room = k - less.sum(1, keepdim=True)
+    sel = less | (eq & (torch.cumsum(eq.to(torch.int32), 1) <= room))
+    cols = torch.nonzero(sel)[:, 1].reshape(-1, k)  # ascending columns per row
+    v, perm = torch.sort(sub.gather(1, cols), dim=1, stable=True)
+    vals, idx = vals.clone(), idx.clone()
+    vals[rows] = v
+    idx[rows] = cols.gather(1, perm)
+    return vals, idx
+
+
+def k_smallest(d: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ``k`` smallest entries of each row of ``d`` (k <= columns) in
+    ascending (value, column) order, as `lax.top_k` of ``-d`` gives them:
+    ``(values, columns)``.
+
+    `torch.topk` promises no order among equal values. Its k + 1 candidates
+    are re-sorted by column and then stably by value; a row whose k-th and
+    (k+1)-th values tie (below BIG / 2: larger ones become the guard index)
+    takes its k-set again from the whole row, lowest columns first among
+    the tied values."""
+    cols = d.shape[1]
+    kk = min(k + 1, cols)
+    vals, idx = torch.topk(d, kk, dim=1, largest=False, sorted=True)
+    idx, perm = torch.sort(idx, dim=1)
+    vals, perm = torch.sort(vals.gather(1, perm), dim=1, stable=True)
+    idx = idx.gather(1, perm)
+    if kk == k:
+        return vals, idx
+    return _fix_boundary_ties(d, vals[:, :k], idx[:, :k], vals[:, k], k)
+
+
+def _defaults(query, ref, query_mask, ref_mask):
+    m, n = query.shape[0], ref.shape[0]
+    dev = query.device
+    qm = (torch.ones(m, dtype=torch.bool, device=dev) if query_mask is None
+          else query_mask.to(torch.bool))
+    rm = (torch.ones(n, dtype=torch.bool, device=dev) if ref_mask is None
+          else ref_mask.to(torch.bool))
+    return qm, rm
+
+
+def _finish(idx, dist, qm, n):
+    """JAX's last step: slots whose candidate was invalid point at the guard
+    row, invalid queries get distance BIG."""
+    idx = torch.where(qm[:, None] & (dist < 0.5 * BIG), idx, n)
+    dist = torch.where(qm[:, None], dist, torch.full_like(dist, BIG))
+    return idx.to(torch.int32), dist
+
+
+def knn_dense(query: torch.Tensor, ref: torch.Tensor, k: int,
+              query_mask: Optional[torch.Tensor] = None,
+              ref_mask: Optional[torch.Tensor] = None, chunk: int = 2048,
+              query_batch: Optional[torch.Tensor] = None,
+              ref_batch: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of `knn`: every query against every reference, in
+    chunks of ``chunk`` rows, as `cdsegnet_tpu.ops.pointops.knn` computes it
+    (BIG added at invalid references, BIG across scenes)."""
+    m, n = query.shape[0], ref.shape[0]
+    qm, rm = _defaults(query, ref, query_mask, ref_mask)
+    query, ref = query.float(), ref.float()
+    rbad = torch.where(rm, 0.0, BIG)[None, :].to(torch.float32)
+    idxs, dists = [], []
+    for s in range(0, m, chunk):
+        d = _dist2(query[s:s + chunk], ref) + rbad
+        if query_batch is not None:
+            same = query_batch[s:s + chunk, None].int() == ref_batch[None, :].int()
+            d = torch.where(same, d, torch.full_like(d, BIG))
+        v, i = k_smallest(d, k)
+        idxs.append(i)
+        dists.append(v)
+    return _finish(torch.cat(idxs), torch.cat(dists), qm, n)
+
+
+def _scene_runs(keys: torch.Tensor):
+    """``(order, {scene: (start, stop)})``: indices stably sorted by key (so
+    ascending within a scene) and each non-negative key's run in them."""
+    order = torch.argsort(keys, stable=True)
+    uniq, counts = torch.unique_consecutive(keys[order], return_counts=True)
+    runs, start = {}, 0
+    for u, c in zip(uniq.tolist(), counts.tolist()):
+        if u >= 0:
+            runs[u] = (start, start + c)
+        start += c
+    return order, runs
+
+
+def knn(query: torch.Tensor, ref: torch.Tensor, k: int,
+        query_mask: Optional[torch.Tensor] = None,
+        ref_mask: Optional[torch.Tensor] = None, chunk: Optional[int] = None,
+        query_batch: Optional[torch.Tensor] = None,
+        ref_batch: Optional[torch.Tensor] = None
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """k nearest references of each query: ``(idx (M, k) int32, dist2 (M, k)
+    float32)``, equal to `knn_dense`'s.
+
+    Invalid references never match; invalid queries return index N and
+    distance BIG. With ``query_batch``/``ref_batch`` scene ids, neighbors
+    never cross scenes; a slot that found no valid in-scene reference (a
+    scene smaller than k) returns N and BIG. Each scene's valid queries are
+    compared with its valid references only, in tiles of about 2^26
+    distances (``chunk`` rows when given)."""
+    m, n = query.shape[0], ref.shape[0]
+    dev = query.device
+    qm, rm = _defaults(query, ref, query_mask, ref_mask)
+    query, ref = query.float(), ref.float()
+    if query_batch is None:
+        qkey, rkey = torch.where(qm, 0, -1), torch.where(rm, 0, -1)
+    else:
+        qkey = torch.where(qm, query_batch.long(), -1)
+        rkey = torch.where(rm, ref_batch.long(), -1)
+    q_order, q_runs = _scene_runs(qkey)
+    r_order, r_runs = _scene_runs(rkey)
+    idx = torch.full((m, k), n, dtype=torch.int64, device=dev)
+    dist = torch.full((m, k), BIG, dtype=torch.float32, device=dev)
+    for scene, (q0, q1) in q_runs.items():
+        if scene not in r_runs:
+            continue
+        r0, r1 = r_runs[scene]
+        ri = r_order[r0:r1]
+        r_pts = ref[ri]
+        kk = min(k, r1 - r0)
+        rows = chunk or max(1, _TILE // (r1 - r0))
+        for s in range(q0, q1, rows):
+            qi = q_order[s:min(s + rows, q1)]
+            v, j = k_smallest(_dist2(query[qi], r_pts), kk)
+            idx[qi, :kk] = ri[j]
+            dist[qi, :kk] = v
+    return _finish(idx, dist, qm, n)
+
+
+def ball_query(query: torch.Tensor, ref: torch.Tensor, radius: float, nsample: int,
+               query_mask: Optional[torch.Tensor] = None,
+               ref_mask: Optional[torch.Tensor] = None,
+               chunk: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Up to ``nsample`` references within ``radius``; short lists repeat the
+    nearest neighbor (reference ball-query semantics)."""
+    idx, dist = knn(query, ref, nsample, query_mask, ref_mask, chunk)
+    inside = dist <= radius * radius
+    idx = torch.where(inside, idx, idx[:, :1].expand_as(idx))
+    dist = torch.where(inside, dist, dist[:, :1].expand_as(dist))
+    return idx, dist
+
+
+def farthest_point_sampling(*args, **kwargs):
+    raise NotImplementedError(
+        'farthest_point_sampling is not ported (ROADMAP Queue 1 item 8: "PTv1 '
+        'with farthest-point sampling")')
+
+
+def farthest_point_sampling_batched(*args, **kwargs):
+    raise NotImplementedError(
+        'farthest_point_sampling_batched is not ported (ROADMAP Queue 1 item 8: '
+        '"PTv1 with farthest-point sampling")')
+
+
+def grouping(feat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Gather neighbor features ``(M, k, C)``; index N reads zeros. The
+    backward scatters with `index_add_` (guard indices repeat)."""
+    return _gather_rows(feat, idx).reshape(idx.shape + feat.shape[1:])
+
+
+def three_interpolation(target_coord: torch.Tensor, source_coord: torch.Tensor,
+                        source_feat: torch.Tensor,
+                        target_mask: Optional[torch.Tensor] = None,
+                        source_mask: Optional[torch.Tensor] = None,
+                        target_batch: Optional[torch.Tensor] = None,
+                        source_batch: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Inverse-distance-weighted 3-NN interpolation (reference
+    `src/interpolation`)."""
+    idx, d2 = knn(target_coord, source_coord, 3, target_mask, source_mask,
+                  query_batch=target_batch, ref_batch=source_batch)
+    w = 1.0 / torch.clamp(d2, min=1e-8)
+    w = w / w.sum(-1, keepdim=True)
+    neigh = grouping(source_feat, idx)  # (M, 3, C)
+    return (neigh * w[..., None].to(source_feat.dtype)).sum(1)
+
+
+def knn_remap_labels(origin_coord: torch.Tensor, sampled_coord: torch.Tensor,
+                     sampled_pred: torch.Tensor,
+                     origin_mask: Optional[torch.Tensor] = None,
+                     sampled_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """1-NN label transfer from grid-sampled points to the original points
+    (the evaluator's remap, reference `hooks/evaluator.py:132-141`)."""
+    idx, _ = knn(origin_coord, sampled_coord, 1, origin_mask, sampled_mask)
+    guard = torch.cat([sampled_pred, sampled_pred.new_zeros(1)])
+    return guard[idx[:, 0].long()]

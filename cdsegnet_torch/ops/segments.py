@@ -51,11 +51,13 @@ def segment_reduce(
                 torch.full((), neutral, dtype=values_sorted.dtype,
                            device=values_sorted.device),
             )
-        out = torch.zeros(shape, dtype=values_sorted.dtype,
-                          device=values_sorted.device)
+        # -inf, never a row's value: the backward splits the gradient among
+        # the rows equal to the max and would count an equal initial value
+        # as one of them, though include_self=False leaves it out of the
+        # max. An empty segment keeps -inf, made 0 below.
+        out = torch.full(shape, float("-inf"), dtype=values_sorted.dtype,
+                         device=values_sorted.device)
         idx = _bc(seg_ids.long(), values_sorted).expand_as(values_sorted)
-        # an empty segment keeps its initial 0 (include_self=False only
-        # reduces over the rows scattered into it)
         out.scatter_reduce_(0, idx, values_sorted, "amax", include_self=False)
         out = torch.where(torch.isfinite(out.float()), out, torch.zeros_like(out))
         if valid is not None:

@@ -2,11 +2,12 @@
 
 Usage, from the root of a checkout::
 
-    python -m cdsegnet_torch.tools.profile_ssi --out DIR
+    python -m cdsegnet_torch.tools.profile_ssi --out DIR [--config FILE]
 
-Builds the model of `configs/scannet/cdsegnet.py` (random weights from a
-seed) on the synthetic 104,448-point bench scene, then reports, for one SSI
-step:
+Builds the model of ``--config`` (`configs/scannet/cdsegnet.py` by default;
+e.g. `configs/scannet/ptv2.py`; random weights from a seed) on the
+synthetic 104,448-point bench scene, then reports, for one SSI step (a
+model without SSI, such as PTv2, its eval forward):
 
 - host-clock times (median of 10 after 3 warm-ups, each ending in a
   synchronize) of the geometry build alone, the forward on precomputed
@@ -16,7 +17,8 @@ step:
   device time by kernel family and by kernel.
 
 The full kernel table, and the host operators by self CPU time, go to
-``<out>/profile_ssi.txt``. `profile_train` shares this code.
+``<out>/profile_ssi.txt`` (``profile_ssi_<config name>.txt`` for another
+config). `profile_train` shares this code.
 """
 
 from __future__ import annotations
@@ -24,13 +26,13 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import runpy
 import statistics
 import subprocess
 import time
 
 import torch
 
+from cdsegnet_torch.engine.config import Config
 from cdsegnet_torch.models.builder import build_model
 from cdsegnet_torch.utils.synthetic import synthetic_point_batch
 
@@ -39,6 +41,7 @@ NUM_POINTS = 104448  # the bench scene of the JAX package (bench.py)
 # kernel-name substrings -> family, first match wins
 FAMILIES = (
     ("attention kernel", ("patch_attention_fwd",)),
+    ("topk", ("TopK", "topk", "KthValue", "radixFind", "computeBlockwise")),
     ("attention backward kernels", ("patch_attention_bwd",)),
     ("sort", ("sort", "Sort", "radix", "Radix")),
     ("matmul", ("gemm", "Gemm", "cutlass", "sm90_xmma", "cublas", "nvjet")),
@@ -72,32 +75,51 @@ def card_name() -> str:
         check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
 
 
+DEFAULT_CONFIG = os.path.join("configs", "scannet", "cdsegnet.py")
+
+
+def load_config(path: str):
+    """A config file (relative to the checkout's root, or absolute) with its
+    ``_base_`` chain merged, and the name of its profile tables' suffix:
+    empty for the default config, else ``_<file stem>``."""
+    full = path if os.path.isabs(path) else os.path.join(ROOT, path)
+    same = os.path.abspath(full) == os.path.join(ROOT, DEFAULT_CONFIG)
+    return Config.fromfile(full), "" if same else \
+        "_" + os.path.splitext(os.path.basename(full))[0]
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", required=True, help="directory for profile_ssi.txt")
+    ap.add_argument("--config", default=DEFAULT_CONFIG, help="the model's config file")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_ssi needs a CUDA device")
     card = card_name()
 
-    cfg = runpy.run_path(os.path.join(ROOT, "configs", "scannet", "cdsegnet.py"))["model"]
-    model = build_model(cfg, device="cuda", generator=torch.Generator().manual_seed(0))
+    conf, suffix = load_config(args.config)
+    model = build_model(dict(conf.model), device="cuda",
+                        generator=torch.Generator().manual_seed(0))
     point = synthetic_point_batch(NUM_POINTS, 1, depth=10, seed=0, device="cuda")
     noise = torch.randn((NUM_POINTS, 6), device="cuda",
                         generator=torch.Generator(device="cuda").manual_seed(7))
     n_valid = int(point.mask.sum().item())
     geometry = model.backbone.precompute_geometry(point)
 
-    step = lambda: model.inference(point, noise=noise)
+    @torch.no_grad()
+    def run(geometry=None):
+        if hasattr(type(model), "inference"):
+            return model.inference(point, noise=noise, geometry=geometry)
+        return model(point, geometry=geometry)
+
     res = dict(
-        card=card, points=NUM_POINTS, n_valid=n_valid,
+        card=card, config=args.config, points=NUM_POINTS, n_valid=n_valid,
         geometry_ms=host_ms(lambda: model.backbone.precompute_geometry(point)),
-        forward_ms=host_ms(lambda: model.inference(point, noise=noise,
-                                                   geometry=geometry)),
-        step_ms=host_ms(step),
+        forward_ms=host_ms(lambda: run(geometry)),
+        step_ms=host_ms(run),
     )
 
-    profile_steps(step, 3, res, os.path.join(args.out, "profile_ssi.txt"))
+    profile_steps(run, 3, res, os.path.join(args.out, f"profile_ssi{suffix}.txt"))
 
 
 def profile_steps(step, steps: int, res: dict, path: str) -> None:

@@ -2,20 +2,25 @@
 
 Usage, from the root of a checkout::
 
-    python -m cdsegnet_torch.tools.profile_train --out DIR [--trainer | --microbatch M]
+    python -m cdsegnet_torch.tools.profile_train --out DIR \
+        [--trainer | --microbatch M | --config FILE]
 
 Without ``--trainer``: builds the model, criteria and optimizer of
-`configs/scannet/cdsegnet.py` (random weights from a seed) as `chip_smoke.py`
+``--config`` (`configs/scannet/cdsegnet.py` by default; e.g.
+`configs/scannet/ptv2.py`; random weights from a seed) as `chip_smoke.py`
 trains them, on the config's synthetic bucket (2 scenes, 204,800 slots,
 serialization depth 12; with ``--microbatch 2`` two micro buckets of
 102,400 slots, one scene each, trained in turn as `chip_smoke.py` phase 13
-does), then reports for one training step (forward, GLS loss, backward,
+does), then reports for one training step (forward, loss, backward,
 AdamW):
 
 - the host-clock step time (median of 5 after 3 warm-ups, each ending in a
   synchronize) and the peak device memory;
 - from `torch.profiler` over 2 steps: the device time per step, the device's
-  idle share, and the device time by kernel family and by kernel.
+  idle share, and the device time by kernel family and by kernel;
+- for a kNN model (PTv2): the device time of its geometry alone (the
+  metric pyramid and one kNN table per level, which the step builds), from
+  `torch.profiler` over 2 builds, and each level's kNN ms (CUDA events).
 
 With ``--trainer``: runs the trainer through `tools/train.py` on the same
 config, as users train it (the shipped train pipeline, Mix3D, the one
@@ -36,8 +41,10 @@ warm-ups, `torch.profiler` over 2 calls).
 
 The kernel tables and the host operators by self CPU time go to
 ``<out>/profile_train.txt`` (``profile_train_micro<M>.txt`` with
-``--microbatch``; ``profile_trainer.txt`` and
-``profile_eval.txt``); the code is `profile_ssi`'s.
+``--microbatch``, ``profile_train_<config name>.txt`` and
+``profile_geometry_<config name>.txt`` with another config;
+``profile_trainer.txt`` and ``profile_eval.txt``); the code is
+`profile_ssi`'s.
 """
 
 from __future__ import annotations
@@ -45,7 +52,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import runpy
 import statistics
 import time
 
@@ -54,8 +60,9 @@ import torch
 from cdsegnet_torch.engine.optimizer import build_optimizer
 from cdsegnet_torch.engine.state import make_train_step
 from cdsegnet_torch.models.builder import build_model, build_model_criteria
-from cdsegnet_torch.tools.profile_ssi import (ROOT, card_name, host_ms, make_profiler,
-                                              profile_steps, report)
+from cdsegnet_torch.tools.profile_ssi import (DEFAULT_CONFIG, ROOT, card_name, host_ms,
+                                              load_config, make_profiler, profile_steps,
+                                              report)
 from cdsegnet_torch.utils.synthetic import synthetic_point_batch
 
 TOTAL_STEPS = 1000  # OneCycle length; the profile takes the first steps
@@ -75,6 +82,8 @@ def main() -> None:
                     help="--trainer: synthetic train rooms (two per iteration)")
     ap.add_argument("--microbatch", type=int, default=1,
                     help="micro buckets per step (1 or 2, the config's values)")
+    ap.add_argument("--config", default=DEFAULT_CONFIG,
+                    help="the model's config file (not with --trainer)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_train needs a CUDA device")
@@ -85,10 +94,9 @@ def main() -> None:
                              "iterations")
         profile_trainer(args.out, args.rooms)
         return
-    conf = runpy.run_path(os.path.join(ROOT, "configs", "scannet", "cdsegnet.py"))
-    depth = runpy.run_path(os.path.join(
-        ROOT, "configs", "_base_", "default_runtime.py"))["serialization_depth"]
-    cfg = conf["model"]
+    conf, suffix = load_config(args.config)
+    depth = conf.get("serialization_depth", 12)
+    cfg = dict(conf.model)
     model = build_model(cfg, device="cuda", generator=torch.Generator().manual_seed(0))
     opt = build_optimizer(dict(conf["optimizer"]), model, dict(conf["scheduler"]),
                           total_steps=TOTAL_STEPS,
@@ -103,14 +111,45 @@ def main() -> None:
     step = lambda: step_fn(points[0] if m == 1 else points)
 
     torch.cuda.reset_peak_memory_stats()
-    res = dict(card=card_name(), microbatch=m, slots=sum(p.num_points for p in points),
+    res = dict(card=card_name(), config=args.config, microbatch=m,
+               slots=sum(p.num_points for p in points),
                n_valid=sum(int(p.mask.sum().item()) for p in points),
                step_ms=host_ms(step, 3, 5))
     res.update(peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
                points_per_s=res["n_valid"] / (res["step_ms"] / 1e3))
     print("train " + json.dumps(res), flush=True)
-    name = "profile_train.txt" if m == 1 else f"profile_train_micro{m}.txt"
+    name = f"profile_train{suffix}.txt" if m == 1 else f"profile_train_micro{m}.txt"
     profile_steps(step, 2, res, os.path.join(args.out, name))
+    if hasattr(model.backbone, "k_neighbors"):
+        profile_geometry(model.backbone, points[0], res["card"],
+                         os.path.join(args.out, f"profile_geometry{suffix}.txt"))
+
+
+def profile_geometry(backbone, point, card: str, path: str) -> None:
+    """A kNN model's geometry alone: host ms, device ms and idle share from
+    `torch.profiler` over 2 builds, and each level's kNN ms (CUDA events,
+    mean of 3 after a warm-up)."""
+    from cdsegnet_torch.ops.pointops import knn
+
+    build = lambda: backbone.precompute_geometry(point)
+    levels, _ = build()
+    knn_ms = []
+    for lv in levels[:len(backbone.enc_depths) + 1]:
+        p = lv.point
+        fn = lambda: knn(p.coord, p.coord, backbone.k_neighbors, p.mask, p.mask,
+                         query_batch=p.batch, ref_batch=p.batch)
+        fn()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(3):
+            fn()
+        end.record()
+        end.synchronize()
+        knn_ms.append(start.elapsed_time(end) / 3)
+    res = dict(card=card, level_sizes=[lv.size for lv in levels],
+               level_valid=[int(lv.point.mask.sum().item()) for lv in levels],
+               knn_ms=knn_ms, step_ms=host_ms(build, 1, 3))
+    profile_steps(build, 2, res, path)
 
 
 def profile_trainer(out: str, rooms: int) -> None:

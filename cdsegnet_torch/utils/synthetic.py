@@ -10,11 +10,15 @@ divisors (1, 2, 4, 16, 64) then drop nothing. 90% of the slots are real
 points, the rest padding. `room_scene` is a raw scan for the tester: a
 room in the fields of a Pointcept ScanNet archive, before any voxelization.
 `lidar_sweep` is a raw nuScenes keyframe sweep and `write_nuscenes` lays
-sweeps out as `NuScenesDataset` reads them.
+sweeps out as `NuScenesDataset` reads them. `write_modelnet` and
+`write_shapenet_part` write seeded primitive shapes (spheres, boxes,
+cylinders, with normals and part labels) in the datasets' own file formats
+at their published point counts.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import pickle
 from typing import Dict, List
@@ -204,3 +208,135 @@ def write_nuscenes(root: str, splits: Dict[str, List[Dict[str, np.ndarray]]],
         with open(os.path.join(root, "info",
                                f"nuscenes_infos_{sweeps}sweeps_{split}.pkl"), "wb") as f:
             pickle.dump(infos, f)
+
+
+# the 40 ModelNet classes (sorted: their rank is the label) and the 16
+# ShapeNetPart categories with their synset ids
+MODELNET40_CLASSES = (
+    "airplane", "bathtub", "bed", "bench", "bookshelf", "bottle", "bowl", "car",
+    "chair", "cone", "cup", "curtain", "desk", "door", "dresser", "flower_pot",
+    "glass_box", "guitar", "keyboard", "lamp", "laptop", "mantel", "monitor",
+    "night_stand", "person", "piano", "plant", "radio", "range_hood", "sink",
+    "sofa", "stairs", "stool", "table", "tent", "toilet", "tv_stand", "vase",
+    "wardrobe", "xbox")
+SHAPENET_PART_SYNSETS = (
+    ("Airplane", "02691156"), ("Bag", "02773838"), ("Cap", "02954340"),
+    ("Car", "02958343"), ("Chair", "03001627"), ("Earphone", "03261776"),
+    ("Guitar", "03467517"), ("Knife", "03624134"), ("Lamp", "03636649"),
+    ("Laptop", "03642806"), ("Motorbike", "03790512"), ("Mug", "03797390"),
+    ("Pistol", "03948459"), ("Rocket", "04099429"), ("Skateboard", "04225987"),
+    ("Table", "04379243"))
+
+
+def _primitive(kind: int, n: int, dims: np.ndarray, rng) -> tuple:
+    """``n`` points on the surface of a sphere (kind 0), box (1) or
+    cylinder (2) of half-extents ``dims``, centered at 0, with outward unit
+    normals."""
+    if kind == 0:
+        d = rng.normal(size=(n, 3))
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        normal = d / dims
+        return d * dims, normal / np.linalg.norm(normal, axis=1, keepdims=True)
+    if kind == 1:
+        area = np.array([dims[1] * dims[2], dims[0] * dims[2], dims[0] * dims[1]])
+        axis = rng.choice(3, size=n, p=area / area.sum())
+        p = rng.uniform(-1, 1, (n, 3)) * dims
+        sign = rng.choice([-1.0, 1.0], size=n)
+        p[np.arange(n), axis] = sign * dims[axis]
+        normal = np.zeros((n, 3))
+        normal[np.arange(n), axis] = sign
+        return p, normal
+    side = 2 * np.pi * np.sqrt(dims[0] * dims[1]) * 2 * dims[2]
+    cap = np.pi * dims[0] * dims[1]
+    on_side = rng.random(n) < side / (side + 2 * cap)
+    ang = rng.uniform(0, 2 * np.pi, n)
+    rad = np.where(on_side, 1.0, np.sqrt(rng.random(n)))
+    z = np.where(on_side, rng.uniform(-1, 1, n), rng.choice([-1.0, 1.0], size=n))
+    p = np.stack([rad * np.cos(ang), rad * np.sin(ang), z], 1) * dims
+    normal = np.where(on_side[:, None],
+                      np.stack([np.cos(ang) / dims[0], np.sin(ang) / dims[1],
+                                np.zeros(n)], 1),
+                      np.stack([np.zeros(n), np.zeros(n), z], 1))
+    return p, normal / np.linalg.norm(normal, axis=1, keepdims=True)
+
+
+def _class_dims(i: int, rng) -> np.ndarray:
+    """Half-extents of class ``i``'s primitive, jittered 5% per shape."""
+    base = 0.3 + 0.7 * np.modf(np.array([0.618, 0.414, 0.732]) * (i + 1))[0]
+    return base * rng.uniform(0.95, 1.05, 3)
+
+
+def _unit(p: np.ndarray) -> np.ndarray:
+    p = p - p.mean(0)
+    return p / np.linalg.norm(p, axis=1).max()
+
+
+def write_modelnet(root: str, shapes: Dict[str, int], num_points: int = 10000,
+                   seed: int = 0) -> None:
+    """ModelNet40 as `ModelNetDataset` reads it, at the published 10,000
+    points per shape: ``<class>/<class>_<id>.txt`` files of ``x,y,z,nx,ny,nz``
+    text and one ``modelnet40_<split>.txt`` list per split. ``shapes[split]``
+    shapes per split, shape k of class ``k % 40``; each class a sphere, box
+    or cylinder of its own proportions, scaled into the unit sphere."""
+    rng = np.random.default_rng(seed)
+    for c in MODELNET40_CLASSES:
+        os.makedirs(os.path.join(root, c), exist_ok=True)
+    serial = 0
+    for split, count in shapes.items():
+        names = []
+        for k in range(count):
+            i = k % len(MODELNET40_CLASSES)
+            cls = MODELNET40_CLASSES[i]
+            serial += 1
+            p, normal = _primitive(i % 3, num_points, _class_dims(i, rng), rng)
+            name = f"{cls}_{serial:04d}"
+            np.savetxt(os.path.join(root, cls, name + ".txt"),
+                       np.concatenate([_unit(p), normal], 1), fmt="%.6f", delimiter=",")
+            names.append(name)
+        with open(os.path.join(root, f"modelnet40_{split}.txt"), "w") as f:
+            f.write("\n".join(names) + "\n")
+
+
+def write_shapenet_part(root: str, shapes: Dict[str, int], num_points: int = 2500,
+                        seed: int = 0) -> None:
+    """ShapeNetPart as `ShapeNetPartDataset` reads it, at about the published
+    2,500 points per shape (2,300-2,700): ``<synset>/<name>.txt`` files of
+    ``x y z nx ny nz part``, ``synsetoffset2category.txt`` and
+    ``train_test_split/shuffled_<split>_file_list.json``. ``shapes[split]``
+    shapes per split, shape k of category ``k % 16``: a stack along z of
+    one primitive per part of the category's span, each labeled with its
+    part, scaled into the unit sphere."""
+    from cdsegnet_torch.data.datasets import ShapeNetPartDataset
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(root, "train_test_split"), exist_ok=True)
+    with open(os.path.join(root, "synsetoffset2category.txt"), "w") as f:
+        f.write("".join(f"{c}\t{s}\n" for c, s in SHAPENET_PART_SYNSETS))
+    serial = 0
+    for split, count in shapes.items():
+        entries = []
+        for k in range(count):
+            c = k % len(SHAPENET_PART_SYNSETS)
+            cat, synset = SHAPENET_PART_SYNSETS[c]
+            parts = ShapeNetPartDataset.CATEGORY2PART[cat]
+            n = int(rng.integers(num_points - 200, num_points + 201))
+            counts = np.diff(np.linspace(0, n, len(parts) + 1).astype(int))
+            pts, normals, labels = [], [], []
+            for j, (part, m) in enumerate(zip(parts, counts)):
+                dims = _class_dims(c + 7 * j, rng) * 0.5
+                p, normal = _primitive((c + j) % 3, m, dims, rng)
+                p[:, 2] += j * 0.8
+                pts.append(p)
+                normals.append(normal)
+                labels.append(np.full(m, part))
+            serial += 1
+            name = f"{serial:06d}"
+            os.makedirs(os.path.join(root, synset), exist_ok=True)
+            np.savetxt(os.path.join(root, synset, name + ".txt"),
+                       np.concatenate([_unit(np.concatenate(pts)), np.concatenate(normals),
+                                       np.concatenate(labels)[:, None]], 1),
+                       fmt=["%.6f"] * 6 + ["%d"])
+            entries.append(f"shape_data/{synset}/{name}")
+        with open(os.path.join(root, "train_test_split",
+                               f"shuffled_{split}_file_list.json"), "w") as f:
+            json.dump(entries, f)

@@ -7,7 +7,9 @@ It accepts all four block layouts the JAX backbone can be saved in: scanned
 or unrolled (``<stage>_blocks/block`` with a leading depth axis, or
 ``<stage>_block{i}``) and fused or unfused (``enc_dual*``/``dec_dual*``
 blocks). Flax ``Dense`` kernels ``(in, out)`` become ``nn.Linear`` weights
-``(out, in)``; conv weights keep ``(K, C_in, C_out)``. Loading is strict.
+``(out, in)``; conv weights keep ``(K, C_in, C_out)``, and PTv2's
+``grouped_weight`` (1, C) and PDNorm's per-condition ``(K, C)`` parameters
+and running statistics their shapes. Loading is strict.
 `load_jax_train_state` does the same from a JAX ``TrainState`` as orbax
 restores it without a target (`convert_jax_checkpoint.py`).
 """
@@ -209,8 +211,11 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     weights and the Restomer's depthwise (3, 1, C) ones; ones and zeros for
     norms; a truncated normal of std 0.02 for the RPE table; ones for the
     Restomer's temperature; ones (0.5 for the ``b_`` gates) for a transfer
-    gate's ``feat_scale``; running mean 0 and variance 1."""
-    from cdsegnet_torch.models.modules import Dense, LayerNorm, MaskedBatchNorm
+    gate's ``feat_scale``; ``variance_scaling(1/3, fan_in, uniform)`` for
+    PTv2's (1, C) ``grouped_weight`` (fan-in 1: uniform in [-1, 1]); running
+    mean 0 and variance 1, per condition for PDNorm."""
+    from cdsegnet_torch.models.modules import (
+        Dense, LayerNorm, MaskedBatchNorm, PDMaskedBatchNorm)
 
     with torch.no_grad():
         for name, p in module.named_parameters():
@@ -227,10 +232,13 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
                 std = math.sqrt(1.0 / p.shape[1]) / 0.87962566103423978
                 nn.init.trunc_normal_(p, 0.0, std, -2 * std, 2 * std,
                                       generator=generator)
+            elif leaf == "grouped_weight":
+                nn.init.uniform_(p, -1.0, 1.0, generator=generator)
             elif p.dim() == 3:  # conv weight (K, C_in, C_out)
                 lim = math.sqrt(3.0 / (p.shape[0] * p.shape[1]))
                 nn.init.uniform_(p, -lim, lim, generator=generator)
-            elif isinstance(owner, (LayerNorm, MaskedBatchNorm)) and leaf == "scale":
+            elif (isinstance(owner, (LayerNorm, MaskedBatchNorm, PDMaskedBatchNorm))
+                  and leaf == "scale"):
                 p.fill_(1.0)
             elif leaf == "bias":
                 p.zero_()

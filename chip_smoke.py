@@ -140,7 +140,23 @@ Phases, each fatal on failure:
    the training CLI on phase 9's rooms (one evaluated epoch of 2 steps,
    checkpoints) and the tester CLI on phase 8's room with its first
    augmentation through the non-CNF route (36 launches per fragment, every
-   raw point a prediction).
+   raw point a prediction);
+17. ptv2: PTv2 at the full width of `configs/scannet/ptv2.py` (bf16, random
+   weights from a seed): one eval forward on phase 4's scene (3 warm-ups,
+   median of 10), the config's training step (CE + Lovasz, AdamW +
+   OneCycle) on phase 6's 204,800-slot bucket (3 warm-ups, median of 5,
+   peak memory), the compacted kNN against its dense plain version at every
+   level of that bucket (indices equal, distances within 1e-6 relative; both
+   timed per level), m1 and m3 (one condition) one eval forward each;
+   everything finite, no metric level drops a point, no attention kernel
+   launched;
+18. shapes: ModelNet40 classification and ShapeNetPart part segmentation
+   through the training and testing CLIs at the full width of their configs,
+   on synthetic trees in the datasets' formats (10,000 points per ModelNet
+   shape, about 2,500 per ShapeNetPart shape): 2 epochs of 2 steps, each
+   evaluated (`ClsEvaluator`, `SemSegEvaluator`) and checkpointed, then
+   `ClsTester` and `PartSegTester`; finite losses, accuracies and mIoUs in
+   [0, 1], one prediction per shape or a vote for every point.
 
 Each phase prints its wall time (``phase <name> wall``). The last three lines are a JSON summary of the kernels, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``. Without a GPU, or
@@ -2550,6 +2566,229 @@ class Storage:
         pass
 
 
+PTV2_CONFIG = "scannet/ptv2.py"
+# phase 17's other modes: m1 (grouped weights) and m3 with one PDNorm condition
+PTV2_MODES = {"PT-v2m1": {}, "PT-v2m3": dict(num_conditions=1)}
+SHAPE_CONFIGS = {  # phase 18: config, synthetic tree writer, shapes per split
+    "modelnet40": ("modelnet40/cls_ptv2.py", "write_modelnet", dict(train=16, test=40)),
+    "shapenetpart": ("shapenetpart/partseg_ptv2.py", "write_shapenet_part",
+                     dict(train=16, val=16, test=16)),
+}
+
+
+def phase_ptv2(torch, point, train_point, card):
+    """Phase 17: PTv2 (`configs/scannet/ptv2.py`, bf16, random weights from
+    seed 0). One eval forward on phase 4's scene (3 warm-ups, median of
+    10, geometry included); the training step of the config (CE + Lovasz,
+    AdamW + OneCycle) on phase 6's 204,800-slot bucket (3 warm-ups, median
+    of 5; peak memory); at every level of that bucket the compacted `knn`
+    against its dense plain version (indices equal, distances within 1e-6
+    relative) with both timed; m1 and m3 (one condition): one eval forward
+    each. Everything finite; no metric level may drop a point; PTv2 runs
+    no attention kernel."""
+    from cdsegnet_torch.engine.state import make_train_step
+    from cdsegnet_torch.models.builder import build_model
+    from cdsegnet_torch.ops import flash_attention as fa
+    from cdsegnet_torch.ops.pointops import knn, knn_dense
+
+    start = time.perf_counter()
+    conf = load_config(PTV2_CONFIG)
+    cfg = copy.deepcopy(dict(conf.model))
+    fa.reset_launch_counts()
+    model = build_model(cfg, device="cuda", generator=torch.Generator().manual_seed(0))
+    levels, _ = model.backbone.precompute_geometry(point)
+    eval_levels = dict(sizes=[lv.size for lv in levels],
+                       valid=[int(lv.point.mask.sum().item()) for lv in levels],
+                       dropped=[lv.dropped for lv in levels[1:]])
+    del levels
+    fwd = torch.no_grad()(lambda m=model: m(point)["n_pred"])
+    logits = fwd()
+    eval_finite = bool(torch.isfinite(logits[point.mask]).all().item())
+    if tuple(logits.shape) != (point.num_points, 20) or not eval_finite:
+        fail(f"PTv2 eval logits {tuple(logits.shape)}, finite {eval_finite}")
+    fwd()
+    eval_ms = timed_ms(torch, fwd, 10)  # its own warm-up: the third
+    del model, logits
+    torch.cuda.empty_cache()
+
+    model, criteria, opt = train_setup(torch, conf, cfg)
+    step = make_train_step(model, criteria, opt, seed=0, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    metrics = step(train_point)
+    torch.cuda.synchronize()
+    losses = [metrics["loss"].item()]
+    drops = [int(metrics[f"dropped_l{i}"]) for i in range(1, 5)]
+    named = dict(model.named_parameters())
+    bad = [n for n, p in named.items() if p.grad is None or not torch.isfinite(p.grad).all()]
+    times = []
+    for i in range(8):  # 3 warm-ups, then 5 timed steps
+        t0 = time.perf_counter()
+        m = step(train_point)
+        torch.cuda.synchronize()
+        losses.append(m["loss"].item())
+        if i >= 3:
+            times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not np.isfinite(losses).all() or bad:
+        fail(f"PTv2 training: losses {losses}, parameters without a finite gradient "
+             f"{bad[:5]}")
+    del step, opt, metrics, m
+    torch.cuda.empty_cache()
+
+    # the compacted kNN against its dense plain version at every level of
+    # the training bucket
+    model.eval()
+    bb = model.backbone
+    levels, _ = bb.precompute_geometry(train_point)
+    knn_rows = []
+    for lv in levels:
+        p = lv.point
+        args = (p.coord, p.coord, bb.k_neighbors, p.mask, p.mask)
+        ids = dict(query_batch=p.batch, ref_batch=p.batch)
+        ci, cd = knn(*args, **ids)
+        di, dd = knn_dense(*args, **ids)
+        torch.cuda.synchronize()
+        rel = ((cd - dd).abs() / dd.abs().clamp(min=1e-30)).max().item()
+        row = dict(slots=p.num_points, valid=int(p.mask.sum().item()),
+                   indices_equal=bool(torch.equal(ci, di)), max_rel_dist=rel,
+                   ms=cuda_ms(torch, lambda: knn(*args, **ids), warmup=1, iters=3),
+                   dense_ms=cuda_ms(torch, lambda: knn_dense(*args, **ids), warmup=0,
+                                    iters=1))
+        knn_rows.append(row)
+        print(f"ptv2 knn level {len(knn_rows) - 1} " + json.dumps(row), flush=True)
+        del ci, cd, di, dd
+        torch.cuda.empty_cache()
+    train_levels = dict(sizes=[lv.size for lv in levels],
+                        valid=[int(lv.point.mask.sum().item()) for lv in levels],
+                        dropped=[lv.dropped for lv in levels[1:]])
+    del model, levels
+    torch.cuda.empty_cache()
+
+    modes = {}
+    for kind, extra in PTV2_MODES.items():
+        c = copy.deepcopy(cfg)
+        c["backbone"].update(type=kind, **extra)
+        m = build_model(c, device="cuda", generator=torch.Generator().manual_seed(0))
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            out = m(point)["n_pred"]
+            torch.cuda.synchronize()
+        modes[kind] = dict(ms=(time.perf_counter() - t0) * 1e3,
+                           finite=bool(torch.isfinite(out[point.mask]).all().item()))
+        del m, out
+        torch.cuda.empty_cache()
+    launches = dict(fwd=fa.patch_attention_fwd.launches,
+                    bwd_dq=fa.patch_attention_bwd_dq.launches)
+
+    step_ms = statistics.median(times)
+    result = dict(
+        eval_ms=statistics.median(eval_ms), eval_ms_all=eval_ms, eval_slots=point.num_points,
+        eval_levels=eval_levels, step_ms=step_ms, step_ms_all=times, losses=losses,
+        dropped_per_level=drops, step_slots=train_point.num_points,
+        step_valid=int(train_point.mask.sum().item()),
+        points_per_s=int(train_point.mask.sum().item()) / (step_ms / 1e3),
+        peak_mem_gib=peak, train_levels=train_levels,
+        knn_ms_per_level=[r["ms"] for r in knn_rows],
+        knn_dense_ms_per_level=[r["dense_ms"] for r in knn_rows],
+        knn_share_of_step=sum(r["ms"] for r in knn_rows) / step_ms,
+        modes=modes, attention_launches=launches,
+        phase_s=time.perf_counter() - start, card=card)
+    print("ptv2 " + json.dumps(result), flush=True)
+    if any(not r["indices_equal"] or r["max_rel_dist"] > 1e-6 for r in knn_rows):
+        fail(f"the compacted kNN differs from its dense plain version: {knn_rows}")
+    if any(eval_levels["dropped"]) or any(train_levels["dropped"]) or any(drops):
+        fail(f"PTv2's metric levels dropped points: eval {eval_levels['dropped']}, "
+             f"train {train_levels['dropped']}, step {drops}")
+    if not all(r["finite"] for r in modes.values()):
+        fail(f"PTv2 modes: non-finite logits {modes}")
+    if any(launches.values()):
+        fail(f"PTv2 launched the attention kernels {launches}")
+    return result
+
+
+def phase_shapes(torch, tmp, card):
+    """Phase 18: the shape tasks through the CLIs at the full width of
+    `configs/modelnet40/cls_ptv2.py` and `configs/shapenetpart/
+    partseg_ptv2.py` (random weights from the config's seed), on synthetic
+    trees in the datasets' formats at their published point counts (40
+    ModelNet classes, the 16 ShapeNetPart categories). `tools/train.py`: 2
+    epochs of 2 steps (8 shapes each), each step logged, each epoch evaluated
+    (`ClsEvaluator`, `SemSegEvaluator`, shapes padded into the 524,288-slot
+    val bucket) and checkpointed; then `tools/test.py` (`ClsTester`,
+    `PartSegTester`) on ``model_last``. Gates: finite losses, allAcc, mAcc,
+    mIoU and both part mIoUs in [0, 1], one prediction per shape or a vote
+    for every point, the checkpoints."""
+    from cdsegnet_torch.data.datasets import build_dataset
+    from cdsegnet_torch.tools import test as test_tool
+    from cdsegnet_torch.tools import train as train_tool
+    from cdsegnet_torch.utils import synthetic
+
+    results = {}
+    for name, (config, writer, shapes) in SHAPE_CONFIGS.items():
+        base = os.path.join(tmp, "shapes")
+        root, save = os.path.join(base, name), os.path.join(base, f"{name}_run")
+        t0 = time.perf_counter()
+        getattr(synthetic, writer)(root, shapes, seed=0)
+        write_s = time.perf_counter() - t0
+        evaluator = "ClsEvaluator" if name == "modelnet40" else "SemSegEvaluator"
+        hooks = [dict(type="CheckpointLoader"), dict(type="IterationTimer", warmup_iter=2),
+                 dict(type="InformationWriter", log_interval=1), dict(type=evaluator),
+                 dict(type="CheckpointSaver", save_freq=1)]
+        cfg_file = os.path.join(base, f"{name}.py")
+        with open(cfg_file, "w") as f:
+            f.write(f"_base_ = [{config_path(config)!r}]\nepoch = 2\neval_epoch = 2\n"
+                    f"hooks = {hooks!r}\ndata = dict(train=dict(data_root={root!r}), "
+                    f"val=dict(data_root={root!r}), test=dict(data_root={root!r}))\n")
+        t0 = time.perf_counter()
+        trainer = train_tool.main(["--config-file", cfg_file, "--options",
+                                   f"save_path={save}"])
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        with open(os.path.join(save, "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        losses = [r["loss"] for r in recs]
+        ckpts = sorted(os.listdir(os.path.join(save, "model")))
+        metric = (trainer.comm_info["current_metric_name"],
+                  trainer.comm_info["current_metric_value"])
+        steps_per_epoch = trainer.steps_per_epoch
+        del trainer
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        tester = test_tool.main(["--config-file", cfg_file, "--checkpoint", "model_last",
+                                 "--options", f"save_path={save}"])
+        torch.cuda.synchronize()
+        test_s = time.perf_counter() - t0
+        ds = build_dataset(dict(tester.cfg.data.test))
+        n_points = {ds.get_data_name(i): ds.get_data(i)["segment"].size
+                    for i in range(len(ds))}
+        if name == "modelnet40":
+            covered = len(tester.records) == len(ds) == shapes["test"]
+        else:
+            covered = (sorted(tester.records) == sorted(n_points) and all(
+                rec["pred"].size == rec["voted"] == n_points[k]
+                for k, rec in tester.records.items()))
+        result = dict(write_s=write_s, train_s=train_s, test_s=test_s, shapes=shapes,
+                      steps=len(recs), steps_per_epoch=steps_per_epoch, losses=losses,
+                      val_metric=metric, checkpoints=ckpts, test_result=tester.result,
+                      test_shapes=len(tester.records), covered=covered,
+                      points_per_shape=[min(n_points.values()), max(n_points.values())],
+                      card=card)
+        print(f"shapes {name} " + json.dumps(result), flush=True)
+        in_unit = lambda x: 0.0 <= x <= 1.0
+        if len(recs) != 4 or not np.isfinite(losses).all():
+            fail(f"{name}: {len(recs)} logged steps, losses {losses}")
+        if ckpts != ["epoch_1", "epoch_2", "model_best", "model_last"]:
+            fail(f"{name}: checkpoints {ckpts}")
+        if not in_unit(metric[1]) or not all(map(in_unit, tester.result.values())):
+            fail(f"{name}: val {metric}, test {tester.result}")
+        if not covered:
+            fail(f"{name}: not one prediction per shape or per point")
+        results[name] = result
+        del tester
+        torch.cuda.empty_cache()
+    return results
+
+
 def step_sums(rows, direction):
     """bf16 sums per training step in ``direction`` over the rows' launches,
     each timed on its level's real scene ids and validity."""
@@ -2780,9 +3019,15 @@ def run_phases(torch, config: str, runtime: str, tmp: str, start: float) -> int:
     clock("options")
     ablations = phase_ablations(torch, config, conf, cfg, tmp, point, gap_point, train_point,
                                 frag_point, n_raw, card)
-    del gap_point, train_point, frag_point
+    del gap_point, frag_point
     torch.cuda.empty_cache()
     clock("ablations")
+    phase_ptv2(torch, point, train_point, card)
+    del point, train_point
+    torch.cuda.empty_cache()
+    clock("ptv2")
+    phase_shapes(torch, tmp, card)
+    clock("shapes")
     # this slice's paths through the kernels: times from phases 3 and 5 (the
     # same levels, heads and head dims), launches counted in phases 15-16
     kernel_models = {f"option_{n}": option_cfg(cfg, n)["backbone"] for n in ("a", "b")}

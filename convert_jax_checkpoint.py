@@ -22,8 +22,10 @@ trainer's config), not as a run to resume (``resume=True``). A Baseline
 initializer fills them, and the script names them. Every model type the
 port builds converts the same way, the ablation segmentors (③–⑥, DM) and
 the PTv3 options (RPE tables, the Restomer's depthwise convs and
-temperature, the transfer gates, ``cross_block1``) included: the bridge maps
-each tensor by its flax name, so the script needs nothing per type.
+temperature, the transfer gates, ``cross_block1``), PTv2 (m1's
+``grouped_weight``, m3's per-condition PDNorm tensors and ``modulation``)
+and `DefaultClassifier` included: the bridge maps each tensor by its flax
+name, so the script needs nothing per type.
 
 This script imports orbax, and through it JAX: run it where orbax is
 installed. Nothing in ``cdsegnet_torch/`` or ``chip_smoke.py`` imports it;

@@ -404,13 +404,6 @@ def test_d3pm_kl_loss_in_criteria_matches_jax():
     assert kl.item() > 0.1
 
 
-def test_default_classifier_is_refused_naming_its_item():
-    cfg = dict(type="DefaultClassifier", backbone=dict(_cfg("DMSegmentor")["backbone"]),
-               num_classes=7)
-    with pytest.raises(NotImplementedError, match="The model zoo and the rest"):
-        tbuild(cfg, device="cpu")
-
-
 # ---- the engine on an ablation model ----
 
 def _fixed_q_jax(self, labels, ts_pt, key):

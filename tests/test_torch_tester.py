@@ -25,7 +25,7 @@ from cdsegnet_torch.engine.checkpoint import CheckpointManager, snapshot  # noqa
 from cdsegnet_torch.engine.config import Config  # noqa: E402
 from cdsegnet_torch.engine.optimizer import build_optimizer  # noqa: E402
 from cdsegnet_torch.engine.state import make_generators  # noqa: E402
-from cdsegnet_torch.engine.test import TESTERS, SemSegTester  # noqa: E402
+from cdsegnet_torch.engine.test import SemSegTester  # noqa: E402
 from cdsegnet_torch.models.builder import build_model as tbuild  # noqa: E402
 from cdsegnet_torch.tools import test as ttool  # noqa: E402
 from cdsegnet_torch.utils.weights import load_jax_variables  # noqa: E402
@@ -362,10 +362,3 @@ def test_unported_tester_paths_raise(change, error, tmp_path):
     cfg = Config(Config._wrap(scene_cfg("unused", str(tmp_path), **change)))
     with pytest.raises(error):
         SemSegTester(cfg, device="cpu")
-
-
-@pytest.mark.parametrize("kind", ["ClsTester", "PartSegTester"])
-def test_unported_testers_raise(kind, tmp_path):
-    cfg = Config(Config._wrap(scene_cfg("unused", str(tmp_path))))
-    with pytest.raises(NotImplementedError, match=kind):
-        TESTERS.build(dict(type=kind), cfg=cfg, device="cpu")

@@ -511,7 +511,6 @@ def test_trainer_and_cli_refuse_the_cpu_unless_asked(root, tmp_path, monkeypatch
     (dict(train=dict(type="MSCTrainer")), "MSCTrainer"),
     (dict(train=dict(type="MultiDatasetTrainer")), "MultiDatasetTrainer"),
     (dict(hooks=[dict(type="InsSegEvaluator")]), "InsSegEvaluator"),
-    (dict(hooks=[dict(type="ClsEvaluator")]), "ClsEvaluator"),
     (dict(hooks=[dict(type="RuntimeProfiler")]), "RuntimeProfiler"),
     ("val_condition", "val condition")])
 def test_unported_trainer_options_raise(root, tmp_path, change, match):
@@ -525,13 +524,3 @@ def test_unported_trainer_options_raise(root, tmp_path, change, match):
     with pytest.raises(error, match=match):
         TRAINERS.build(dict(cfg.get("train", dict(type="DefaultTrainer"))), cfg=cfg,
                        device="cpu")
-
-
-def test_val_scene_with_origin_coord_is_not_ported(root):
-    tr = port_eval_trainer(trainer_cfg(root, "unused"),
-                           tbuild(copy.deepcopy(TINY_MODEL), device="cpu"))
-    tr.val_loader = [(None, dict(origin_coord=np.zeros((3, 3))))]
-    hook = thooks.SemSegEvaluator()
-    hook.trainer = tr
-    with pytest.raises(NotImplementedError, match="knn_remap_labels"):
-        hook.after_epoch()

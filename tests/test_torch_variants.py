@@ -7,8 +7,9 @@ every other field as shipped), with weights made with numpy from a seed.
 One parametrised test per check: SSI logits (the plain model's eval
 logits), and one training step through `make_train_step` with the timesteps,
 noise, MSE mask and curve permutations injected, against `jax.grad`. Also:
-every config file under `configs/{scannet,scannet200,nuscenes}/` loads
-through the port's `Config`, and those of the CDSegNet family build."""
+every config file under `configs/{scannet,scannet200,nuscenes,modelnet40,
+shapenetpart}/` loads through the port's `Config`, and those of the
+CDSegNet family and of PTv2 build."""
 
 import copy
 import glob
@@ -237,20 +238,75 @@ def test_variant_train_step_matches_jax(jref, name):
 
 
 def _config_files():
-    return sorted(os.path.relpath(p, CONFIGS) for d in ("scannet", "scannet200", "nuscenes")
+    return sorted(os.path.relpath(p, CONFIGS)
+                  for d in ("scannet", "scannet200", "nuscenes", "modelnet40", "shapenetpart")
                   for p in glob.glob(os.path.join(CONFIGS, d, "*.py")))
+
+
+PTV2_CONFIGS = ("scannet/ptv2.py", "modelnet40/cls_ptv2.py", "shapenetpart/partseg_ptv2.py")
+PTV2_WIDTH = dict(patch_embed_channels=8, patch_embed_groups=2, enc_channels=(8, 16, 16, 16),
+                  enc_groups=(2, 4, 4, 4), dec_channels=(8, 8, 16, 16),
+                  dec_groups=(2, 2, 4, 4))
+
+
+def _ptv2_builds_as_jax(model_cfg):
+    """A PTv2 config's model at a test width (channels and groups cut,
+    every other field as shipped): the port's has the JAX model's every
+    parameter and running statistic, name for name and shape for shape
+    (the strict weight bridge fills it from JAX's variable shapes), and its
+    dtype. The classifier's backbone is in feature mode, which JAX's module
+    cannot build (ROADMAP Queue 3): its JAX shapes come from the same model
+    over a backbone with logits as wide as the features."""
+    small = copy.deepcopy(dict(model_cfg))
+    small["backbone"] = dict(small["backbone"], **PTV2_WIDTH)
+    if small["type"] == "DefaultClassifier":
+        small["backbone_embed_dim"] = PTV2_WIDTH["dec_channels"][0]
+    m = tbuild(copy.deepcopy(small), device="cpu")
+    jcfg = copy.deepcopy(small)
+    if small["type"] == "DefaultClassifier":
+        assert m.backbone.head is None and m.cls_fc1.weight.shape == (256, 8)
+        with pytest.raises(ZeroDivisionError):
+            jax.eval_shape(lambda p: jbuild(copy.deepcopy(jcfg)).init(
+                jax.random.PRNGKey(0), p, train=False), _ptv2_point(small))
+        jcfg["backbone"]["num_classes"] = 8
+    jm = jbuild(jcfg)
+    shapes = jax.eval_shape(lambda p: jm.init(jax.random.PRNGKey(0), p, train=False),
+                            _ptv2_point(small))
+    tree = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, np.float32), shapes)
+    if small["type"] == "DefaultClassifier":  # the head a feature-mode backbone lacks
+        tree["params"]["backbone"].pop("head")
+    load_jax_variables(m, tree)
+    assert m.backbone.dtype == {"bfloat16": torch.bfloat16}.get(
+        small["backbone"].get("dtype"), torch.float32)
+    assert m.backbone.grid_sizes == tuple(jm.backbone.grid_sizes)
+    assert m.backbone.capacity_div == tuple(jm.backbone.capacity_div)
+
+
+def _ptv2_point(cfg, n=4096):
+    """Shapes only: JAX's kNN needs every level at least k = 16 slots wide,
+    and the coarsest holds n / 128."""
+    c = cfg["backbone"]["in_channels"]
+    return jmake(coord=jnp.zeros((n, 3)), feat=jnp.zeros((n, c)),
+                 grid_coord=jnp.zeros((n, 3), jnp.int32), batch=jnp.zeros((n,), jnp.int32),
+                 mask=jnp.ones((n,), bool), segment=jnp.zeros((n,), jnp.int32),
+                 depth=12, num_scenes=1)
 
 
 @pytest.mark.parametrize("name", _config_files())
 def test_config_loads_and_builds(name):
     """The port's `Config` reads every file as JAX's does; a CDSegNet-family
     model builds (at a test width) with JAX's segmentor fields and betas,
-    every other model raises `NotImplementedError`."""
+    a PTv2 one (ScanNet, ModelNet40, ShapeNetPart) with JAX's parameters
+    (`_ptv2_builds_as_jax`), every other model raises
+    `NotImplementedError`."""
     path = os.path.join(CONFIGS, name)
     cfg, jcfg = Config.fromfile(path), JConfig.fromfile(path)
     assert cfg.model == dict(jcfg.model)
     assert {k: cfg[k] for k in cfg if k != "data"} == {
         k: jcfg[k] for k in jcfg if k != "data"}
+    if name in PTV2_CONFIGS:
+        _ptv2_builds_as_jax(cfg.model)
+        return
     if os.path.splitext(os.path.basename(name))[0] not in FAMILY:
         with pytest.raises(NotImplementedError):
             tbuild(copy.deepcopy(cfg.model), device="cpu")

@@ -1,18 +1,19 @@
-"""Datasets: the base dataset, ScanNet, ScanNet200, nuScenes, ModelNet40 and
-ShapeNetPart.
+"""Datasets: the base dataset, ScanNet, ScanNet200, nuScenes, SemanticKITTI,
+ModelNet40 and ShapeNetPart.
 
 Port of `DefaultDataset`, `ScanNetDataset`, `ScanNet200Dataset`,
-`NuScenesDataset`, `ModelNetDataset`, `ShapeNetPartDataset` and
-`build_dataset` of `cdsegnet_tpu/data/datasets.py` (reference
-`pointcept/datasets/{defaults,scannet,nuscenes,modelnet,shapenet_part}.py`):
-plain indexable objects whose
-``get(idx, rng)`` runs the transform pipeline with an explicit numpy
-generator; in test mode it expands every test-time augmentation into
-fragments. Scene files are Pointcept `.pth` archives or per-field `.npy`
-directories; nuScenes sweeps are listed by an info pickle and read from
-`.bin` files; ModelNet40 and ShapeNetPart shapes are text files, with the
-shape's class in ``category``. The shared decode cache (``cache=True``) and the other
-datasets of the JAX package are not ported.
+`NuScenesDataset`, `SemanticKITTIDataset`, `ModelNetDataset`,
+`ShapeNetPartDataset` and `build_dataset` of `cdsegnet_tpu/data/datasets.py`
+(reference `pointcept/datasets/{defaults,scannet,nuscenes,semantic_kitti,
+modelnet,shapenet_part}.py`): plain indexable objects whose ``get(idx,
+rng)`` runs the transform pipeline with an explicit numpy generator; in
+test mode it expands every test-time augmentation into fragments. Scene
+files are Pointcept `.pth` archives or per-field `.npy` directories;
+nuScenes sweeps are listed by an info pickle and read from `.bin` files,
+SemanticKITTI scans are globbed per sequence; ModelNet40 and ShapeNetPart
+shapes are text files, with the shape's class in ``category``. The shared
+decode cache (``cache=True``) and the other datasets of the JAX package are
+not ported.
 """
 
 from __future__ import annotations
@@ -305,6 +306,81 @@ class NuScenesDataset(DefaultDataset):
             10: ig, 11: ig, 12: 7, 13: ig, 14: 1, 15: 2, 16: 2, 17: 3, 18: 4,
             19: ig, 20: ig, 21: 5, 22: 8, 23: 9, 24: 10, 25: 11, 26: 12,
             27: 13, 28: 14, 29: ig, 30: 15, 31: ig,
+        }
+
+
+@DATASETS.register_module()
+class SemanticKITTIDataset(DefaultDataset):
+    """SemanticKITTI scans (reference `pointcept/datasets/semantic_kitti.py`):
+    ``<data_root>/dataset/sequences/<seq>/velodyne/*.bin`` float32 (x, y, z,
+    remission) and the ``labels/*.label`` uint32 beside them, whose low 16
+    bits (the semantic id) go through the 19-class learning map; a scan
+    without labels gets the ignore index. ``learning_map_inv`` maps the
+    learning classes back to raw ids for benchmark submissions."""
+
+    SPLIT_SEQUENCES = {
+        "train": ["00", "01", "02", "03", "04", "05", "06", "07", "09", "10"],
+        "val": ["08"],
+        "test": ["11", "12", "13", "14", "15", "16", "17", "18", "19", "20", "21"],
+    }
+
+    def __init__(self, **kwargs):
+        ignore_index = kwargs.get("ignore_index", -1)
+        self.learning_map = self.get_learning_map(ignore_index)
+        self.learning_map_inv = self.get_learning_map_inv(ignore_index)
+        super().__init__(**kwargs)
+
+    def get_data_list(self):
+        splits = [self.split] if isinstance(self.split, str) else list(self.split)
+        seqs = []
+        for s in splits:
+            seqs += self.SPLIT_SEQUENCES.get(s, [s])
+        out = []
+        for seq in seqs:
+            out += sorted(glob.glob(os.path.join(
+                self.data_root, "dataset", "sequences", seq, "velodyne", "*.bin")))
+        return out
+
+    def get_data(self, idx: int) -> Dict:
+        bin_path = self.data_list[idx % len(self.data_list)]
+        scan = np.fromfile(bin_path, dtype=np.float32).reshape(-1, 4)
+        coord = scan[:, :3]
+        strength = scan[:, 3:4]
+        label_path = bin_path.replace("velodyne", "labels").replace(".bin", ".label")
+        if os.path.exists(label_path):
+            raw = np.fromfile(label_path, dtype=np.uint32) & 0xFFFF
+            lut = np.full((max(self.learning_map) + 1,), self.ignore_index, np.int64)
+            for k, v in self.learning_map.items():
+                lut[k] = v
+            segment = lut[np.clip(raw, 0, len(lut) - 1)]
+        else:
+            segment = np.full((coord.shape[0],), self.ignore_index, np.int64)
+        return dict(coord=coord, strength=strength, segment=segment)
+
+    def get_data_name(self, idx: int) -> str:
+        p = self.data_list[idx % len(self.data_list)]
+        seq = os.path.basename(os.path.dirname(os.path.dirname(p)))
+        return f"{seq}_{os.path.splitext(os.path.basename(p))[0]}"
+
+    @staticmethod
+    def get_learning_map(ignore_index: int) -> Dict[int, int]:
+        """``semantic-kitti.yaml``'s learning map (19 classes)."""
+        ig = ignore_index
+        return {
+            0: ig, 1: ig, 10: 0, 11: 1, 13: 4, 15: 2, 16: 4, 18: 3, 20: 4, 30: 5,
+            31: 6, 32: 7, 40: 8, 44: 9, 48: 10, 49: 11, 50: 12, 51: 13, 52: ig,
+            60: 8, 70: 14, 71: 15, 72: 16, 80: 17, 81: 18, 99: ig, 252: 0, 253: 6,
+            254: 5, 255: 7, 256: 4, 257: 4, 258: 3, 259: 4,
+        }
+
+    @staticmethod
+    def get_learning_map_inv(ignore_index: int) -> Dict[int, int]:
+        """Learning class to raw SemanticKITTI id (reference
+        `semantic_kitti.py:132-155`)."""
+        return {
+            ignore_index: ignore_index, 0: 10, 1: 11, 2: 15, 3: 18, 4: 20, 5: 30,
+            6: 31, 7: 32, 8: 40, 9: 44, 10: 48, 11: 49, 12: 50, 13: 51, 14: 70,
+            15: 71, 16: 72, 17: 80, 18: 81,
         }
 
 

@@ -451,3 +451,45 @@ class SphereCrop:
             idx = np.argsort(np.sum((data["coord"] - center) ** 2, 1))[:point_max]
             take(data, idx)
         return data
+
+
+@TRANSFORMS.register_module()
+class InstanceParser:
+    """Instance-segmentation targets (reference `transform.py:1106-1161`):
+    the surviving instances renumbered densely, per-point instance
+    centroids, and per-instance boxes ``[center(3), size(3), theta(1),
+    class(1)]`` with the class shifted down past the ignored segment
+    classes. As in the reference and JAX, a -1 instance on a point of a
+    valid class is renumbered like a real instance."""
+
+    def __init__(self, segment_ignore_index=(-1, 0, 1), instance_ignore_index=-1):
+        self.segment_ignore_index = segment_ignore_index
+        self.instance_ignore_index = instance_ignore_index
+
+    def __call__(self, data, rng=None):
+        coord = data["coord"]
+        segment = data["segment"]
+        instance = np.asarray(data["instance"]).reshape(-1).copy()
+        keep = ~np.isin(segment, self.segment_ignore_index)
+        instance[~keep] = self.instance_ignore_index
+        unique, inverse = np.unique(instance[keep], return_inverse=True)
+        instance[keep] = inverse
+        n_inst = len(unique)
+        centroid = np.full((coord.shape[0], 3), self.instance_ignore_index, np.float32)
+        bbox = np.full((n_inst, 8), self.instance_ignore_index, np.float32)
+        vacancy = [i for i in self.segment_ignore_index if i >= 0]
+        for inst_id in range(n_inst):
+            m = instance == inst_id
+            pts = coord[m]
+            lo, hi = pts.min(0), pts.max(0)
+            centroid[m] = pts.mean(0)
+            cls = float(segment[m][0])
+            cls -= float(np.greater(cls, vacancy).sum())
+            bbox[inst_id, :3] = (hi + lo) / 2
+            bbox[inst_id, 3:6] = hi - lo
+            bbox[inst_id, 6] = 0.0
+            bbox[inst_id, 7] = cls
+        data["instance"] = instance
+        data["instance_centroid"] = centroid
+        data["bbox"] = bbox
+        return data

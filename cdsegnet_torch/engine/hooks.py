@@ -4,8 +4,9 @@ Port of `cdsegnet_tpu/engine/hooks.py` (reference
 `pointcept/engines/hooks/{default,builder,misc,evaluator}.py`). The default
 stack (`configs/_base_/default_runtime.py`): CheckpointLoader,
 IterationTimer, InformationWriter, SemSegEvaluator, CheckpointSaver; a
-config may add PreciseEvaluator, or name ClsEvaluator in place of the
-SemSeg one (`configs/modelnet40/cls_ptv2.py`). A hook reads and writes the
+config may add PreciseEvaluator, or name ClsEvaluator
+(`configs/modelnet40/cls_ptv2.py`) or InsSegEvaluator
+(`configs/scannet/insseg_pointgroup.py`) in place of the SemSeg one. A hook reads and writes the
 trainer it is bound to (``hook.trainer``): its model, optimizer,
 generators, checkpoint manager, storage, logger and ``comm_info``. In a process group of several
 ranks (`parallel.dist`) every hook runs on every rank: the evaluator splits
@@ -13,8 +14,8 @@ the val scenes over the ranks and sums their histograms, the information
 writer and the files act on rank 0, and the checkpoint loader reads on
 every rank.
 
-Not ported, each raising `NotImplementedError` when built:
-`InsSegEvaluator` and the profiling hook `RuntimeProfiler`.
+Not ported, raising `NotImplementedError` when built: the profiling hook
+`RuntimeProfiler`.
 """
 
 from __future__ import annotations
@@ -25,8 +26,9 @@ from typing import Optional
 import numpy as np
 import torch
 
+from cdsegnet_torch.engine import insseg_eval as ie
 from cdsegnet_torch.engine.checkpoint import snapshot
-from cdsegnet_torch.engine.state import rank_seed
+from cdsegnet_torch.engine.state import batch_to_point, rank_seed
 from cdsegnet_torch.engine.test import NoiseFn, SemSegTester
 from cdsegnet_torch.ops.pointops import knn_remap_labels
 from cdsegnet_torch.parallel import dist
@@ -280,6 +282,75 @@ class ClsEvaluator(HookBase):
 
 
 @HOOKS.register_module()
+class InsSegEvaluator(HookBase):
+    """Instance-segmentation validation after each ``interval`` epochs
+    (reference `hooks/evaluator.py:213-589`): each val scene through the
+    model's eval forward, `PointGroup.cluster` on its argmax and offsets,
+    proposal masks from the clusters, and the ScanNet-protocol mAP@[.5:.95],
+    AP50 and AP25 of `engine.insseg_eval` on the host; AP50 is the
+    checkpoint metric. Every rank evaluates every scene (the matching runs
+    on the host and gives each rank the same records). ``records`` keeps
+    the last epoch's per-scene association records, ``summary`` its
+    `insseg_eval.summarize_ap`."""
+
+    def __init__(self, interval: int = 1, segment_ignore_index=(-1, 0, 1),
+                 instance_ignore_index: int = -1, min_region_size: int = 100,
+                 cluster_min_points: int = 100):
+        self.interval = interval
+        self.segment_ignore_index = tuple(segment_ignore_index)
+        self.instance_ignore_index = instance_ignore_index
+        self.min_region_size = min_region_size
+        self.cluster_min_points = cluster_min_points
+        self.records = self.summary = None
+
+    @torch.no_grad()
+    def predict(self, batch):
+        """One val scene's ``(logits, cluster ids, mask)`` as numpy."""
+        tr = self.trainer
+        model = tr.model.eval()
+        point = batch_to_point(batch, tr.depth, 1, tr.device)
+        out = model(point)
+        clusters = model.cluster(point, out["n_pred"].argmax(-1), out["offset_pred"])
+        return out["n_pred"].cpu().numpy(), clusters.cpu().numpy(), point.mask.cpu().numpy()
+
+    def after_epoch(self):
+        tr = self.trainer
+        if tr.val_loader is None or (tr.epoch + 1) % self.interval != 0:
+            return
+        num_classes = tr.cfg.data.num_classes
+        valid_classes = [c for c in range(num_classes)
+                         if c not in self.segment_ignore_index]
+        scenes = []
+        for batch, _scene in tr.val_loader:
+            if "instance" not in batch:
+                tr.logger.warning("InsSegEvaluator: batch has no instance targets; skipping")
+                return
+            logits, clusters, mask = self.predict(batch)
+            probs = np.exp(logits - logits.max(-1, keepdims=True))
+            probs /= probs.sum(-1, keepdims=True)
+            masks, classes, scores = ie.proposals_from_clusters(
+                clusters, logits.argmax(-1), probs, mask,
+                min_points=self.cluster_min_points)
+            scenes.append(ie.associate_instances(
+                masks, classes, scores, np.where(mask, batch["segment"], -1),
+                np.where(mask, batch["instance"], -1), num_classes,
+                self.segment_ignore_index, self.min_region_size))
+        ap = ie.evaluate_matches(scenes, valid_classes,
+                                 min_region_size=self.min_region_size)
+        s = ie.summarize_ap(ap)
+        self.records, self.summary = scenes, s
+        names = tr.cfg.data.get("names", [str(i) for i in range(num_classes)])
+        for li, c in enumerate(valid_classes):
+            tr.logger.info(f"Class {names[c]}: AP {s['per_class_ap'][li]:.4f}")
+        tr.logger.info(f"Val result: mAP {s['all_ap']:.4f} AP50 {s['all_ap_50']:.4f} "
+                       f"AP25 {s['all_ap_25']:.4f}")
+        tr.comm_info["current_metric_value"] = s["all_ap_50"]
+        tr.comm_info["current_metric_name"] = "AP50"
+        tr.storage.put_scalar("val/mAP", s["all_ap"])
+        tr.storage.put_scalar("val/AP50", s["all_ap_50"])
+
+
+@HOOKS.register_module()
 class CheckpointSaver(HookBase):
     """Save last/best/periodic checkpoints (reference `hooks/misc.py:146-204`):
     the model, the step, the optimizer and every rank's generators. Every
@@ -328,5 +399,5 @@ class PreciseEvaluator(HookBase):
         self.tester.test()
 
 
-HOOKS.register_unported(("InsSegEvaluator", "RuntimeProfiler"),
-                        "The model zoo and the rest of the engine and data")
+HOOKS.register_unported(("RuntimeProfiler",), "The decode cache, test-time crops "
+                        "and the rest of the host surface")

@@ -1,12 +1,20 @@
 """Optimizer and learning-rate schedules.
 
-Port of `cdsegnet_tpu/engine/optimizer.py` (optax there): AdamW over keyword
-parameter groups, each group with its own schedule scaled to its learning
-rate (CDSegNet: the keyword "block" trains at lr 2e-4, the rest at 2e-3),
-the five schedules of `build_schedule`, and `clip_by_keyword`. As in optax,
-update k (counted from 0) uses the learning rate ``schedule(k)``; the
-schedules compute in float32, as the JAX ones do. Adam and SGD are not
-ported and raise `NotImplementedError`.
+Port of `cdsegnet_tpu/engine/optimizer.py` (optax there): AdamW, SGD or
+Adam over keyword parameter groups, each group with its own schedule scaled
+to its learning rate (CDSegNet: the keyword "block" trains at lr 2e-4, the
+rest at 2e-3), the five schedules of `build_schedule`, and
+`clip_by_keyword`. As in optax, update k (counted from 0) uses the learning
+rate ``schedule(k)``; the schedules compute in float32, as the JAX ones do.
+
+SGD is `torch.optim.SGD` with ``dampening=0``: its momentum buffer and
+Nesterov rule equal optax's ``trace(nesterov)``. Its weight decay is
+coupled, added to the gradient before the momentum, as torch (and the
+upstream recipes tuned with it) do; JAX's chain adds the decayed weights
+after the learning-rate scaling, which grows every weight by ``1 + wd`` per
+step, and the port does not copy that. Adam reads ``lr`` only, as
+``optax.adam(lr_sched)`` does: ``betas`` and ``weight_decay`` are ignored
+for it, as in JAX.
 """
 
 from __future__ import annotations
@@ -89,9 +97,25 @@ def clip_by_keyword(named_params, keywords: Sequence[str], max_norm: float = 0.1
         g.mul_(scale.to(g.dtype))
 
 
-class KeywordAdamW:
-    """`torch.optim.AdamW` over keyword parameter groups, each with its own
-    schedule, with `clip_by_keyword` applied to the gradients first.
+def _torch_optimizer(kind: str, groups, cfg: Dict[str, Any]) -> torch.optim.Optimizer:
+    """The torch optimizer of config ``kind`` over ``groups`` (lr set per
+    step), with the hyperparameters that JAX's `build_optimizer` reads."""
+    if kind == "AdamW":
+        return torch.optim.AdamW(groups, betas=tuple(cfg.get("betas", (0.9, 0.999))),
+                                 eps=1e-8, weight_decay=cfg.get("weight_decay", 0.0))
+    if kind == "Adam":  # optax.adam(lr_sched): default betas, no decay
+        return torch.optim.Adam(groups, betas=(0.9, 0.999), eps=1e-8)
+    if kind == "SGD":
+        return torch.optim.SGD(groups, momentum=cfg.get("momentum", 0.9), dampening=0.0,
+                               nesterov=cfg.get("nesterov", False),
+                               weight_decay=cfg.get("weight_decay", 0.0))
+    raise NotImplementedError(f"optimizer {kind!r} is not ported")
+
+
+class KeywordOptimizer:
+    """`torch.optim.AdamW`, `SGD` or `Adam` (config ``type``) over keyword
+    parameter groups, each with its own schedule, with `clip_by_keyword`
+    applied to the gradients first.
 
     ``labels`` maps each parameter name to its group: ``"default"`` or
     ``"group{i}"`` for the first ``param_dicts[i]`` whose keyword the name
@@ -99,8 +123,10 @@ class KeywordAdamW:
     """
 
     def __init__(self, named_params, labels: Dict[str, str],
-                 schedules: Dict[str, Schedule], betas=(0.9, 0.999),
-                 weight_decay: float = 0.0, clip_keywords: Sequence[str] = ()):
+                 schedules: Dict[str, Schedule], cfg: Optional[Dict[str, Any]] = None,
+                 clip_keywords: Sequence[str] = ()):
+        cfg = dict(cfg or {})
+        self.kind = cfg.get("type", "AdamW")
         self.named_params = list(named_params)
         self.labels = labels
         self.clip_keywords = tuple(clip_keywords)
@@ -109,9 +135,8 @@ class KeywordAdamW:
             groups.setdefault(labels[name], []).append(p)
         self.group_names = [g for g in schedules if g in groups]
         self.schedules = [schedules[g] for g in self.group_names]
-        self.opt = torch.optim.AdamW(
-            [dict(params=groups[g], lr=0.0) for g in self.group_names],
-            betas=tuple(betas), eps=1e-8, weight_decay=weight_decay)
+        self.opt = _torch_optimizer(
+            self.kind, [dict(params=groups[g], lr=0.0) for g in self.group_names], cfg)
         self.count = 0  # updates made so far
 
     def zero_grad(self) -> None:
@@ -122,7 +147,8 @@ class KeywordAdamW:
         return {g: s(self.count) for g, s in zip(self.group_names, self.schedules)}
 
     def state_dict(self) -> Dict[str, Any]:
-        """The moments and the update count, for checkpoints."""
+        """The moments (or momentum buffers) and the update count, for
+        checkpoints."""
         return dict(opt=self.opt.state_dict(), count=self.count)
 
     def load_state_dict(self, state: Dict[str, Any]) -> None:
@@ -142,14 +168,11 @@ def build_optimizer(cfg: Dict[str, Any], model: torch.nn.Module,
                     total_steps: int = 1,
                     param_dicts: Optional[Sequence[Dict[str, Any]]] = None,
                     clip_keywords: Sequence[str] = (),
-                    device: Optional[Union[str, torch.device]] = None) -> KeywordAdamW:
-    """AdamW over ``model``'s parameters with keyword groups and per-group
-    schedules. The model must be on ``device`` (the GPU unless the caller
-    names another; raises without one)."""
+                    device: Optional[Union[str, torch.device]] = None) -> KeywordOptimizer:
+    """AdamW, SGD or Adam (``cfg["type"]``) over ``model``'s parameters with
+    keyword groups and per-group schedules. The model must be on ``device``
+    (the GPU unless the caller names another; raises without one)."""
     device = resolve_device(device)
-    kind = cfg.get("type", "AdamW")
-    if kind != "AdamW":
-        raise NotImplementedError(f"optimizer {kind!r} is not ported")
     named = list(model.named_parameters())
     off = [n for n, p in named if p.device.type != device.type]
     if off:
@@ -171,7 +194,5 @@ def build_optimizer(cfg: Dict[str, Any], model: torch.nn.Module,
     schedules = {"default": sched_for(base_lr)}
     for i, g in enumerate(param_dicts):
         schedules[f"group{i}"] = sched_for(g.get("lr", base_lr))
-    return KeywordAdamW(named, {n: label(n) for n, _ in named}, schedules,
-                        betas=cfg.get("betas", (0.9, 0.999)),
-                        weight_decay=cfg.get("weight_decay", 0.0),
-                        clip_keywords=clip_keywords)
+    return KeywordOptimizer(named, {n: label(n) for n, _ in named}, schedules, cfg,
+                            clip_keywords=clip_keywords)

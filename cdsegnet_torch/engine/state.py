@@ -4,8 +4,8 @@ Port of `make_train_step` and `make_eval_step` in
 `cdsegnet_tpu/engine/state.py`. The training step: forward in training
 mode, the loss and backward on each micro bucket, the mean over the ranks
 of a process group (`parallel.dist`, in place of JAX's `pmean` over the
-mesh), then the optimizer update (keyword clip, AdamW with per-group
-schedules). The model and the optimizer hold the state that JAX's
+mesh), then the optimizer update (keyword clip, AdamW, SGD or Adam with
+per-group schedules). The model and the optimizer hold the state that JAX's
 ``TrainState`` carries (the parameters and running statistics; the moments
 and the update count). Three generators per rank, seeded once, take the
 place of the step's rng split, into which JAX folds the device index:
@@ -25,7 +25,7 @@ from typing import Callable, Dict, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from cdsegnet_torch.engine.optimizer import KeywordAdamW
+from cdsegnet_torch.engine.optimizer import KeywordOptimizer
 from cdsegnet_torch.models.losses import Criteria
 from cdsegnet_torch.models.structure import PointBatch, make_point_batch
 from cdsegnet_torch.parallel import dist
@@ -35,10 +35,12 @@ from cdsegnet_torch.utils.device import resolve_device
 def batch_to_point(batch: Dict[str, np.ndarray], depth: int, num_scenes: int,
                    device: Optional[Union[str, torch.device]] = None) -> PointBatch:
     """A collated batch (`data.collate.collate_scenes`) as a `PointBatch` on
-    ``device`` (the GPU unless the caller names another)."""
+    ``device`` (the GPU unless the caller names another), with its instance
+    ids and centroids when it has them."""
     return make_point_batch(
         coord=batch["coord"], feat=batch["feat"], grid_coord=batch["grid_coord"],
         batch=batch["batch"], mask=batch["mask"], segment=batch.get("segment"),
+        instance=batch.get("instance"), instance_centroid=batch.get("instance_centroid"),
         depth=depth, num_scenes=num_scenes, device=device)
 
 
@@ -80,7 +82,7 @@ def _rank_mean_(model: torch.nn.Module, loss: torch.Tensor, microbatch: int) -> 
 
 
 def make_train_step(model: torch.nn.Module, criteria: Criteria,
-                    optimizer: KeywordAdamW, seed: int = 0,
+                    optimizer: KeywordOptimizer, seed: int = 0,
                     device: Optional[Union[str, torch.device]] = None,
                     microbatch: int = 1) -> Callable[..., Dict]:
     """The step ``step(point, **inject) -> metrics`` on ``device`` (the GPU
@@ -95,7 +97,7 @@ def make_train_step(model: torch.nn.Module, criteria: Criteria,
     the drops are summed. In a process group of more than one rank the
     gradients, the loss and the running statistics are then averaged over
     the ranks (JAX's `pmean` over the mesh) before the keyword clip and
-    AdamW; the batch statistics inside each forward stay the rank's own.
+    the optimizer; the batch statistics inside each forward stay the rank's own.
 
     ``inject`` goes to the model's forward (``ts_scene``, ``noise``,
     ``mse_valid`` and ``perms`` replace the draws); with micros each value

@@ -1,10 +1,12 @@
 """Config-dict factories for the ported models.
 
 Port of the `DefaultSegmentorV2`, `DefaultSegmentor`, `PT-v3m1`, NCF
-ablation, `DefaultClassifier` and `PT-v2m1`/`m2`/`m3` entries of
-`cdsegnet_tpu/models/builder.py`: reference-style config dicts (such as the
-``model`` dict of `configs/scannet/cdsegnet.py`) map to module fields with
-the same kwarg translation. `build_model_criteria` builds the losses named
+ablation, `DefaultClassifier`, `PT-v2m1`/`m2`/`m3` and sparse-conv
+(`SpUNet-v1m1`, `MinkUNet`, `SpUNet-v1m3`, `OACNNs`, `SPVCNN`, `CAC-v1m1`,
+`PointGroup`) entries of `cdsegnet_tpu/models/builder.py` and the modules
+that register them: reference-style config dicts (such as the ``model``
+dict of `configs/scannet/cdsegnet.py`) map to module fields with the same
+kwarg translation. `build_model_criteria` builds the losses named
 in the same dict. The rest of the model zoo is not ported: `build_model`
 raises `NotImplementedError` for its types.
 """
@@ -16,11 +18,17 @@ from typing import Any, Dict, Optional, Union
 import torch
 
 from cdsegnet_torch.models.ablation_segmentors import ABLATIONS, DefaultClassifier
+from cdsegnet_torch.models.cac import CACSegmentor
 from cdsegnet_torch.models.losses import Criteria, build_criteria
+from cdsegnet_torch.models.oacnns import OACNNs
+from cdsegnet_torch.models.pointgroup import PointGroup
 from cdsegnet_torch.models.ptv2 import VARIANTS as PTV2_VARIANTS
 from cdsegnet_torch.models.ptv2 import build_ptv2
 from cdsegnet_torch.models.ptv3 import PointTransformerV3
 from cdsegnet_torch.models.segmentor import CNFSegmentor, PlainSegmentor
+from cdsegnet_torch.models.spunet import VARIANTS as SPUNET_VARIANTS
+from cdsegnet_torch.models.spunet import SpUNet
+from cdsegnet_torch.models.spvcnn import SPVCNN
 from cdsegnet_torch.utils.device import resolve_device
 from cdsegnet_torch.utils.weights import init_weights
 
@@ -37,6 +45,14 @@ _SEGMENTOR_KEYS = {
     "dm_input", "dm_target", "dm_min_snr", "condition", "c_in_channels",
 }
 _ABLATIONS = {cls.__name__: cls for cls in ABLATIONS}
+# the sparse-conv backbones under their registered names
+_SPARSE = dict({k: SpUNet for k in SPUNET_VARIANTS}, **{
+    "OACNNs": OACNNs, "OACNNs-v1m1": OACNNs, "SPVCNN": SPVCNN, "SPVCNN-v1m1": SPVCNN})
+# the wrapper fields that JAX's CAC and PointGroup factories keep
+_CAC_KEYS = {"num_classes", "backbone_out_channels", "cos_temp", "conf_thresh",
+             "detach_pre_logits"}
+_POINTGROUP_KEYS = {"num_classes", "backbone_out_channels", "cluster_radius",
+                    "cluster_nsample"}
 
 
 def _norm_orders(order):
@@ -103,6 +119,16 @@ def _build(cfg: Dict[str, Any]) -> torch.nn.Module:
         _dtype(cfg)
         return build_ptv2(kind, **{k: tuple(v) if isinstance(v, list) else v
                                    for k, v in cfg.items()})
+    if kind in _SPARSE:
+        _dtype(cfg)
+        return _SPARSE[kind](**{k: tuple(v) if isinstance(v, list) else v
+                                for k, v in cfg.items()})
+    if kind == "CAC-v1m1":
+        return CACSegmentor(backbone=_build(cfg.pop("backbone")),
+                            **{k: v for k, v in cfg.items() if k in _CAC_KEYS})
+    if kind in ("PointGroup", "PointGroup-v1m1"):
+        return PointGroup(backbone=_build(cfg.pop("backbone")),
+                          **{k: v for k, v in cfg.items() if k in _POINTGROUP_KEYS})
     if kind == "DefaultClassifier":
         return DefaultClassifier(backbone=_build(cfg.pop("backbone")),
                                  num_classes=cfg.get("num_classes", 40),

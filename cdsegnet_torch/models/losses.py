@@ -1,13 +1,13 @@
 """Masked losses and the Criteria combiner (EW / GLS).
 
 Port of the parts of `cdsegnet_tpu/models/losses.py` that the CNF training
-step and the ablation segmentors use. Every loss takes explicit validity
-masks instead of boolean indexing, as in JAX, so shapes stay static. GLS for
-CDSegNet is ``loss = sqrt(MSE * (CE + Lovasz))`` with task_num=2.
+step, the ablation segmentors, CAC and PointGroup use. Every loss takes
+explicit validity masks instead of boolean indexing, as in JAX, so shapes
+stay static. GLS for CDSegNet is ``loss = sqrt(MSE * (CE + Lovasz))`` with
+task_num=2.
 
-Loss kinds that neither uses (focal, binary focal, dice, CAC distillation,
-PointGroup offsets) are not ported: `Criteria` raises `NotImplementedError`
-for them.
+Loss kinds that none of them uses (focal, binary focal, dice) are not
+ported: `Criteria` raises `NotImplementedError` for them.
 """
 
 from __future__ import annotations
@@ -94,6 +94,52 @@ def d3pm_kl_loss(pred_q_logits: torch.Tensor, true_q_logits: torch.Tensor,
     return masked_mean(kl, valid)
 
 
+def offset_l1_loss(pred: torch.Tensor, target: torch.Tensor,
+                   valid: torch.Tensor) -> torch.Tensor:
+    """PointGroup bias L1: mean ``|pred - target|`` (summed over xyz) over
+    instance points."""
+    l1 = (pred.float() - target.float()).abs().sum(-1)
+    v = valid.float()
+    return (l1 * v).sum() / torch.clamp(v.sum(), min=1e-8)
+
+
+def offset_cosine_loss(pred: torch.Tensor, target: torch.Tensor,
+                       valid: torch.Tensor) -> torch.Tensor:
+    """PointGroup bias direction loss: mean negative cosine similarity over
+    instance points."""
+    p, t = pred.float(), target.float()
+    pn = p / (torch.linalg.vector_norm(p, dim=-1, keepdim=True) + 1e-8)
+    tn = t / (torch.linalg.vector_norm(t, dim=-1, keepdim=True) + 1e-8)
+    cos = -(pn * tn).sum(-1)
+    v = valid.float()
+    return (cos * v).sum() / torch.clamp(v.sum(), min=1e-8)
+
+
+def cac_distill_loss(pred: torch.Tensor, soft: torch.Tensor, target: torch.Tensor,
+                     valid: torch.Tensor, smoothness: float = 0.5,
+                     eps: float = 0.0) -> torch.Tensor:
+    """CAC distillation: cross-entropy of the refined logits against
+    ``smoothness``-mixed (teacher softmax, one-hot) labels, weighted per
+    point by the teacher's entropy, averaged per class and then over the
+    classes present. The teacher ``soft`` is detached."""
+    num_classes = pred.shape[-1]
+    sm = torch.softmax(soft.detach().float(), dim=-1)
+    vm = (valid & (target >= 0)).float()
+    oh = F.one_hot(target.long().clamp(0, num_classes - 1), num_classes).float()
+    oh = oh * vm[:, None]
+    smoothed = smoothness * sm + (1.0 - smoothness) * oh
+    if eps > 0:
+        smoothed = smoothed * (1 - eps) + (1 - smoothed) * eps / (num_classes - 1)
+    logp = torch.log_softmax(pred.float(), dim=-1)
+    l_pt = -(logp * smoothed).sum(-1)
+    ent = -(sm * torch.log(sm + 1e-4)).sum(-1) * vm
+    per_num = (l_pt * ent) @ oh
+    per_den = ent @ oh
+    per_loss = per_num / (per_den + 1e-4)
+    present = (oh.sum(0) > 0).float()
+    return (per_loss * present).sum() / (present.sum() + 1e-4)
+
+
 def subsample_valid(valid: torch.Tensor, batch: torch.Tensor, num_scenes: int,
                     per_scene: int,
                     generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -127,7 +173,8 @@ _ALLOWED_KEYS = {
     "OffsetL1Loss": {"type", "loss_weight"},
     "OffsetCosineLoss": {"type", "loss_weight"},
 }
-_PORTED = ("MSELoss", "CrossEntropyLoss", "LovaszLoss", "SmoothCELoss", "D3PMKLLoss")
+_PORTED = ("MSELoss", "CrossEntropyLoss", "LovaszLoss", "SmoothCELoss", "D3PMKLLoss",
+           "CACDistillLoss", "OffsetL1Loss", "OffsetCosineLoss")
 
 
 class Criteria:
@@ -181,6 +228,20 @@ class Criteria:
                     continue
                 terms.append(w * d3pm_kl_loss(
                     out[pk], out[cfg.get("target", "d3pm_true_q")], out["seg_valid"]))
+            elif kind in ("OffsetL1Loss", "OffsetCosineLoss"):
+                if "offset_target" not in out:
+                    continue
+                fn = offset_l1_loss if kind == "OffsetL1Loss" else offset_cosine_loss
+                terms.append(w * fn(out["offset_pred"], out["offset_target"],
+                                    out["instance_valid"]))
+            elif kind == "CACDistillLoss":
+                sk = cfg.get("soft", "cac_pred")
+                if sk not in out:
+                    continue
+                terms.append(w * cac_distill_loss(
+                    out[cfg.get("pred", "n_pred")], out[sk], out["n_target"],
+                    out["seg_valid"], smoothness=cfg.get("smoothness", 0.5),
+                    eps=cfg.get("eps", 0.0)))
             else:  # LovaszLoss
                 pk = cfg.get("pred", "n_pred")
                 if pk not in out:

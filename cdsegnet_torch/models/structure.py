@@ -27,7 +27,9 @@ class PointBatch:
 
     coord (N, 3) float32, grid_coord (N, 3) int32, feat (N, C), mask (N,)
     bool, batch (N,) int32 with the sentinel at padding, segment (N,) int32
-    (-1 = ignore). After `serialize`: codes (O, N) int64, orders/inverses
+    (-1 = ignore), instance (N,) int32 (-1 = no instance) and
+    instance_centroid (N, 3) float32 (instance segmentation). After
+    `serialize`: codes (O, N) int64, orders/inverses
     (O, N) int32, codes_sorted (O, N) int64, batch_sorted (O, N) int32,
     mask_sorted (O, N) bool. neighbor_idx (N, K) int32.
     """
@@ -38,6 +40,8 @@ class PointBatch:
     mask: torch.Tensor
     batch: torch.Tensor
     segment: Optional[torch.Tensor] = None
+    instance: Optional[torch.Tensor] = None
+    instance_centroid: Optional[torch.Tensor] = None
     codes: Optional[torch.Tensor] = None
     orders: Optional[torch.Tensor] = None
     inverses: Optional[torch.Tensor] = None
@@ -66,6 +70,8 @@ def make_point_batch(
     depth: int = 16,
     num_scenes: int = 1,
     device=None,
+    instance=None,
+    instance_centroid=None,
 ) -> PointBatch:
     """Normalize dtypes and apply the padding sentinel convention. The
     arrays go to ``device``: the GPU unless the caller names another."""
@@ -83,6 +89,10 @@ def make_point_batch(
         batch=torch.where(mask, t(batch).to(torch.int32), num_scenes).to(torch.int32),
         segment=None if segment is None else torch.where(
             mask, t(segment).to(torch.int32), -1).to(torch.int32),
+        instance=None if instance is None else torch.where(
+            mask, t(instance).to(torch.int32), -1).to(torch.int32),
+        instance_centroid=None if instance_centroid is None else torch.where(
+            m1, t(instance_centroid).to(torch.float32), 0.0),
         depth=depth,
         num_scenes=num_scenes,
     )

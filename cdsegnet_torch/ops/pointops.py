@@ -210,14 +210,14 @@ def ball_query(query: torch.Tensor, ref: torch.Tensor, radius: float, nsample: i
 
 def farthest_point_sampling(*args, **kwargs):
     raise NotImplementedError(
-        'farthest_point_sampling is not ported (ROADMAP Queue 1 item 8: "PTv1 '
-        'with farthest-point sampling")')
+        'farthest_point_sampling is not ported (ROADMAP Queue 1: "PTv1 with '
+        'farthest-point sampling")')
 
 
 def farthest_point_sampling_batched(*args, **kwargs):
     raise NotImplementedError(
-        'farthest_point_sampling_batched is not ported (ROADMAP Queue 1 item 8: '
-        '"PTv1 with farthest-point sampling")')
+        'farthest_point_sampling_batched is not ported (ROADMAP Queue 1: "PTv1 '
+        'with farthest-point sampling")')
 
 
 def grouping(feat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

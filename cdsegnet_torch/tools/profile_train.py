@@ -7,12 +7,13 @@ Usage, from the root of a checkout::
 
 Without ``--trainer``: builds the model, criteria and optimizer of
 ``--config`` (`configs/scannet/cdsegnet.py` by default; e.g.
-`configs/scannet/ptv2.py`; random weights from a seed) as `chip_smoke.py`
+`configs/scannet/ptv2.py` or `configs/scannet/spunet.py`; random weights
+from a seed) as `chip_smoke.py`
 trains them, on the config's synthetic bucket (2 scenes, 204,800 slots,
 serialization depth 12; with ``--microbatch 2`` two micro buckets of
 102,400 slots, one scene each, trained in turn as `chip_smoke.py` phase 13
-does), then reports for one training step (forward, loss, backward,
-AdamW):
+does), then reports for one training step (forward, loss, backward, the
+config's optimizer):
 
 - the host-clock step time (median of 5 after 3 warm-ups, each ending in a
   synchronize) and the peak device memory;
@@ -100,7 +101,7 @@ def main() -> None:
     model = build_model(cfg, device="cuda", generator=torch.Generator().manual_seed(0))
     opt = build_optimizer(dict(conf["optimizer"]), model, dict(conf["scheduler"]),
                           total_steps=TOTAL_STEPS,
-                          param_dicts=[dict(p) for p in conf["param_dicts"]],
+                          param_dicts=[dict(p) for p in conf.get("param_dicts", [])],
                           device="cuda")
     m = args.microbatch
     step_fn = make_train_step(model, build_model_criteria(cfg), opt, device="cuda",

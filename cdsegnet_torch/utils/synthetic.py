@@ -9,8 +9,9 @@ reduces 2-4x per level, as real indoor scans do; the shipped capacity
 divisors (1, 2, 4, 16, 64) then drop nothing. 90% of the slots are real
 points, the rest padding. `room_scene` is a raw scan for the tester: a
 room in the fields of a Pointcept ScanNet archive, before any voxelization.
-`lidar_sweep` is a raw nuScenes keyframe sweep and `write_nuscenes` lays
-sweeps out as `NuScenesDataset` reads them. `write_modelnet` and
+`lidar_sweep` is a raw nuScenes keyframe sweep; `write_nuscenes` and
+`write_semantic_kitti` lay sweeps out as `NuScenesDataset` and
+`SemanticKITTIDataset` read them. `write_modelnet` and
 `write_shapenet_part` write seeded primitive shapes (spheres, boxes,
 cylinders, with normals and part labels) in the datasets' own file formats
 at their published point counts.
@@ -71,13 +72,15 @@ def synthetic_point_batch(num_points: int, num_scenes: int, depth: int,
                             depth=depth, num_scenes=num_scenes, device=device)
 
 
-def room_scene(seed: int = 0, cell: float = 0.02) -> dict:
+def room_scene(seed: int = 0, cell: float = 0.02, instances: bool = False) -> dict:
     """A synthetic ScanNet v2 room (Pointcept `.pth` fields): a 4.4 x 3.6 m
     floor, four walls 1.2 m high and four boxes, each face sampled on the
     2 cm grid with 2-4 points in each cell; colors 0-255 per face with
     noise, face normals, `semantic_gt20` per face (wall, floor, cabinet,
     table, chair, bed) and `semantic_gt200`, the same classes among the
-    ScanNet200 benchmark's."""
+    ScanNet200 benchmark's. ``instances`` adds `instance_gt`: the box's
+    index (0-3) on each box's points and -1 on the walls and the floor. It
+    draws nothing: the other arrays are the same with or without it."""
     rng = np.random.default_rng(seed)
     w, d, h = 4.4, 3.6, 1.2
     faces = [((0, 0, 0), (w, 0, 0), (0, d, 0), (0, 0, 1), 1),
@@ -85,17 +88,20 @@ def room_scene(seed: int = 0, cell: float = 0.02) -> dict:
              ((w, 0, 0), (0, d, 0), (0, 0, h), (-1, 0, 0), 0),
              ((0, 0, 0), (w, 0, 0), (0, 0, h), (0, 1, 0), 0),
              ((0, d, 0), (w, 0, 0), (0, 0, h), (0, -1, 0), 0)]
-    for x, y, sx, sy, sz, label in ((0.4, 0.4, 0.8, 0.5, 0.9, 2),
-                                    (2.6, 0.6, 1.2, 0.8, 0.75, 6),
-                                    (1.2, 2.2, 0.6, 0.6, 0.45, 4),
-                                    (3.2, 2.4, 0.9, 0.9, 0.5, 3)):
+    face_instance = [-1] * len(faces)
+    for box, (x, y, sx, sy, sz, label) in enumerate(((0.4, 0.4, 0.8, 0.5, 0.9, 2),
+                                                     (2.6, 0.6, 1.2, 0.8, 0.75, 6),
+                                                     (1.2, 2.2, 0.6, 0.6, 0.45, 4),
+                                                     (3.2, 2.4, 0.9, 0.9, 0.5, 3))):
         faces += [((x, y, sz), (sx, 0, 0), (0, sy, 0), (0, 0, 1), label),
                   ((x, y, 0), (sx, 0, 0), (0, 0, sz), (0, -1, 0), label),
                   ((x, y + sy, 0), (sx, 0, 0), (0, 0, sz), (0, 1, 0), label),
                   ((x, y, 0), (0, sy, 0), (0, 0, sz), (-1, 0, 0), label),
                   ((x + sx, y, 0), (0, sy, 0), (0, 0, sz), (1, 0, 0), label)]
+        face_instance += [box] * 5
     parts = dict(coord=[], color=[], normal=[], semantic_gt20=[])
-    for origin, u, v, normal, label in faces:
+    instance = []
+    for (origin, u, v, normal, label), inst in zip(faces, face_instance):
         u, v = np.array(u, float), np.array(v, float)
         nu = int(round(np.linalg.norm(u) / cell))
         nv = int(round(np.linalg.norm(v) / cell))
@@ -109,8 +115,11 @@ def room_scene(seed: int = 0, cell: float = 0.02) -> dict:
         parts["color"].append(np.clip(rng.uniform(40, 215, 3)
                                       + rng.normal(0, 12, p.shape), 0, 255))
         parts["semantic_gt20"].append(np.full(len(p), label))
+        instance.append(np.full(len(p), inst))
     out = {k: np.concatenate(v).astype(np.int64 if k == "semantic_gt20" else np.float32)
            for k, v in parts.items()}
+    if instances:
+        out["instance_gt"] = np.concatenate(instance).astype(np.int64)
     # ScanNet-20 index -> ScanNet200 index (wall 0, chair 1, floor 2, table 3,
     # cabinet 6, bed 10 among the benchmark's valid ids)
     out["semantic_gt200"] = np.array([0, 2, 6, 10, 1, -1, 3], np.int64)[out["semantic_gt20"]]
@@ -226,6 +235,43 @@ SHAPENET_PART_SYNSETS = (
     ("Laptop", "03642806"), ("Motorbike", "03790512"), ("Mug", "03797390"),
     ("Pistol", "03948459"), ("Rocket", "04099429"), ("Skateboard", "04225987"),
     ("Table", "04379243"))
+
+
+# SemanticKITTI raw label ids that `write_semantic_kitti` gives each
+# synthetic surface, by azimuth sector: the learning map sends them to all
+# 19 classes (0, unlabeled, goes to the ignore index)
+_KITTI_RAW = {
+    _DRIVEABLE: (40, 44, 40, 0),  # road, parking, road, unlabeled
+    _SIDEWALK: (48, 49, 72),  # sidewalk, other-ground, terrain
+    _CAR: (10, 11, 15, 18, 20, 30, 31, 32),  # vehicles, person, riders
+    _MANMADE: (50, 51, 70, 71, 80, 81),  # building, fence, vegetation, trunk, pole, sign
+}
+
+
+def write_semantic_kitti(root: str, sequences: Dict[str, List[Dict[str, np.ndarray]]]
+                         ) -> None:
+    """Lay `lidar_sweep` sweeps out under ``root`` as `SemanticKITTIDataset`
+    reads them: ``dataset/sequences/<seq>/velodyne/<frame:06d>.bin``
+    float32 (x, y, z, remission = intensity / 255) and
+    ``labels/<frame:06d>.label`` uint32 raw ids. Each nuScenes class of the
+    sweep maps to several SemanticKITTI raw ids by the point's azimuth
+    sector, so that the 19 learning classes (and the ignored unlabeled id)
+    all occur."""
+    for seq, sweeps in sequences.items():
+        base = os.path.join(root, "dataset", "sequences", seq)
+        for d in ("velodyne", "labels"):
+            os.makedirs(os.path.join(base, d), exist_ok=True)
+        for i, sweep in enumerate(sweeps):
+            pts = sweep["points"]
+            scan = np.concatenate([pts[:, :3], pts[:, 3:4] / 255.0], 1).astype(np.float32)
+            scan.tofile(os.path.join(base, "velodyne", f"{i:06d}.bin"))
+            azim = np.arctan2(pts[:, 1], pts[:, 0]) + np.pi
+            raw = np.zeros(len(pts), np.uint32)
+            for lab, ids in _KITTI_RAW.items():
+                sel = sweep["labels"] == lab
+                sector = (azim[sel] / (2 * np.pi) * 16).astype(np.int64) % len(ids)
+                raw[sel] = np.asarray(ids, np.uint32)[sector]
+            raw.tofile(os.path.join(base, "labels", f"{i:06d}.label"))
 
 
 def _primitive(kind: int, n: int, dims: np.ndarray, rng) -> tuple:

@@ -209,7 +209,8 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     ``lecun_normal`` for Dense kernels and zeros for biases;
     ``variance_scaling(1, fan_in, uniform)`` for (K, C_in, C_out) conv
     weights and the Restomer's depthwise (3, 1, C) ones; ones and zeros for
-    norms; a truncated normal of std 0.02 for the RPE table; ones for the
+    norms; ``lecun_normal`` over the fan-in ``c`` for CAC's raw ``(c, cls)``
+    ``seg_head_kernel``; a truncated normal of std 0.02 for the RPE table; ones for the
     Restomer's temperature; ones (0.5 for the ``b_`` gates) for a transfer
     gate's ``feat_scale``; ``variance_scaling(1/3, fan_in, uniform)`` for
     PTv2's (1, C) ``grouped_weight`` (fan-in 1: uniform in [-1, 1]); running
@@ -232,6 +233,10 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
                 std = math.sqrt(1.0 / p.shape[1]) / 0.87962566103423978
                 nn.init.trunc_normal_(p, 0.0, std, -2 * std, 2 * std,
                                       generator=generator)
+            elif leaf == "seg_head_kernel":  # CAC's raw (c, cls) head, lecun_normal
+                std = math.sqrt(1.0 / p.shape[0]) / 0.87962566103423978
+                nn.init.trunc_normal_(p, 0.0, std, -2 * std, 2 * std,
+                                      generator=generator)
             elif leaf == "grouped_weight":
                 nn.init.uniform_(p, -1.0, 1.0, generator=generator)
             elif p.dim() == 3:  # conv weight (K, C_in, C_out)
@@ -240,7 +245,7 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
             elif (isinstance(owner, (LayerNorm, MaskedBatchNorm, PDMaskedBatchNorm))
                   and leaf == "scale"):
                 p.fill_(1.0)
-            elif leaf == "bias":
+            elif leaf in ("bias", "seg_head_bias"):
                 p.zero_()
             else:
                 raise ValueError(f"no initializer for parameter {name}")

@@ -156,7 +156,26 @@ Phases, each fatal on failure:
    shape, about 2,500 per ShapeNetPart shape): 2 epochs of 2 steps, each
    evaluated (`ClsEvaluator`, `SemSegEvaluator`) and checkpointed, then
    `ClsTester` and `PartSegTester`; finite losses, accuracies and mIoUs in
-   [0, 1], one prediction per shape or a vote for every point.
+   [0, 1], one prediction per shape or a vote for every point;
+19. sparse: the sparse-conv family at the full width of its shipped configs
+   (random weights from a seed): SpUNet-v1m1 (`configs/scannet/spunet.py`,
+   f32) one eval forward on phase 4's scene (3 warm-ups, median of 10) and
+   its training step (SGD with Nesterov momentum, OneCycle) on phase 6's
+   bucket (3 warm-ups, median of 5, peak memory); MinkUNet and SpUNet-v1m3
+   (three conditions, condition 1) one forward each; OA-CNNs
+   (`configs/scannet/oacnns.py`, bf16) forward and AdamW step; CAC
+   (`configs/scannet/cac_spunet.py`) its step, its four loss terms finite;
+   PointGroup (`configs/scannet/insseg_pointgroup.py`) through the training
+   CLI on two synthetic rooms with instance ids (phase 8's room, with ids,
+   as val; GridSample keeping the ids), one evaluated epoch of 2 steps,
+   `InsSegEvaluator`'s mAP, AP50 and AP25 in [0, 1]; SPVCNN
+   (`configs/semantic_kitti/spvcnn.py`, bf16) through the training CLI on
+   synthetic SemanticKITTI sweeps (2 train, 1 val), one evaluated epoch of
+   2 steps, then the tester CLI with a submission file per sweep of known
+   raw ids, and its step on phase 6's bucket; last, SpUNet's and OA-CNNs'
+   f32 logits on the card against the CPU's on a 16,384-slot scene, within
+   ``TOL_SPARSE_CARD`` (TF32 off). Drops per level printed (none allowed);
+   no attention kernel may launch.
 
 Each phase prints its wall time (``phase <name> wall``). The last three lines are a JSON summary of the kernels, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``. Without a GPU, or
@@ -2789,6 +2808,290 @@ def phase_shapes(torch, tmp, card):
     return results
 
 
+SPARSE_CONFIGS = dict(spunet="scannet/spunet.py", oacnns="scannet/oacnns.py",
+                      cac="scannet/cac_spunet.py", pointgroup="scannet/insseg_pointgroup.py",
+                      spvcnn="semantic_kitti/spvcnn.py")
+SPARSE_GAP_POINTS = 16384  # phase 19's card-against-CPU scene
+# f32 logits on the card against the CPU, of max |logits| (TF32 off on both)
+TOL_SPARSE_CARD = 1e-4
+INSSEG_ROOM_SEEDS = (1, 2)  # phase 19's PointGroup train rooms (with instance ids)
+KITTI_SWEEP_SEEDS = dict(train=(1, 2), val=(3,))  # sequences 00 and 08
+
+
+def level_summary(levels):
+    return dict(sizes=[lv.size for lv in levels],
+                valid=[int(lv.point.mask.sum().item()) for lv in levels],
+                dropped=[int(lv.dropped) for lv in levels[1:]])
+
+
+def sparse_forward(torch, name, cfg, point, reps=10, **call):
+    """One eval forward of ``cfg``'s model (random weights from seed 0;
+    with ``call``, e.g. a PDNorm ``condition``, of its backbone): 3
+    warm-ups, then the median of ``reps`` synchronized host-clock forwards,
+    geometry included; the pyramid's levels and drops."""
+    from cdsegnet_torch.models.builder import build_model
+
+    model = build_model(copy.deepcopy(cfg), device="cuda",
+                        generator=torch.Generator().manual_seed(0))
+    levels = level_summary(model.backbone.precompute_geometry(point)[0])
+    fwd = torch.no_grad()(lambda: model.backbone(point, **call) if call
+                          else model(point)["n_pred"])
+    logits = fwd()
+    finite = bool(torch.isfinite(logits[point.mask]).all().item())
+    shape = tuple(logits.shape)
+    del logits
+    times = []
+    if reps:
+        fwd()
+        times = timed_ms(torch, fwd, reps)  # its own warm-up: the third
+    del model
+    torch.cuda.empty_cache()
+    out = dict(ms=statistics.median(times) if times else None, ms_all=times,
+               levels=levels, finite=finite, shape=shape)
+    print(f"sparse {name} eval " + json.dumps(out), flush=True)
+    if not finite or shape[0] != point.num_points or any(levels["dropped"]):
+        fail(f"{name} eval forward: logits {shape}, finite {finite}, drops "
+             f"{levels['dropped']}")
+    return out
+
+
+def sparse_step(torch, name, conf, point, check_terms=False):
+    """The config's training step (its optimizer and schedule, random
+    weights from seed 0) through `make_train_step`: the first step checked
+    (finite loss and gradients, no drop), then 3 warm-ups and the median of
+    5 timed steps; peak memory. ``check_terms``: every criteria term of
+    one more training forward finite (CAC's four)."""
+    from cdsegnet_torch.engine.optimizer import build_optimizer
+    from cdsegnet_torch.engine.state import make_train_step
+    from cdsegnet_torch.models.builder import build_model, build_model_criteria
+
+    cfg = copy.deepcopy(dict(conf.model))
+    model = build_model(cfg, device="cuda", generator=torch.Generator().manual_seed(0))
+    criteria = build_model_criteria(cfg)
+    opt = build_optimizer(dict(conf.optimizer), model, dict(conf.scheduler),
+                          total_steps=TRAIN_TOTAL_STEPS,
+                          param_dicts=[dict(p) for p in conf.get("param_dicts", [])],
+                          clip_keywords=conf.get("gredient_clip", []), device="cuda")
+    step = make_train_step(model, criteria, opt, seed=0, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    metrics = step(point)
+    torch.cuda.synchronize()
+    losses = [metrics["loss"].item()]
+    drops = [int(metrics[k]) for k in sorted(metrics) if k.startswith("dropped_l")]
+    bad = [n for n, p in model.named_parameters()
+           if p.grad is None or not torch.isfinite(p.grad).all()]
+    times = []
+    for i in range(8):  # 3 warm-ups, then 5 timed steps
+        t0 = time.perf_counter()
+        m = step(point)
+        torch.cuda.synchronize()
+        losses.append(m["loss"].item())
+        if i >= 3:
+            times.append((time.perf_counter() - t0) * 1e3)
+    terms = None
+    if check_terms:
+        with torch.no_grad():
+            out = model(point, generators=step.generators)
+            terms = [float(t) for t in criteria._terms(out)]
+        del out
+    n_valid = int(point.mask.sum().item())
+    step_ms = statistics.median(times)
+    result = dict(step_ms=step_ms, step_ms_all=times, losses=losses, dropped_per_level=drops,
+                  slots=point.num_points, valid=n_valid,
+                  points_per_s=n_valid / (step_ms / 1e3),
+                  peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                  optimizer=opt.kind, lrs=opt.lrs(), terms=terms)
+    print(f"sparse {name} step " + json.dumps(result), flush=True)
+    del step, opt, model, metrics, m
+    torch.cuda.empty_cache()
+    if not np.isfinite(losses).all() or bad or any(drops):
+        fail(f"{name} training step: losses {losses}, parameters without a finite "
+             f"gradient {bad[:5]}, drops {drops}")
+    if check_terms and (len(terms) != len(cfg["criteria"]) or not np.isfinite(terms).all()):
+        fail(f"{name}: criteria terms {terms} for {len(cfg['criteria'])} losses")
+    return result
+
+
+def sparse_card_gap(torch, name, cfg):
+    """f32 logits of ``cfg``'s model on a 16,384-slot scene, the card
+    against the CPU (same weights, same arrays; TF32 off): max |difference|
+    over the valid slots, over max |logits|."""
+    from cdsegnet_torch.models.builder import build_model
+    from cdsegnet_torch.utils.synthetic import synthetic_point_batch
+
+    c = copy.deepcopy(cfg)
+    c["backbone"]["dtype"] = "float32"
+    model = build_model(c, device="cpu", generator=torch.Generator().manual_seed(0))
+    got = {}
+    for dev in ("cpu", "cuda"):
+        point = synthetic_point_batch(SPARSE_GAP_POINTS, 1, depth=10, seed=1, device=dev)
+        with torch.no_grad():
+            got[dev] = model.to(dev)(point)["n_pred"].cpu()
+        valid = point.mask.cpu()
+    ref = got["cpu"][valid]
+    gap = ((got["cuda"][valid] - ref).abs().max() / ref.abs().max()).item()
+    out = dict(slots=SPARSE_GAP_POINTS, valid=int(valid.sum()), rel_gap=gap,
+               tol=TOL_SPARSE_CARD)
+    print(f"sparse {name} card against cpu " + json.dumps(out), flush=True)
+    del model
+    torch.cuda.empty_cache()
+    if not gap <= TOL_SPARSE_CARD:
+        fail(f"{name}: f32 logits on the card differ from the CPU's by {gap} of max "
+             f"|logits| (tolerance {TOL_SPARSE_CARD})")
+    return out
+
+
+def sparse_cli(torch, name, tmp, data):
+    """``tools/train.py`` on a config that `_base_`s ``SPARSE_CONFIGS[name]``
+    with ``data`` (the data roots, and transforms) and one evaluated epoch
+    of two passes: finite losses, the checkpoints."""
+    from cdsegnet_torch.tools import train as train_tool
+
+    base = os.path.join(tmp, "sparse")
+    save = os.path.join(base, f"{name}_run")
+    hooks = [dict(h, log_interval=1) if h["type"] == "InformationWriter" else h
+             for h in load_config(SPARSE_CONFIGS[name]).hooks]
+    cfg_file = os.path.join(base, f"{name}.py")
+    with open(cfg_file, "w") as f:
+        f.write(f"_base_ = [{config_path(SPARSE_CONFIGS[name])!r}]\nepoch = 2\n"
+                f"eval_epoch = 1\nhooks = {hooks!r}\ndata = {data!r}\n")
+    t0 = time.perf_counter()
+    trainer = train_tool.main(["--config-file", cfg_file, "--options", f"save_path={save}"])
+    torch.cuda.synchronize()
+    with open(os.path.join(save, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    result = dict(train_s=time.perf_counter() - t0, steps=trainer.step,
+                  losses=[r["loss"] for r in recs],
+                  checkpoints=sorted(os.listdir(os.path.join(save, "model"))),
+                  metric=[trainer.comm_info.get("current_metric_name"),
+                          trainer.comm_info.get("current_metric_value")])
+    if not np.isfinite(result["losses"]).all() or result["steps"] != 2 or \
+            not {"model_best", "model_last"} <= set(result["checkpoints"]):
+        fail(f"{name} training CLI: {result}")
+    return trainer, cfg_file, save, result
+
+
+def phase_sparse(torch, point, train_point, tmp, card):
+    """Phase 19: the sparse-conv family at the full width of its shipped
+    configs (random weights from a seed): SpUNet-v1m1 (f32; eval forward on
+    phase 4's scene, the SGD-Nesterov + OneCycle step on phase 6's bucket),
+    MinkUNet and SpUNet-v1m3 (three conditions, condition 1) one forward
+    each, OACNNs (bf16; forward and AdamW step), CAC (its SGD step, its four
+    loss terms finite), PointGroup through the training CLI on synthetic
+    rooms with instance ids (one evaluated epoch of 2 steps, InsSegEvaluator:
+    mAP, AP50 and AP25 finite and in [0, 1]), SPVCNN (bf16) through the
+    training CLI on synthetic SemanticKITTI sweeps and the tester CLI with
+    its submission files, and its step on phase 6's bucket; then SpUNet's
+    and OACNNs' f32 logits on the card against the CPU on a 16,384-slot
+    scene. No attention kernel may launch; no pooled level may drop a
+    point."""
+    from cdsegnet_torch.data.datasets import build_dataset
+    from cdsegnet_torch.ops import flash_attention as fa
+    from cdsegnet_torch.tools import test as test_tool
+    from cdsegnet_torch.utils.synthetic import (lidar_sweep, room_scene,
+                                                write_semantic_kitti)
+
+    start = time.perf_counter()
+    fa.reset_launch_counts()
+    confs = {k: load_config(v) for k, v in SPARSE_CONFIGS.items()}
+    res = dict(card=card)
+    spunet_cfg = dict(confs["spunet"].model)
+    res["spunet_eval"] = sparse_forward(torch, "spunet", spunet_cfg, point)
+    res["spunet_step"] = sparse_step(torch, "spunet", confs["spunet"], train_point)
+    for kind, extra, call in (("MinkUNet", {}, {}),
+                              ("SpUNet-v1m3", dict(num_conditions=3), dict(condition=1))):
+        c = copy.deepcopy(spunet_cfg)
+        c["backbone"].update(type=kind, **extra)
+        res[kind] = sparse_forward(torch, kind, c, point, reps=0, **call)
+    res["oacnns_eval"] = sparse_forward(torch, "oacnns", dict(confs["oacnns"].model), point)
+    res["oacnns_step"] = sparse_step(torch, "oacnns", confs["oacnns"], train_point)
+    res["cac_step"] = sparse_step(torch, "cac", confs["cac"], train_point, check_terms=True)
+
+    # PointGroup through the training CLI: rooms with instance ids; the
+    # shipped GridSample keeps no instance ids (its keys omit them, in the
+    # JAX config too), so the run's pipelines add "instance" to them
+    t0 = time.perf_counter()
+    root = os.path.join(tmp, "sparse", "insseg")
+    for split, seeds in (("train", INSSEG_ROOM_SEEDS), ("val", (ROOM_SEED,))):
+        os.makedirs(os.path.join(root, split))
+        for i, seed in enumerate(seeds):
+            torch.save(room_scene(seed, instances=True),
+                       os.path.join(root, split, f"scene{i:04d}_00.pth"))
+    write_s = time.perf_counter() - t0
+    pipeline = copy.deepcopy(list(confs["pointgroup"].data.train.transform))
+    for t in pipeline:
+        if t["type"] == "GridSample":
+            t["keys"] = ("coord", "color", "normal", "segment", "instance")
+    pg_data = dict(train=dict(data_root=root, transform=pipeline),
+                   val=dict(data_root=root, transform=pipeline))
+    trainer, _, _, pg = sparse_cli(torch, "pointgroup", tmp, pg_data)
+    ev = next(h for h in trainer.hooks if type(h).__name__ == "InsSegEvaluator")
+    pg.update(write_s=write_s, summary={k: v for k, v in ev.summary.items()
+                                        if k != "per_class_ap"},
+              gt_instances=sum(len(g) for r in ev.records for g in r["gt"].values()),
+              proposals=sum(len(p) for r in ev.records for p in r["pred"].values()))
+    print("sparse pointgroup cli " + json.dumps(pg), flush=True)
+    if not all(0.0 <= pg["summary"][k] <= 1.0 for k in ("all_ap", "all_ap_50", "all_ap_25")):
+        fail(f"PointGroup: mAP/AP50/AP25 {pg['summary']}")
+    res["pointgroup_cli"] = pg
+    del trainer, ev
+    torch.cuda.empty_cache()
+
+    # SPVCNN through the training and testing CLIs on synthetic sweeps
+    t0 = time.perf_counter()
+    kitti = os.path.join(tmp, "sparse", "kitti")
+    write_semantic_kitti(kitti, {"00": [lidar_sweep(s) for s in KITTI_SWEEP_SEEDS["train"]],
+                                 "08": [lidar_sweep(s) for s in KITTI_SWEEP_SEEDS["val"]]})
+    kitti_data = dict(train=dict(data_root=kitti), val=dict(data_root=kitti),
+                      test=dict(data_root=kitti))
+    trainer, cfg_file, save, sp = sparse_cli(torch, "spvcnn", tmp, kitti_data)
+    sp["write_s"] = time.perf_counter() - t0 - sp["train_s"]
+    del trainer
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    tester = test_tool.main(["--config-file", cfg_file, "--checkpoint", "model_last",
+                             "--options", f"save_path={save}", "submission=True"])
+    torch.cuda.synchronize()
+    ds = build_dataset(dict(tester.cfg.data.test))
+    labels = {}
+    for i in range(len(ds)):
+        seq, frame = ds.get_data_name(i).split("_")
+        f = os.path.join(save, "submit", "sequences", seq, "predictions", f"{frame}.label")
+        raw = np.fromfile(f, dtype=np.uint32) if os.path.exists(f) else None
+        labels[ds.get_data_name(i)] = dict(
+            points=int(ds.get_data(i)["coord"].shape[0]),
+            labels=None if raw is None else int(raw.size),
+            raw_ids_known=raw is not None and bool(np.isin(
+                raw, list(ds.learning_map_inv.values())).all()))
+    sp.update(test_s=time.perf_counter() - t0, test_result=tester.result,
+              submission=labels)
+    print("sparse spvcnn cli " + json.dumps(sp), flush=True)
+    if not all(v["labels"] == v["points"] and v["raw_ids_known"] for v in labels.values()):
+        fail(f"SPVCNN submission files: {labels}")
+    if not all(0.0 <= v <= 1.0 for v in tester.result.values()):
+        fail(f"SPVCNN tester result {tester.result}")
+    res["spvcnn_cli"] = sp
+    del tester
+    torch.cuda.empty_cache()
+    # the bucket's first 4 feature channels stand in for (x, y, z, remission)
+    res["spvcnn_step"] = sparse_step(torch, "spvcnn", confs["spvcnn"], train_point.replace(
+        feat=train_point.feat[:, :confs["spvcnn"].model.backbone.in_channels]))
+
+    res["card_gap"] = {n: sparse_card_gap(torch, n, dict(confs[n].model))
+                       for n in ("spunet", "oacnns")}
+    res["attention_launches"] = dict(fwd=fa.patch_attention_fwd.launches,
+                                     fwd_lse=fa.patch_attention_fwd.lse_launches,
+                                     bwd_dq=fa.patch_attention_bwd_dq.launches,
+                                     bwd_dkdv=fa.patch_attention_bwd_dkdv.launches)
+    res["phase_s"] = time.perf_counter() - start
+    summary = {k: v for k, v in res.items() if k not in ("pointgroup_cli", "spvcnn_cli")}
+    print("sparse " + json.dumps(summary), flush=True)
+    if any(res["attention_launches"].values()):
+        fail(f"the sparse-conv family launched the attention kernels "
+             f"{res['attention_launches']}")
+    return res
+
+
 def step_sums(rows, direction):
     """bf16 sums per training step in ``direction`` over the rows' launches,
     each timed on its level's real scene ids and validity."""
@@ -3023,11 +3326,14 @@ def run_phases(torch, config: str, runtime: str, tmp: str, start: float) -> int:
     torch.cuda.empty_cache()
     clock("ablations")
     phase_ptv2(torch, point, train_point, card)
-    del point, train_point
     torch.cuda.empty_cache()
     clock("ptv2")
     phase_shapes(torch, tmp, card)
     clock("shapes")
+    sparse = phase_sparse(torch, point, train_point, tmp, card)
+    del point, train_point
+    torch.cuda.empty_cache()
+    clock("sparse")
     # this slice's paths through the kernels: times from phases 3 and 5 (the
     # same levels, heads and head dims), launches counted in phases 15-16
     kernel_models = {f"option_{n}": option_cfg(cfg, n)["backbone"] for n in ("a", "b")}
@@ -3106,7 +3412,9 @@ def run_phases(torch, config: str, runtime: str, tmp: str, start: float) -> int:
                             forwards=ABLATION_MSAI_STEPS + 1,
                             launches=ablations[k]["multistep"]["avg"]["launches"],
                             fragment_ms=ablations[k]["multistep"]["avg"]["ms"])
-                            for k in ABLATIONS})),
+                            for k in ABLATIONS},
+                        # phase 19's sparse-conv family runs no attention
+                        sparse=dict(launches=sparse["attention_launches"]["fwd"]))),
     ]
     for name, direction in (("patch_attention_bwd_dq", "dq"),
                             ("patch_attention_bwd_dkdv", "dkdv")):
@@ -3125,7 +3433,8 @@ def run_phases(torch, config: str, runtime: str, tmp: str, start: float) -> int:
                            launches=micro["launches"][counted]),
                 slice_train={n: dict(train_launch_sums(train_rows, attention_launches(
                     bb, c_decoder=True), direction), launches=slice_runs[n]["step_launches"][
-                        counted]) for n, bb in kernel_models.items()})))
+                        counted]) for n, bb in kernel_models.items()},
+                sparse=dict(launches=sparse["attention_launches"][counted]))))
     print(f"wall time {time.perf_counter() - start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)

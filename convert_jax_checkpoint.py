@@ -14,8 +14,8 @@ config's model in the port on the CPU, fills it with
 package's parameter layouts; strict), and writes ``snapshot(model, step)``
 with the port's `CheckpointManager` as ``--output``.
 
-The optimizer's moments are not carried (optax's and the port's AdamW
-state differ in layout), so the file loads as weights: for the tester
+The optimizer's state is not carried (optax's and the port's AdamW moments
+and SGD momentum buffers differ in layout), so the file loads as weights: for the tester
 (``tools/test.py --checkpoint``) or for fine-tuning (``weight=`` in the
 trainer's config), not as a run to resume (``resume=True``). A Baseline
 (``dm=False``) trained by JAX has no ``fc_t1``/``fc_t2``: the port's seeded
@@ -23,8 +23,10 @@ initializer fills them, and the script names them. Every model type the
 port builds converts the same way, the ablation segmentors (③–⑥, DM) and
 the PTv3 options (RPE tables, the Restomer's depthwise convs and
 temperature, the transfer gates, ``cross_block1``), PTv2 (m1's
-``grouped_weight``, m3's per-condition PDNorm tensors and ``modulation``)
-and `DefaultClassifier` included: the bridge maps each tensor by its flax
+``grouped_weight``, m3's per-condition PDNorm tensors and ``modulation``),
+`DefaultClassifier` and the sparse-conv family (SpUNet and its variants,
+OA-CNNs, SPVCNN, CAC with its raw ``seg_head_kernel``, PointGroup)
+included: the bridge maps each tensor by its flax
 name, so the script needs nothing per type.
 
 This script imports orbax, and through it JAX: run it where orbax is

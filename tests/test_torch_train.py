@@ -109,7 +109,7 @@ def test_criteria_reject_what_jax_rejects():
         jl.Criteria([dict(type="LovaszLoss", mdoe="multiclass")])
     with pytest.raises(NotImplementedError):
         tl.Criteria([dict(type="NoSuchLoss")])
-    for kind in ("FocalLoss", "DiceLoss", "CACDistillLoss", "OffsetL1Loss"):
+    for kind in ("FocalLoss", "DiceLoss", "BinaryFocalLoss"):
         with pytest.raises(NotImplementedError, match="not ported"):
             tl.Criteria([dict(type=kind)])
 

@@ -510,7 +510,6 @@ def test_trainer_and_cli_refuse_the_cpu_unless_asked(root, tmp_path, monkeypatch
     (dict(microbatch=3), "gradient accumulation"),
     (dict(train=dict(type="MSCTrainer")), "MSCTrainer"),
     (dict(train=dict(type="MultiDatasetTrainer")), "MultiDatasetTrainer"),
-    (dict(hooks=[dict(type="InsSegEvaluator")]), "InsSegEvaluator"),
     (dict(hooks=[dict(type="RuntimeProfiler")]), "RuntimeProfiler"),
     ("val_condition", "val condition")])
 def test_unported_trainer_options_raise(root, tmp_path, change, match):

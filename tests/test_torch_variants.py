@@ -239,7 +239,8 @@ def test_variant_train_step_matches_jax(jref, name):
 
 def _config_files():
     return sorted(os.path.relpath(p, CONFIGS)
-                  for d in ("scannet", "scannet200", "nuscenes", "modelnet40", "shapenetpart")
+                  for d in ("scannet", "scannet200", "nuscenes", "modelnet40", "shapenetpart",
+                            "semantic_kitti")
                   for p in glob.glob(os.path.join(CONFIGS, d, "*.py")))
 
 
@@ -282,6 +283,46 @@ def _ptv2_builds_as_jax(model_cfg):
     assert m.backbone.capacity_div == tuple(jm.backbone.capacity_div)
 
 
+SPARSE_CONFIGS = ("scannet/spunet.py", "scannet/oacnns.py", "scannet/cac_spunet.py",
+                  "scannet/insseg_pointgroup.py", "semantic_kitti/spvcnn.py")
+SPARSE_WIDTH = {  # channels cut, depths and every other field as shipped
+    "SpUNet-v1m1": dict(base_channels=8, channels=(8, 16, 16, 16, 16, 16, 8, 8)),
+    "SPVCNN": dict(base_channels=8, channels=(8, 16, 16, 16, 16, 16, 8, 8)),
+    "OACNNs": dict(embed_channels=8, enc_channels=(8, 8, 16, 16),
+                   dec_channels=(8, 8, 16, 16)),
+}
+
+
+def _sparse_builds_as_jax(model_cfg):
+    """A sparse-conv config's model at a test width: the port's has the JAX
+    model's every parameter and running statistic, name for name and shape
+    for shape (the strict weight bridge fills it from JAX's variable
+    shapes), the backbone's dtype, depths and capacities, and the
+    wrapper's fields."""
+    small = copy.deepcopy(dict(model_cfg))
+    bb = small["backbone"]
+    bb.update(SPARSE_WIDTH[bb["type"]])
+    if "backbone_out_channels" in small:
+        small["backbone_out_channels"] = 8
+    m = tbuild(copy.deepcopy(small), device="cpu")
+    jm = jbuild(copy.deepcopy(small))
+    shapes = jax.eval_shape(lambda p: jm.init(jax.random.PRNGKey(0), p, train=False),
+                            _ptv2_point(small))
+    load_jax_variables(m, jax.tree_util.tree_map(lambda x: np.zeros(x.shape, np.float32),
+                                                 shapes))
+    assert m.backbone.dtype == {"bfloat16": torch.bfloat16}.get(bb.get("dtype"),
+                                                                torch.float32)
+    assert m.backbone.capacity_div == tuple(jm.backbone.capacity_div)
+    for f in ("layers", "enc_depth", "point_grid_size"):
+        if hasattr(jm.backbone, f):
+            assert getattr(m.backbone, f) == tuple(map(
+                lambda x: tuple(x) if isinstance(x, (list, tuple)) else x,
+                getattr(jm.backbone, f))), f
+    for f in ("num_classes", "cos_temp", "cluster_radius", "cluster_nsample"):
+        if hasattr(jm, f):
+            assert getattr(m, f) == getattr(jm, f), f
+
+
 def _ptv2_point(cfg, n=4096):
     """Shapes only: JAX's kNN needs every level at least k = 16 slots wide,
     and the coarsest holds n / 128."""
@@ -296,9 +337,10 @@ def _ptv2_point(cfg, n=4096):
 def test_config_loads_and_builds(name):
     """The port's `Config` reads every file as JAX's does; a CDSegNet-family
     model builds (at a test width) with JAX's segmentor fields and betas,
-    a PTv2 one (ScanNet, ModelNet40, ShapeNetPart) with JAX's parameters
-    (`_ptv2_builds_as_jax`), every other model raises
-    `NotImplementedError`."""
+    a PTv2 one (ScanNet, ModelNet40, ShapeNetPart) or a sparse-conv one
+    (SpUNet, OA-CNNs, CAC, PointGroup, SPVCNN) with JAX's parameters
+    (`_ptv2_builds_as_jax`, `_sparse_builds_as_jax`), every other model
+    raises `NotImplementedError`."""
     path = os.path.join(CONFIGS, name)
     cfg, jcfg = Config.fromfile(path), JConfig.fromfile(path)
     assert cfg.model == dict(jcfg.model)
@@ -306,6 +348,9 @@ def test_config_loads_and_builds(name):
         k: jcfg[k] for k in jcfg if k != "data"}
     if name in PTV2_CONFIGS:
         _ptv2_builds_as_jax(cfg.model)
+        return
+    if name in SPARSE_CONFIGS:
+        _sparse_builds_as_jax(cfg.model)
         return
     if os.path.splitext(os.path.basename(name))[0] not in FAMILY:
         with pytest.raises(NotImplementedError):

@@ -3,7 +3,9 @@
 Port of the `DefaultSegmentorV2`, `DefaultSegmentor`, `PT-v3m1`, NCF
 ablation, `DefaultClassifier`, `PT-v2m1`/`m2`/`m3` and sparse-conv
 (`SpUNet-v1m1`, `MinkUNet`, `SpUNet-v1m3`, `OACNNs`, `SPVCNN`, `CAC-v1m1`,
-`PointGroup`) entries of `cdsegnet_tpu/models/builder.py` and the modules
+`PointGroup`), PTv1 (`PT-v1`, `PointTransformer-Seg26`/`-Seg38`/`-Seg50`)
+and window-attention (`OctFormer-v1m1`, `StratifiedTransformer`(`-v1m1`),
+`Swin3D-v1m1`) entries of `cdsegnet_tpu/models/builder.py` and the modules
 that register them: reference-style config dicts (such as the ``model``
 dict of `configs/scannet/cdsegnet.py`) map to module fields with the same
 kwarg translation. `build_model_criteria` builds the losses named
@@ -21,14 +23,19 @@ from cdsegnet_torch.models.ablation_segmentors import ABLATIONS, DefaultClassifi
 from cdsegnet_torch.models.cac import CACSegmentor
 from cdsegnet_torch.models.losses import Criteria, build_criteria
 from cdsegnet_torch.models.oacnns import OACNNs
+from cdsegnet_torch.models.octformer import OctFormer
 from cdsegnet_torch.models.pointgroup import PointGroup
 from cdsegnet_torch.models.ptv2 import VARIANTS as PTV2_VARIANTS
 from cdsegnet_torch.models.ptv2 import build_ptv2
+from cdsegnet_torch.models.ptv1 import VARIANTS as PTV1_VARIANTS
+from cdsegnet_torch.models.ptv1 import PointTransformerV1
 from cdsegnet_torch.models.ptv3 import PointTransformerV3
 from cdsegnet_torch.models.segmentor import CNFSegmentor, PlainSegmentor
 from cdsegnet_torch.models.spunet import VARIANTS as SPUNET_VARIANTS
 from cdsegnet_torch.models.spunet import SpUNet
 from cdsegnet_torch.models.spvcnn import SPVCNN
+from cdsegnet_torch.models.stratified import StratifiedTransformer
+from cdsegnet_torch.models.swin3d import Swin3DUNet
 from cdsegnet_torch.utils.device import resolve_device
 from cdsegnet_torch.utils.weights import init_weights
 
@@ -48,6 +55,10 @@ _ABLATIONS = {cls.__name__: cls for cls in ABLATIONS}
 # the sparse-conv backbones under their registered names
 _SPARSE = dict({k: SpUNet for k in SPUNET_VARIANTS}, **{
     "OACNNs": OACNNs, "OACNNs-v1m1": OACNNs, "SPVCNN": SPVCNN, "SPVCNN-v1m1": SPVCNN})
+# the window-attention backbones under their registered names
+_WINDOW = {"OctFormer-v1m1": OctFormer, "StratifiedTransformer": StratifiedTransformer,
+           "StratifiedTransformer-v1m1": StratifiedTransformer,
+           "Swin3D-v1m1": Swin3DUNet}
 # the wrapper fields that JAX's CAC and PointGroup factories keep
 _CAC_KEYS = {"num_classes", "backbone_out_channels", "cos_temp", "conf_thresh",
              "detach_pre_logits"}
@@ -123,6 +134,14 @@ def _build(cfg: Dict[str, Any]) -> torch.nn.Module:
         _dtype(cfg)
         return _SPARSE[kind](**{k: tuple(v) if isinstance(v, list) else v
                                 for k, v in cfg.items()})
+    if kind in PTV1_VARIANTS or kind in _WINDOW:
+        _dtype(cfg)
+        kwargs = {k: tuple(v) if isinstance(v, list) else v for k, v in cfg.items()}
+        if "orders" in kwargs:
+            kwargs["orders"] = _norm_orders(kwargs["orders"])
+        if kind in _WINDOW:
+            return _WINDOW[kind](**kwargs)
+        return PointTransformerV1(**dict(PTV1_VARIANTS[kind], **kwargs))
     if kind == "CAC-v1m1":
         return CACSegmentor(backbone=_build(cfg.pop("backbone")),
                             **{k: v for k, v in cfg.items() if k in _CAC_KEYS})

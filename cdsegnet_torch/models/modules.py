@@ -186,21 +186,30 @@ class Mlp(nn.Module):
 
 class DropoutDraws:
     """The ``"dropout"`` generator with the elementwise dropout keep masks
-    given in call order (tests feed JAX's): `dropout` takes the next mask,
-    `drop_path` still draws from ``generator``."""
+    given in call order (tests feed JAX's): `dropout` takes the next mask;
+    `drop_path` takes the next of ``path_masks`` when they are given, else
+    draws from ``generator``."""
 
-    def __init__(self, generator: Optional[torch.Generator], masks):
+    def __init__(self, generator: Optional[torch.Generator], masks, path_masks=None):
         self.generator = generator
         self.masks = list(masks)
+        self.path_masks = None if path_masks is None else list(path_masks)
 
-    def next_mask(self, shape) -> torch.Tensor:
-        if not self.masks:
-            raise ValueError("more dropout calls than injected masks")
-        m = self.masks.pop(0)
+    @staticmethod
+    def _pop(masks, shape, what) -> torch.Tensor:
+        if not masks:
+            raise ValueError(f"more {what} calls than injected masks")
+        m = masks.pop(0)
         if tuple(m.shape) != tuple(shape):
-            raise ValueError(f"injected dropout mask {tuple(m.shape)} for an input "
+            raise ValueError(f"injected {what} mask {tuple(m.shape)} for an input "
                              f"of shape {tuple(shape)}")
         return m
+
+    def next_mask(self, shape) -> torch.Tensor:
+        return self._pop(self.masks, shape, "dropout")
+
+    def next_path_mask(self, shape) -> torch.Tensor:
+        return self._pop(self.path_masks, shape, "drop_path")
 
 
 def dropout(x: torch.Tensor, rate: float, deterministic: bool = True,
@@ -229,14 +238,17 @@ def drop_path(x: torch.Tensor, rate: float, deterministic: bool = True,
     rate 0. The keep mask is drawn from ``generator`` (on ``x``'s device)."""
     if deterministic or rate == 0.0:
         return x
-    if isinstance(generator, DropoutDraws):
-        generator = generator.generator
-    if generator is None:
-        raise ValueError("stochastic depth needs an explicit torch.Generator")
     # the keep probability in float32, rounded to x's dtype for the rescale,
     # as in JAX (host scalars: nothing is copied to the device)
     keep = torch.tensor(1.0, dtype=torch.float32) - rate
-    m = torch.rand((x.shape[0], 1), generator=generator, device=x.device) < keep.item()
+    if isinstance(generator, DropoutDraws) and generator.path_masks is not None:
+        m = generator.next_path_mask((x.shape[0], 1)).to(x.device)
+    else:
+        if isinstance(generator, DropoutDraws):
+            generator = generator.generator
+        if generator is None:
+            raise ValueError("stochastic depth needs an explicit torch.Generator")
+        m = torch.rand((x.shape[0], 1), generator=generator, device=x.device) < keep.item()
     return torch.where(m, x / keep.to(x.dtype).item(),
                        torch.zeros((), dtype=x.dtype, device=x.device))
 

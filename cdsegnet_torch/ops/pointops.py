@@ -208,16 +208,83 @@ def ball_query(query: torch.Tensor, ref: torch.Tensor, radius: float, nsample: i
     return idx, dist
 
 
-def farthest_point_sampling(*args, **kwargs):
-    raise NotImplementedError(
-        'farthest_point_sampling is not ported (ROADMAP Queue 1: "PTv1 with '
-        'farthest-point sampling")')
+def _sq_dist3(coord: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``sum((coord - c)^2, -1)`` as XLA rounds it on the CPU: the three
+    squares summed as a chain of fused multiply-adds,
+    ``fma(d2, d2, fma(d1, d1, d0 d0))`` (`torch.addcmul`, fused on the CPU
+    and on CUDA)."""
+    diff = coord - c
+    return _dot3(diff, diff)
 
 
-def farthest_point_sampling_batched(*args, **kwargs):
-    raise NotImplementedError(
-        'farthest_point_sampling_batched is not ported (ROADMAP Queue 1: "PTv1 '
-        'with farthest-point sampling")')
+def farthest_point_sampling(coord: torch.Tensor, n_samples: int,
+                            mask: Optional[torch.Tensor] = None,
+                            start: int = 0) -> torch.Tensor:
+    """Iterative FPS: ``(n_samples,)`` int32 indices, the first ``start``
+    (reference `src/sampling`).
+
+    JAX's definition step for step, quirk included: the running minimum
+    distance starts at BIG for every point, valid or not, and the mask
+    enters only the argmax (-BIG at invalid points). Each pick stays on the
+    device (no host read per pick)."""
+    n = coord.shape[0]
+    dev = coord.device
+    valid = (torch.ones(n, dtype=torch.bool, device=dev) if mask is None
+             else mask.to(torch.bool))
+    neg = torch.full((n,), -BIG, dtype=coord.dtype, device=dev)
+    mind = torch.full((n,), BIG, dtype=coord.dtype, device=dev)
+    sel = torch.zeros(n_samples, dtype=torch.int64, device=dev)
+    sel[0] = start
+    last = sel[:1]
+    for i in range(1, n_samples):
+        mind = torch.minimum(mind, _sq_dist3(coord, coord.index_select(0, last)))
+        last = torch.argmax(torch.where(valid, mind, neg)).view(1)
+        sel[i:i + 1] = last
+    return sel.to(torch.int32)
+
+
+def farthest_point_sampling_batched(coord: torch.Tensor, batch: torch.Tensor,
+                                    mask: torch.Tensor, n_samples: int, stride: int,
+                                    num_scenes: int) -> torch.Tensor:
+    """Per-scene FPS at ``stride``: ``(n_samples,)`` int32 indices into
+    ``coord``, unused slots N (reference `point_transformer_seg.py:93-116`).
+
+    JAX's definition step for step: scene s takes ``count_s // stride``
+    picks (at least 1 when it has a valid point); one loop of
+    ``n_samples`` picks drives every scene at once, each pick the first
+    argmax of ``score = where(eligible, mind, -1)`` over the whole bucket,
+    accepted when ``score >= 0`` (coincident points, at distance 0, still
+    count), its distances updating only its own scene's running minimum.
+    Every scene is so seeded by its first valid slot (its minimum is BIG
+    until then). ``ok``, ``pick`` and the picked scene stay 0-dim device
+    tensors: the loop makes no host read."""
+    n = coord.shape[0]
+    dev = coord.device
+    coord = coord.float()
+    b = torch.where(mask.to(torch.bool), batch.long(), num_scenes)
+    counts = torch.zeros(num_scenes + 1, dtype=torch.int64, device=dev)
+    counts.index_add_(0, b, torch.ones_like(b))
+    quota = counts[:num_scenes] // stride
+    quota = torch.where(counts[:num_scenes] > 0, quota.clamp(min=1), 0)
+    quota_b = torch.cat([quota, quota.new_zeros(1)])[b]  # each slot's scene quota
+    mind = torch.full((n,), BIG, dtype=torch.float32, device=dev)
+    chosen = torch.zeros(n, dtype=torch.bool, device=dev)
+    taken = torch.zeros(num_scenes + 1, dtype=torch.int64, device=dev)
+    sel = torch.full((n_samples,), n, dtype=torch.int64, device=dev)
+    neg = torch.full((n,), -1.0, dtype=torch.float32, device=dev)
+    guard = torch.full((1,), n, dtype=torch.int64, device=dev)
+    for t in range(n_samples):
+        eligible = ~chosen & (taken.index_select(0, b) < quota_b)
+        score = torch.where(eligible, mind, neg)
+        pick = torch.argmax(score).view(1)
+        ok = score.index_select(0, pick) >= 0.0
+        pb = b.index_select(0, pick)
+        d = _sq_dist3(coord, coord.index_select(0, pick))
+        mind = torch.where(ok & (b == pb), torch.minimum(mind, d), mind)
+        chosen.scatter_(0, pick, chosen.index_select(0, pick) | ok)
+        taken.index_add_(0, pb, ok.long())
+        sel[t:t + 1] = torch.where(ok, pick, guard)
+    return sel.to(torch.int32)
 
 
 def grouping(feat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

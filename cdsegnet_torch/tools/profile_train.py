@@ -3,7 +3,7 @@
 Usage, from the root of a checkout::
 
     python -m cdsegnet_torch.tools.profile_train --out DIR \
-        [--trainer | --microbatch M | --config FILE]
+        [--trainer | --microbatch M | --config FILE] [--warmup W --steps S --profiled P]
 
 Without ``--trainer``: builds the model, criteria and optimizer of
 ``--config`` (`configs/scannet/cdsegnet.py` by default; e.g.
@@ -15,10 +15,13 @@ serialization depth 12; with ``--microbatch 2`` two micro buckets of
 does), then reports for one training step (forward, loss, backward, the
 config's optimizer):
 
-- the host-clock step time (median of 5 after 3 warm-ups, each ending in a
-  synchronize) and the peak device memory;
-- from `torch.profiler` over 2 steps: the device time per step, the device's
-  idle share, and the device time by kernel family and by kernel;
+- the host-clock step time (median of ``--steps`` 5 after ``--warmup`` 3,
+  each ending in a synchronize) and the peak device memory;
+- from `torch.profiler` over ``--profiled`` 2 steps: the device time per
+  step, the device's idle share, and the device time by kernel family and
+  by kernel (PTv1's step launches over a million kernels in its
+  farthest-point sampling: profile it with ``--warmup 1 --steps 2
+  --profiled 1``);
 - for a kNN model (PTv2): the device time of its geometry alone (the
   metric pyramid and one kNN table per level, which the step builds), from
   `torch.profiler` over 2 builds, and each level's kNN ms (CUDA events).
@@ -85,6 +88,9 @@ def main() -> None:
                     help="micro buckets per step (1 or 2, the config's values)")
     ap.add_argument("--config", default=DEFAULT_CONFIG,
                     help="the model's config file (not with --trainer)")
+    ap.add_argument("--warmup", type=int, default=3, help="untimed steps first")
+    ap.add_argument("--steps", type=int, default=5, help="timed steps (median)")
+    ap.add_argument("--profiled", type=int, default=2, help="steps under the profiler")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_train needs a CUDA device")
@@ -115,12 +121,12 @@ def main() -> None:
     res = dict(card=card_name(), config=args.config, microbatch=m,
                slots=sum(p.num_points for p in points),
                n_valid=sum(int(p.mask.sum().item()) for p in points),
-               step_ms=host_ms(step, 3, 5))
+               step_ms=host_ms(step, args.warmup, args.steps))
     res.update(peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
                points_per_s=res["n_valid"] / (res["step_ms"] / 1e3))
     print("train " + json.dumps(res), flush=True)
     name = f"profile_train{suffix}.txt" if m == 1 else f"profile_train_micro{m}.txt"
-    profile_steps(step, 2, res, os.path.join(args.out, name))
+    profile_steps(step, args.profiled, res, os.path.join(args.out, name))
     if hasattr(model.backbone, "k_neighbors"):
         profile_geometry(model.backbone, points[0], res["card"],
                          os.path.join(args.out, f"profile_geometry{suffix}.txt"))

@@ -210,7 +210,10 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     ``variance_scaling(1, fan_in, uniform)`` for (K, C_in, C_out) conv
     weights and the Restomer's depthwise (3, 1, C) ones; ones and zeros for
     norms; ``lecun_normal`` over the fan-in ``c`` for CAC's raw ``(c, cls)``
-    ``seg_head_kernel``; a truncated normal of std 0.02 for the RPE table; ones for the
+    ``seg_head_kernel``; a truncated normal of std 0.02 for the RPE table
+    and Swin3D's ``(3, 2L, H, D)`` cRSE tables;
+    ``variance_scaling(1, fan_in, uniform)`` for OctFormer's ``(27, C)``
+    ``dw_weight`` (fan-in 27); ones for the
     Restomer's temperature; ones (0.5 for the ``b_`` gates) for a transfer
     gate's ``feat_scale``; ``variance_scaling(1/3, fan_in, uniform)`` for
     PTv2's (1, C) ``grouped_weight`` (fan-in 1: uniform in [-1, 1]); running
@@ -222,8 +225,11 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
         for name, p in module.named_parameters():
             owner = module.get_submodule(name.rsplit(".", 1)[0]) if "." in name else module
             leaf = name.rsplit(".", 1)[-1]
-            if leaf == "rpe_table":
+            if leaf.endswith("_table"):  # RPE and Swin3D's cRSE tables
                 nn.init.trunc_normal_(p, 0.0, 0.02, -0.04, 0.04, generator=generator)
+            elif leaf == "dw_weight":  # OctFormer's depthwise (27, C), fan-in 27
+                lim = math.sqrt(3.0 / p.shape[0])
+                nn.init.uniform_(p, -lim, lim, generator=generator)
             elif leaf == "temperature":
                 p.fill_(1.0)
             elif leaf == "feat_scale":

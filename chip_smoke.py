@@ -175,7 +175,24 @@ Phases, each fatal on failure:
    raw ids, and its step on phase 6's bucket; last, SpUNet's and OA-CNNs'
    f32 logits on the card against the CPU's on a 16,384-slot scene, within
    ``TOL_SPARSE_CARD`` (TF32 off). Drops per level printed (none allowed);
-   no attention kernel may launch.
+   no attention kernel may launch;
+20. zoo: PTv1 and the window-attention family at the full width of their
+   shipped configs (random weights from a seed). PTv1
+   (`configs/scannet/ptv1.py`, Seg50, bf16): one eval forward on phase 4's
+   scene and the AdamW + OneCycle step on phase 6's bucket, each 1 warm-up
+   and 1 timed (FPS takes seconds per forward), peak memory, the
+   farthest-point sampling of each level inside them (CUDA events, under
+   ``torch.cuda.set_sync_debug_mode("error")``: a host read per pick fails)
+   with its share, and the four levels' picks on a 16,384-slot scene equal
+   on the card and the CPU. OctFormer, Stratified
+   (without the config's ``gredient_clip``, which both packages refuse)
+   and Swin3D (f32): one eval forward (3 warm-ups, median of 10) and the
+   config's step (3 warm-ups, median of 5), peak memory and drops per
+   level; their f32 logits on the card against the CPU's on a 16,384-slot
+   scene within ``TOL_SPARSE_CARD``; OctFormer through the training CLI
+   (one evaluated epoch of 2 steps on phase 9's rooms) and the tester CLI
+   (phase 8's room, its first augmentation). Finite losses; no attention
+   kernel may launch.
 
 Each phase prints its wall time (``phase <name> wall``). The last three lines are a JSON summary of the kernels, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``. Without a GPU, or
@@ -2824,43 +2841,59 @@ def level_summary(levels):
                 dropped=[int(lv.dropped) for lv in levels[1:]])
 
 
-def sparse_forward(torch, name, cfg, point, reps=10, **call):
+def sparse_forward(torch, name, cfg, point, reps=10, tag="sparse", warmups=3,
+                   allow_drops=False, **call):
     """One eval forward of ``cfg``'s model (random weights from seed 0;
-    with ``call``, e.g. a PDNorm ``condition``, of its backbone): 3
-    warm-ups, then the median of ``reps`` synchronized host-clock forwards,
-    geometry included; the pyramid's levels and drops."""
+    with ``call``, e.g. a PDNorm ``condition``, of its backbone):
+    ``warmups`` forwards (the first checked, on the geometry built for the
+    level summary), then the median of ``reps``
+    synchronized host-clock forwards, geometry included; the pyramid's
+    levels and drops (a drop fails unless ``allow_drops``); peak memory."""
     from cdsegnet_torch.models.builder import build_model
 
     model = build_model(copy.deepcopy(cfg), device="cuda",
                         generator=torch.Generator().manual_seed(0))
-    levels = level_summary(model.backbone.precompute_geometry(point)[0])
-    fwd = torch.no_grad()(lambda: model.backbone(point, **call) if call
-                          else model(point)["n_pred"])
-    logits = fwd()
+    geometry = model.backbone.precompute_geometry(point)
+    levels = level_summary(geometry[0])
+    fwd = torch.no_grad()(lambda g=None: model.backbone(point, geometry=g, **call) if call
+                          else model(point, geometry=g)["n_pred"])
+    torch.cuda.reset_peak_memory_stats()
+    logits = fwd(geometry)  # the first warm-up takes the summary's geometry
+    del geometry
     finite = bool(torch.isfinite(logits[point.mask]).all().item())
     shape = tuple(logits.shape)
     del logits
     times = []
     if reps:
-        fwd()
-        times = timed_ms(torch, fwd, reps)  # its own warm-up: the third
+        for _ in range(warmups - 1):
+            fwd()
+        torch.cuda.synchronize()
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fwd()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
     del model
     torch.cuda.empty_cache()
     out = dict(ms=statistics.median(times) if times else None, ms_all=times,
-               levels=levels, finite=finite, shape=shape)
-    print(f"sparse {name} eval " + json.dumps(out), flush=True)
-    if not finite or shape[0] != point.num_points or any(levels["dropped"]):
+               levels=levels, finite=finite, shape=shape, peak_mem_gib=peak)
+    print(f"{tag} {name} eval " + json.dumps(out), flush=True)
+    if not finite or shape[0] != point.num_points or (
+            any(levels["dropped"]) and not allow_drops):
         fail(f"{name} eval forward: logits {shape}, finite {finite}, drops "
              f"{levels['dropped']}")
     return out
 
 
-def sparse_step(torch, name, conf, point, check_terms=False):
-    """The config's training step (its optimizer and schedule, random
-    weights from seed 0) through `make_train_step`: the first step checked
-    (finite loss and gradients, no drop), then 3 warm-ups and the median of
-    5 timed steps; peak memory. ``check_terms``: every criteria term of
-    one more training forward finite (CAC's four)."""
+def sparse_step(torch, name, conf, point, check_terms=False, tag="sparse", warmups=3,
+                reps=5, clip=True, allow_drops=False):
+    """The config's training step (its optimizer and schedule, and its
+    ``gredient_clip`` when ``clip``; random weights from seed 0) through
+    `make_train_step`: the first step checked (finite loss and gradients,
+    no drop unless ``allow_drops``), then ``warmups`` more and the median of
+    ``reps`` timed steps; peak memory. ``check_terms``: every criteria
+    term of one more training forward finite (CAC's four)."""
     from cdsegnet_torch.engine.optimizer import build_optimizer
     from cdsegnet_torch.engine.state import make_train_step
     from cdsegnet_torch.models.builder import build_model, build_model_criteria
@@ -2871,7 +2904,8 @@ def sparse_step(torch, name, conf, point, check_terms=False):
     opt = build_optimizer(dict(conf.optimizer), model, dict(conf.scheduler),
                           total_steps=TRAIN_TOTAL_STEPS,
                           param_dicts=[dict(p) for p in conf.get("param_dicts", [])],
-                          clip_keywords=conf.get("gredient_clip", []), device="cuda")
+                          clip_keywords=conf.get("gredient_clip", []) if clip else [],
+                          device="cuda")
     step = make_train_step(model, criteria, opt, seed=0, device="cuda")
     torch.cuda.reset_peak_memory_stats()
     metrics = step(point)
@@ -2881,12 +2915,12 @@ def sparse_step(torch, name, conf, point, check_terms=False):
     bad = [n for n, p in model.named_parameters()
            if p.grad is None or not torch.isfinite(p.grad).all()]
     times = []
-    for i in range(8):  # 3 warm-ups, then 5 timed steps
+    for i in range(warmups + reps):  # the warm-ups, then the timed steps
         t0 = time.perf_counter()
         m = step(point)
         torch.cuda.synchronize()
         losses.append(m["loss"].item())
-        if i >= 3:
+        if i >= warmups:
             times.append((time.perf_counter() - t0) * 1e3)
     terms = None
     if check_terms:
@@ -2901,10 +2935,10 @@ def sparse_step(torch, name, conf, point, check_terms=False):
                   points_per_s=n_valid / (step_ms / 1e3),
                   peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
                   optimizer=opt.kind, lrs=opt.lrs(), terms=terms)
-    print(f"sparse {name} step " + json.dumps(result), flush=True)
+    print(f"{tag} {name} step " + json.dumps(result), flush=True)
     del step, opt, model, metrics, m
     torch.cuda.empty_cache()
-    if not np.isfinite(losses).all() or bad or any(drops):
+    if not np.isfinite(losses).all() or bad or (any(drops) and not allow_drops):
         fail(f"{name} training step: losses {losses}, parameters without a finite "
              f"gradient {bad[:5]}, drops {drops}")
     if check_terms and (len(terms) != len(cfg["criteria"]) or not np.isfinite(terms).all()):
@@ -2912,7 +2946,7 @@ def sparse_step(torch, name, conf, point, check_terms=False):
     return result
 
 
-def sparse_card_gap(torch, name, cfg):
+def sparse_card_gap(torch, name, cfg, tag="sparse"):
     """f32 logits of ``cfg``'s model on a 16,384-slot scene, the card
     against the CPU (same weights, same arrays; TF32 off): max |difference|
     over the valid slots, over max |logits|."""
@@ -2932,7 +2966,7 @@ def sparse_card_gap(torch, name, cfg):
     gap = ((got["cuda"][valid] - ref).abs().max() / ref.abs().max()).item()
     out = dict(slots=SPARSE_GAP_POINTS, valid=int(valid.sum()), rel_gap=gap,
                tol=TOL_SPARSE_CARD)
-    print(f"sparse {name} card against cpu " + json.dumps(out), flush=True)
+    print(f"{tag} {name} card against cpu " + json.dumps(out), flush=True)
     del model
     torch.cuda.empty_cache()
     if not gap <= TOL_SPARSE_CARD:
@@ -3089,6 +3123,165 @@ def phase_sparse(torch, point, train_point, tmp, card):
     if any(res["attention_launches"].values()):
         fail(f"the sparse-conv family launched the attention kernels "
              f"{res['attention_launches']}")
+    return res
+
+
+ZOO_CONFIGS = dict(ptv1="scannet/ptv1.py", octformer="scannet/octformer.py",
+                   stratified="scannet/stratified.py", swin3d="scannet/swin3d.py")
+FPS_CHECK_POINTS = 16384  # phase 20's card-against-CPU FPS scene
+
+
+def recorded_fps(torch, calls):
+    """A ``make`` for `patched`: each FPS call's picks appended to
+    ``calls``; on the card between two CUDA events (``(picks, start,
+    end)``) and under ``set_sync_debug_mode("error")``, so that a host read
+    inside FPS raises."""
+    def make(fps):
+        def run(*args, **kwargs):
+            if not args[0].is_cuda:
+                calls.append((fps(*args, **kwargs), None, None))
+                return calls[-1][0]
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = fps(*args, **kwargs)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            end.record()
+            calls.append((out, start, end))
+            return out
+        return run
+    return make
+
+
+def fps_ms(torch, calls, levels):
+    """ms per level of the last forward's ``levels`` FPS calls."""
+    torch.cuda.synchronize()
+    return [a.elapsed_time(b) for _, a, b in calls[-levels:]]
+
+
+def phase_zoo(torch, point, train_point, tmp, n_raw, card):
+    """Phase 20: PTv1 and the window-attention family; see the module
+    docstring."""
+    from cdsegnet_torch.ops import flash_attention as fa
+    from cdsegnet_torch.models.builder import build_model
+    from cdsegnet_torch.tools import test as test_tool
+    from cdsegnet_torch.tools import train as train_tool
+    from cdsegnet_torch.utils.synthetic import synthetic_point_batch
+
+    start = time.perf_counter()
+    fa.reset_launch_counts()
+    confs = {k: load_config(v) for k, v in ZOO_CONFIGS.items()}
+    res = dict(card=card)
+
+    # PTv1: the eval forward and the step (1 warm-up and 1 timed each: FPS
+    # takes seconds), FPS per level inside them and its share
+    from cdsegnet_torch.models import ptv1 as ptv1_mod
+
+    ptv1_cfg = dict(confs["ptv1"].model)
+    n_fps = len(ptv1_cfg["backbone"]["channels"]) - 1
+    calls = []
+    with patched((ptv1_mod, "farthest_point_sampling_batched", recorded_fps(torch, calls))):
+        res["ptv1_eval"] = sparse_forward(torch, "ptv1", ptv1_cfg, point, reps=1, tag="zoo",
+                                          warmups=1)
+        fps = dict(eval=dict(ms_per_level=fps_ms(torch, calls, n_fps)))
+        res["ptv1_step"] = sparse_step(torch, "ptv1", confs["ptv1"], train_point, tag="zoo",
+                                       warmups=0, reps=1)
+        fps["train"] = dict(ms_per_level=fps_ms(torch, calls, n_fps))
+    if len(calls) != 4 * n_fps:
+        fail(f"PTv1 ran FPS {len(calls)} times in 2 forwards and 2 steps")
+    for which, ms in (("eval", res["ptv1_eval"]["ms"]), ("train", res["ptv1_step"]["step_ms"])):
+        fps[which].update(ms=sum(fps[which]["ms_per_level"]),
+                          share=sum(fps[which]["ms_per_level"]) / ms)
+    # the four levels' picks on a small scene, the card against the CPU
+    bb = build_model(copy.deepcopy(ptv1_cfg), device="cpu").backbone
+    got = {}
+    for dev in ("cpu", "cuda"):
+        calls = []
+        with patched((ptv1_mod, "farthest_point_sampling_batched",
+                      recorded_fps(torch, calls))):
+            bb.precompute_geometry(synthetic_point_batch(FPS_CHECK_POINTS, 1, depth=10,
+                                                         seed=1, device=dev))
+        got[dev] = [c[0].cpu() for c in calls]
+    first = None
+    for lv, (a, b) in enumerate(zip(got["cpu"], got["cuda"])):
+        diff = torch.nonzero(a != b).flatten()
+        if diff.numel() and first is None:
+            t = int(diff[0])
+            first = dict(level=lv + 1, pick=t, cpu=int(a[t]), card=int(b[t]))
+    fps["card_against_cpu"] = dict(slots=FPS_CHECK_POINTS, picks=[len(x) for x in got["cpu"]],
+                                   first_difference=first)
+    print("zoo ptv1 fps " + json.dumps(fps), flush=True)
+    res["ptv1_fps"] = fps
+    del bb, got
+    if first is not None:
+        fail(f"PTv1's FPS picks differ between the card and the CPU: {first}")
+
+    # the window-attention family: eval forward, step, the card against the CPU
+    for name in ("octformer", "stratified", "swin3d"):
+        res[f"{name}_eval"] = sparse_forward(torch, name, dict(confs[name].model), point,
+                                             tag="zoo", allow_drops=True)
+        res[f"{name}_step"] = sparse_step(torch, name, confs[name], train_point, tag="zoo",
+                                          clip=False, allow_drops=True)
+    res["card_gap"] = {n: sparse_card_gap(torch, n, dict(confs[n].model), tag="zoo")
+                       for n in ("octformer", "stratified", "swin3d")}
+
+    # OctFormer through the training CLI (phase 9's rooms, phase 8's room as
+    # val) and the tester CLI (phase 8's room, its first augmentation)
+    config = config_path(ZOO_CONFIGS["octformer"])
+    data_root = os.path.join(tmp, "data")
+    save = os.path.join(tmp, "zoo_octformer")
+    hook_cfg = [dict(type="CheckpointLoader"), dict(type="IterationTimer", warmup_iter=2),
+                dict(type="InformationWriter", log_interval=1),
+                dict(type="SemSegEvaluator"), dict(type="CheckpointSaver")]
+    t0 = time.perf_counter()
+    trainer = train_tool.main(["--config-file", config, "--options", "epoch=1",
+                               "eval_epoch=1", f"save_path={save}", f"hooks={hook_cfg!r}",
+                               f"data.train.data_root={data_root}",
+                               f"data.val.data_root={data_root}"])
+    torch.cuda.synchronize()
+    recs = [json.loads(x) for x in open(os.path.join(save, "metrics.jsonl")).read().splitlines()]
+    cli = dict(train_s=time.perf_counter() - t0, steps=trainer.step,
+               losses=[r["loss"] for r in recs if "loss" in r],
+               checkpoints=sorted(os.listdir(os.path.join(save, "model"))),
+               miou=trainer.comm_info.get("current_metric_value"))
+    del trainer
+    torch.cuda.empty_cache()
+    first_aug = [copy.deepcopy(load_config("scannet/cdsegnet.py").data.test.test_cfg
+                               .aug_transform[0])]
+    out = os.path.join(tmp, "zoo_octformer_test")
+    t0 = time.perf_counter()
+    tester = test_tool.main([
+        "--config-file", config, "--checkpoint", os.path.join(save, "model", "model_last"),
+        "--options", f"data.test.data_root={data_root}", f"save_path={out}",
+        f"data.test.test_cfg.aug_transform={json.loads(json.dumps(first_aug))!r}"])
+    torch.cuda.synchronize()
+    (pred_file,) = os.listdir(os.path.join(out, "result"))
+    pred = np.load(os.path.join(out, "result", pred_file))
+    cli.update(test_s=time.perf_counter() - t0, predicted=int(pred.size), raw_points=n_raw,
+               classes_predicted=int(np.unique(pred).size), test_result=tester.result)
+    print("zoo octformer cli " + json.dumps(cli), flush=True)
+    del tester
+    torch.cuda.empty_cache()
+    res["octformer_cli"] = cli
+    if cli["steps"] != 2 or not np.isfinite(cli["losses"]).all() or not cli["losses"] or \
+            not {"model_best", "model_last"} <= set(cli["checkpoints"]) or \
+            not 0.0 <= cli["miou"] <= 1.0:
+        fail(f"OctFormer training CLI: {cli}")
+    if pred.size != n_raw or pred.min() < 0 or pred.max() >= 20:
+        fail(f"OctFormer tester: {pred.size} predictions for {n_raw} raw points")
+
+    res["attention_launches"] = dict(fwd=fa.patch_attention_fwd.launches,
+                                     fwd_lse=fa.patch_attention_fwd.lse_launches,
+                                     bwd_dq=fa.patch_attention_bwd_dq.launches,
+                                     bwd_dkdv=fa.patch_attention_bwd_dkdv.launches)
+    res["phase_s"] = time.perf_counter() - start
+    summary = {k: v for k, v in res.items() if k != "octformer_cli"}
+    print("zoo " + json.dumps(summary), flush=True)
+    if any(res["attention_launches"].values()):
+        fail(f"the zoo launched the attention kernels {res['attention_launches']}")
     return res
 
 
@@ -3331,9 +3524,12 @@ def run_phases(torch, config: str, runtime: str, tmp: str, start: float) -> int:
     phase_shapes(torch, tmp, card)
     clock("shapes")
     sparse = phase_sparse(torch, point, train_point, tmp, card)
-    del point, train_point
     torch.cuda.empty_cache()
     clock("sparse")
+    zoo = phase_zoo(torch, point, train_point, tmp, n_raw, card)
+    del point, train_point
+    torch.cuda.empty_cache()
+    clock("zoo")
     # this slice's paths through the kernels: times from phases 3 and 5 (the
     # same levels, heads and head dims), launches counted in phases 15-16
     kernel_models = {f"option_{n}": option_cfg(cfg, n)["backbone"] for n in ("a", "b")}
@@ -3413,8 +3609,10 @@ def run_phases(torch, config: str, runtime: str, tmp: str, start: float) -> int:
                             launches=ablations[k]["multistep"]["avg"]["launches"],
                             fragment_ms=ablations[k]["multistep"]["avg"]["ms"])
                             for k in ABLATIONS},
-                        # phase 19's sparse-conv family runs no attention
-                        sparse=dict(launches=sparse["attention_launches"]["fwd"]))),
+                        # phase 19's sparse-conv family and phase 20's
+                        # zoo run no attention kernel
+                        sparse=dict(launches=sparse["attention_launches"]["fwd"]),
+                        zoo=dict(launches=zoo["attention_launches"]["fwd"]))),
     ]
     for name, direction in (("patch_attention_bwd_dq", "dq"),
                             ("patch_attention_bwd_dkdv", "dkdv")):
@@ -3434,7 +3632,8 @@ def run_phases(torch, config: str, runtime: str, tmp: str, start: float) -> int:
                 slice_train={n: dict(train_launch_sums(train_rows, attention_launches(
                     bb, c_decoder=True), direction), launches=slice_runs[n]["step_launches"][
                         counted]) for n, bb in kernel_models.items()},
-                sparse=dict(launches=sparse["attention_launches"][counted]))))
+                sparse=dict(launches=sparse["attention_launches"][counted]),
+                zoo=dict(launches=zoo["attention_launches"][counted]))))
     print(f"wall time {time.perf_counter() - start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)

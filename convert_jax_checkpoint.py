@@ -24,8 +24,11 @@ port builds converts the same way, the ablation segmentors (③–⑥, DM) and
 the PTv3 options (RPE tables, the Restomer's depthwise convs and
 temperature, the transfer gates, ``cross_block1``), PTv2 (m1's
 ``grouped_weight``, m3's per-condition PDNorm tensors and ``modulation``),
-`DefaultClassifier` and the sparse-conv family (SpUNet and its variants,
-OA-CNNs, SPVCNN, CAC with its raw ``seg_head_kernel``, PointGroup)
+`DefaultClassifier`, the sparse-conv family (SpUNet and its variants,
+OA-CNNs, SPVCNN, CAC with its raw ``seg_head_kernel``, PointGroup), PTv1
+(PT-v1, Seg26/38/50) and the window-attention family (OctFormer's
+``dw_weight`` and RPE tables, Stratified's ``kv_coarse`` and RPE tables,
+Swin3D's cRSE ``query/key/value_{xyz,rgb,norm}_table``)
 included: the bridge maps each tensor by its flax
 name, so the script needs nothing per type.
 

@@ -336,7 +336,9 @@ def test_port_imports_no_jax():
                    "utils/logger.py", "utils/misc.py", "engine/train.py",
                    "engine/hooks.py", "engine/events.py", "data/loader.py",
                    "utils/tbwriter.py", "tools/train.py", "tools/test_time.py",
-                   "parallel/dist.py", "models/ablation_segmentors.py"):
+                   "parallel/dist.py", "models/ablation_segmentors.py", "models/ptv1.py",
+                   "models/octformer.py", "models/stratified.py", "models/swin3d.py",
+                   "ops/sparse_attention.py", "ops/pointops.py"):
         assert os.path.join(REPO, "cdsegnet_torch", module) in files, module
     bad = [(f, m) for f in files for m in _imports(f)
            if m.split(".")[0] in FORBIDDEN + ("convert_jax_checkpoint",)]

@@ -143,13 +143,6 @@ def test_knn_remap_labels_matches_jax():
     np.testing.assert_array_equal(got, want)
 
 
-def test_farthest_point_sampling_names_its_item():
-    with pytest.raises(NotImplementedError, match="PTv1"):
-        tops.farthest_point_sampling(T(np.zeros((4, 3), np.float32)), 2)
-    with pytest.raises(NotImplementedError, match="PTv1"):
-        tops.farthest_point_sampling_batched()
-
-
 LEVEL_FIELDS = ("pool_sort", "pool_seg", "pool_valid", "parent_inverse", "parent_head",
                 "dropped")
 POINT_FIELDS = ("coord", "grid_coord", "feat", "mask", "batch")

@@ -6,10 +6,12 @@ file's model at a shrunk width (channels, heads, patches and depths cut,
 every other field as shipped), with weights made with numpy from a seed.
 One parametrised test per check: SSI logits (the plain model's eval
 logits), and one training step through `make_train_step` with the timesteps,
-noise, MSE mask and curve permutations injected, against `jax.grad`. Also:
-every config file under `configs/{scannet,scannet200,nuscenes,modelnet40,
-shapenetpart}/` loads through the port's `Config`, and those of the
-CDSegNet family and of PTv2 build."""
+noise, MSE mask and curve permutations injected, against `jax.grad`; the
+nuScenes Baseline, PTv3+CNF and plain PTv3 as well. Also: every config file
+under `configs/{scannet,scannet200,nuscenes,modelnet40,shapenetpart,
+semantic_kitti}/` loads through the port's `Config`, and those of the
+CDSegNet family, PTv2, the sparse-conv family, PTv1 and the
+window-attention family build."""
 
 import copy
 import glob
@@ -48,7 +50,8 @@ CONFIGS = os.path.join(REPO, "configs")
 # which overflow the pooled levels as outdoor sweeps do
 VARIANTS = {"scannet/baseline.py": "fit", "scannet/ptv3_cnf.py": "fit",
             "scannet/ptv3_plain.py": "fit", "scannet200/cdsegnet.py": "fit",
-            "nuscenes/cdsegnet.py": "overflow"}
+            "nuscenes/cdsegnet.py": "overflow", "nuscenes/ptv3_cnf.py": "overflow",
+            "nuscenes/baseline.py": "overflow", "nuscenes/ptv3_plain.py": "overflow"}
 FAMILY = ("cdsegnet", "cdsegnet_time", "baseline", "ptv3_cnf", "ptv3_cnf_time",
           "ptv3_plain")
 T = lambda x: torch.from_numpy(np.array(x))
@@ -323,6 +326,39 @@ def _sparse_builds_as_jax(model_cfg):
             assert getattr(m, f) == getattr(jm, f), f
 
 
+WINDOW_CONFIGS = ("scannet/ptv1.py", "scannet/octformer.py", "scannet/stratified.py",
+                  "scannet/swin3d.py")
+WINDOW_WIDTH = {  # channels and heads cut, depths and every other field as shipped
+    "PT-v1": dict(channels=(8, 8, 16, 16, 16)),
+    "OctFormer-v1m1": dict(channels=(8, 8, 16, 16), num_heads=(2, 2, 2, 2), fpn_channels=8),
+    "StratifiedTransformer": dict(channels=(8, 8, 16, 16), num_heads=(2, 2, 2, 2)),
+    "Swin3D-v1m1": dict(channels=(8, 16, 16, 16, 16), num_heads=(2, 2, 2, 2, 2)),
+}
+
+
+def _window_builds_as_jax(model_cfg):
+    """A PTv1 or window-attention config's model at a test width: the
+    port's has the JAX model's every parameter and running statistic, name
+    for name and shape for shape (the strict weight bridge fills it from
+    JAX's variable shapes: RPE and cRSE tables, ``dw_weight``,
+    ``kv_coarse``), and the backbone's dtype, depths and capacities."""
+    small = copy.deepcopy(dict(model_cfg))
+    bb = small["backbone"]
+    bb.update(WINDOW_WIDTH[bb["type"]])
+    m = tbuild(copy.deepcopy(small), device="cpu")
+    jm = jbuild(copy.deepcopy(small))
+    shapes = jax.eval_shape(lambda p: jm.init(jax.random.PRNGKey(0), p, train=False),
+                            _ptv2_point(small))
+    load_jax_variables(m, jax.tree_util.tree_map(lambda x: np.zeros(x.shape, np.float32),
+                                                 shapes))
+    assert m.backbone.dtype == {"bfloat16": torch.bfloat16}.get(bb.get("dtype"),
+                                                                torch.float32)
+    assert m.backbone.capacity_div == tuple(jm.backbone.capacity_div)
+    for f in ("depths", "num_blocks"):
+        if hasattr(jm.backbone, f):
+            assert getattr(m.backbone, f) == tuple(getattr(jm.backbone, f)), f
+
+
 def _ptv2_point(cfg, n=4096):
     """Shapes only: JAX's kNN needs every level at least k = 16 slots wide,
     and the coarsest holds n / 128."""
@@ -337,10 +373,11 @@ def _ptv2_point(cfg, n=4096):
 def test_config_loads_and_builds(name):
     """The port's `Config` reads every file as JAX's does; a CDSegNet-family
     model builds (at a test width) with JAX's segmentor fields and betas,
-    a PTv2 one (ScanNet, ModelNet40, ShapeNetPart) or a sparse-conv one
-    (SpUNet, OA-CNNs, CAC, PointGroup, SPVCNN) with JAX's parameters
-    (`_ptv2_builds_as_jax`, `_sparse_builds_as_jax`), every other model
-    raises `NotImplementedError`."""
+    a PTv2 one (ScanNet, ModelNet40, ShapeNetPart), a sparse-conv one
+    (SpUNet, OA-CNNs, CAC, PointGroup, SPVCNN), PTv1 or a window-attention
+    one (OctFormer, Stratified, Swin3D) with JAX's parameters
+    (`_ptv2_builds_as_jax`, `_sparse_builds_as_jax`, `_window_builds_as_jax`),
+    every other model raises `NotImplementedError`."""
     path = os.path.join(CONFIGS, name)
     cfg, jcfg = Config.fromfile(path), JConfig.fromfile(path)
     assert cfg.model == dict(jcfg.model)
@@ -351,6 +388,9 @@ def test_config_loads_and_builds(name):
         return
     if name in SPARSE_CONFIGS:
         _sparse_builds_as_jax(cfg.model)
+        return
+    if name in WINDOW_CONFIGS:
+        _window_builds_as_jax(cfg.model)
         return
     if os.path.splitext(os.path.basename(name))[0] not in FAMILY:
         with pytest.raises(NotImplementedError):

@@ -6,9 +6,10 @@ Port of `mix3d`, `collate_scenes` and `pick_bucket` of
 layout `models.structure.PointBatch` takes. The bucket size also sets the
 pyramid's per-level capacities (``capacity_div``), so the same buckets as
 the JAX package keep the same drops. Mix3D merges scene pairs with
-probability ``mix_prob`` (reference `point_collate_fn`). Paired views
-(MSC pretraining) are not ported; nor is `collate_sharded`, JAX's stack of
-every device's bucket: each rank of the port collates its own.
+probability ``mix_prob`` (reference `point_collate_fn`).
+`collate_pair_scenes` packs MSC's two views into two aligned buckets. JAX's
+`collate_sharded`, its stack of every device's bucket, is not ported: each
+rank of the port collates its own.
 """
 
 from __future__ import annotations
@@ -118,6 +119,47 @@ def collate_scenes(
         out["instance"] = instance
         out["instance_centroid"] = centroid
     out.update(extras)
+    return out
+
+
+def collate_pair_scenes(
+    scenes: List[Dict],
+    num_points: int,
+    num_scenes: Optional[int] = None,
+    feat_keys: Sequence[str] = ("color", "normal"),
+) -> Dict[str, np.ndarray]:
+    """Pack two augmented views per scene (``view1_*``/``view2_*`` from
+    `ContrastiveViewsGenerator`) into two aligned static buckets for MSC
+    pretraining: ``view{1,2}_{coord,grid_coord,feat,batch,mask}``, the
+    un-augmented ``origin_coord`` (the view's ``coord`` when it has none)
+    and the reconstruction targets ``target_<key>`` of ``feat_keys``, each
+    packed as its view's points. Raises `ValueError` when a view pipeline
+    subsampled ``coord`` without ``origin_coord``."""
+    out: Dict[str, np.ndarray] = {}
+    for v in (1, 2):
+        pref = f"view{v}_"
+        sub = []
+        for s in scenes:
+            origin_coord = np.asarray(s.get(pref + "origin_coord", s[pref + "coord"]),
+                                      np.float32)
+            if len(origin_coord) != len(s[pref + "coord"]):
+                raise ValueError(
+                    f"{pref}origin_coord has {len(origin_coord)} rows but "
+                    f"{pref}coord has {len(s[pref + 'coord'])}: the view "
+                    "pipeline subsampled coord without origin_coord (add "
+                    "origin_coord to GridSample keys)")
+            d = dict(coord=s[pref + "coord"], grid_coord=s[pref + "grid_coord"],
+                     feat=np.concatenate([np.asarray(s[pref + k], np.float32)
+                                          for k in feat_keys], axis=1),
+                     origin_coord=origin_coord)
+            for k in feat_keys:
+                d["target_" + k] = np.asarray(s[pref + k], np.float32)
+            sub.append(d)
+        b = collate_scenes(sub, num_points, num_scenes,
+                           extra_float_keys=("origin_coord",)
+                           + tuple("target_" + k for k in feat_keys))
+        b.pop("segment")
+        out.update({pref + k: arr for k, arr in b.items()})
     return out
 
 

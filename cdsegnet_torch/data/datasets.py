@@ -1,19 +1,20 @@
 """Datasets: the base dataset, ScanNet, ScanNet200, nuScenes, SemanticKITTI,
-ModelNet40 and ShapeNetPart.
+ModelNet40, ShapeNetPart, S3DIS, Structured3D, Waymo, ARKitScenes, ScanNet
+view pairs and their concatenation.
 
-Port of `DefaultDataset`, `ScanNetDataset`, `ScanNet200Dataset`,
-`NuScenesDataset`, `SemanticKITTIDataset`, `ModelNetDataset`,
-`ShapeNetPartDataset` and `build_dataset` of `cdsegnet_tpu/data/datasets.py`
-(reference `pointcept/datasets/{defaults,scannet,nuscenes,semantic_kitti,
-modelnet,shapenet_part}.py`): plain indexable objects whose ``get(idx,
-rng)`` runs the transform pipeline with an explicit numpy generator; in
-test mode it expands every test-time augmentation into fragments. Scene
-files are Pointcept `.pth` archives or per-field `.npy` directories;
-nuScenes sweeps are listed by an info pickle and read from `.bin` files,
-SemanticKITTI scans are globbed per sequence; ModelNet40 and ShapeNetPart
-shapes are text files, with the shape's class in ``category``. The shared
-decode cache (``cache=True``) and the other datasets of the JAX package are
-not ported.
+Port of the datasets of `cdsegnet_tpu/data/datasets.py` and its
+`build_dataset` (reference `pointcept/datasets/{defaults,scannet,nuscenes,
+semantic_kitti,modelnet,shapenet_part,s3dis,structure3d,waymo,arkitscenes,
+scannet_pair}.py`): plain indexable objects whose ``get(idx, rng)`` runs
+the transform pipeline with an explicit numpy generator; in test mode it
+expands every test-time augmentation into fragments. Scene files are
+Pointcept `.pth` archives or per-field `.npy` directories; nuScenes sweeps
+are listed by an info pickle and read from `.bin` files, SemanticKITTI and
+Waymo scans are globbed per sequence; ModelNet40 and ShapeNetPart shapes are
+text files, with the shape's class in ``category``. `ConcatDataset` chains
+datasets (PPT's multi-dataset training reads each through its own loader);
+`ScanNetPairDataset` gives two transformed views of overlapping scans (MSC
+pretraining). The shared decode cache (``cache=True``) is not ported.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ import json
 import os
 import pickle
 from copy import deepcopy
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -480,6 +481,173 @@ class ModelNetDataset(DefaultDataset):
         if pts.shape[1] >= 6:
             data["normal"] = pts[:, 3:6].astype(np.float32)
         return data
+
+
+@DATASETS.register_module()
+class ConcatDataset:
+    """The datasets of ``datasets`` (config dicts) one after the other,
+    ``loop`` times over."""
+
+    def __init__(self, datasets: Sequence[Dict], loop: int = 1):
+        self.datasets = [DATASETS.build(dict(d)) for d in datasets]
+        self.loop = loop
+        self.lengths = [len(d) for d in self.datasets]
+
+    def get(self, idx: int, rng: Optional[np.random.Generator] = None) -> Dict:
+        idx = idx % sum(self.lengths)
+        for d, n in zip(self.datasets, self.lengths):
+            if idx < n:
+                return d.get(idx, rng)
+            idx -= n
+        raise IndexError
+
+    def __len__(self):
+        return sum(self.lengths) * self.loop
+
+
+@DATASETS.register_module()
+class S3DISDataset(DefaultDataset):
+    """S3DIS rooms (reference `pointcept/datasets/s3dis.py`): Pointcept
+    per-room archives under ``<data_root>/<Area_k>/`` with coord, color,
+    (normal), ``semantic_gt`` and (``instance_gt``); ``split`` names one
+    area or a sequence of them. A room without labels gets the ignore
+    index."""
+
+    def get_data(self, idx: int) -> Dict:
+        data = _load_scene(self.data_list[idx % len(self.data_list)])
+        coord = np.asarray(data["coord"], np.float32)
+        out = dict(coord=coord)
+        for k in ("color", "normal"):
+            if k in data:
+                out[k] = np.asarray(data[k], np.float32)
+        seg = data.get("semantic_gt", data.get("segment"))
+        out["segment"] = (np.asarray(seg).reshape(-1).astype(np.int64) if seg is not None
+                          else np.full((coord.shape[0],), self.ignore_index, np.int64))
+        if "instance_gt" in data:
+            out["instance"] = np.asarray(data["instance_gt"]).reshape(-1).astype(np.int64)
+        return out
+
+
+@DATASETS.register_module()
+class WaymoDataset(DefaultDataset):
+    """Waymo Open semantic segmentation (reference
+    `pointcept/datasets/waymo.py:16-73`): per-frame
+    ``<data_root>/<split>/<sequence>/velodyne/*.bin`` float32 (x, y, z,
+    intensity), the intensity squashed by ``tanh``; the ``labels/*.label``
+    beside them are (N, 2) int32 with the semantic class in column 1, less
+    1, so that the raw 0 (unlabeled) becomes -1."""
+
+    def get_data_list(self) -> List[str]:
+        splits = [self.split] if isinstance(self.split, str) else list(self.split)
+        out = []
+        for s in splits:
+            out += sorted(glob.glob(os.path.join(self.data_root, s, "*", "velodyne",
+                                                 "*.bin")))
+        return out
+
+    def get_data(self, idx: int) -> Dict:
+        path = self.data_list[idx % len(self.data_list)]
+        scan = np.fromfile(path, dtype=np.float32).reshape(-1, 4)
+        coord = scan[:, :3]
+        strength = np.tanh(scan[:, 3:4])
+        label_path = path.replace("velodyne", "labels").replace(".bin", ".label")
+        if os.path.exists(label_path):
+            segment = (np.fromfile(label_path, dtype=np.int32).reshape(-1, 2)[:, 1]
+                       - 1).astype(np.int64)
+        else:
+            segment = np.full((coord.shape[0],), self.ignore_index, np.int64)
+        return dict(coord=coord, strength=strength, segment=segment)
+
+    def get_data_name(self, idx: int) -> str:
+        path = self.data_list[idx % len(self.data_list)]
+        seq = os.path.basename(os.path.dirname(os.path.dirname(path)))
+        return f"{seq}_{os.path.splitext(os.path.basename(path))[0]}"
+
+
+@DATASETS.register_module()
+class Structured3DDataset(DefaultDataset):
+    """Structured3D panoramic rooms (reference
+    `pointcept/datasets/structure3d.py`): ``<data_root>/<split>/<scene>/
+    <room>.pth``, named ``<scene>_<room>``."""
+
+    def get_data_list(self) -> List[str]:
+        splits = [self.split] if isinstance(self.split, str) else list(self.split)
+        out = []
+        for s in splits:
+            out += sorted(glob.glob(os.path.join(self.data_root, s, "*", "*.pth")))
+        return out
+
+    def get_data_name(self, idx: int) -> str:
+        path = self.data_list[idx % len(self.data_list)]
+        scene = os.path.basename(os.path.dirname(path))
+        room = os.path.splitext(os.path.basename(path))[0]
+        return f"{scene}_{room}"
+
+
+@DATASETS.register_module()
+class ArkitScenesDataset(DefaultDataset):
+    """ARKitScenes meshes (reference `pointcept/datasets/arkitscenes.py`):
+    unlabeled scans (``segment`` all 0) read through the ScanNet200 label
+    space (``class2id``)."""
+
+    class2id = np.array(VALID_CLASS_IDS_200)
+
+    def get_data(self, idx: int) -> Dict:
+        data = _load_scene(self.data_list[idx % len(self.data_list)])
+        coord = np.asarray(data["coord"], np.float32)
+        return dict(coord=coord, color=np.asarray(data["color"], np.float32),
+                    normal=np.asarray(data["normal"], np.float32),
+                    segment=np.zeros((coord.shape[0],), np.int64))
+
+
+@DATASETS.register_module()
+class ScanNetPairDataset:
+    """Overlapping ScanNet view pairs for contrastive pretraining (reference
+    `pointcept/datasets/scannet_pair.py:23-89`): the pairs of every
+    ``<data_root>/<scene>/pcd/overlap.txt`` (``view1 view2 overlap`` lines)
+    whose overlap exceeds ``overlap_threshold``; each view is read from
+    ``data_root + name`` (a plain concatenation, as JAX's and the
+    reference's: the names carry their leading separator), transformed by
+    its own pipeline, view 1 first, and returned under ``view1_``/``view2_``
+    prefixes."""
+
+    def __init__(self, data_root: str = "data/scannet_pair", overlap_threshold: float = 0.3,
+                 view1_transform=None, view2_transform=None, loop: int = 1, **kwargs):
+        self.data_root = data_root
+        self.overlap_threshold = overlap_threshold
+        self.view1_transform = Compose(view1_transform)
+        self.view2_transform = Compose(view2_transform)
+        self.loop = loop
+        self.data_list = self.get_data_list()
+
+    def get_data_list(self) -> List:
+        out = []
+        for overlap_file in sorted(glob.glob(os.path.join(self.data_root, "*", "pcd",
+                                                          "overlap.txt"))):
+            with open(overlap_file) as f:
+                pairs = [line.strip().split() for line in f if line.strip()]
+            out += [p[:2] for p in pairs if float(p[2]) > self.overlap_threshold]
+        return out
+
+    def get_data(self, idx: int):
+        pair = self.data_list[idx % len(self.data_list)]
+        return (_load_scene(self.data_root + pair[0]),
+                _load_scene(self.data_root + pair[1]))
+
+    def get_data_name(self, idx: int) -> str:
+        return os.path.basename(self.data_list[idx % len(self.data_list)][0]).split(".")[0]
+
+    def get(self, idx: int, rng: Optional[np.random.Generator] = None) -> Dict:
+        rng = rng or np.random.default_rng()
+        v1, v2 = self.get_data(idx)
+        v1 = self.view1_transform(v1, rng)
+        v2 = self.view2_transform(v2, rng)
+        out = {f"view1_{k}": v for k, v in v1.items()}
+        out.update({f"view2_{k}": v for k, v in v2.items()})
+        return out
+
+    def __len__(self):
+        return len(self.data_list) * self.loop
 
 
 def build_dataset(cfg: Dict):

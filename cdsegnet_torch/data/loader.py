@@ -7,9 +7,10 @@ them, merged by Mix3D, collated into fixed-size buckets and, for training,
 prefetched on a background thread so host preprocessing overlaps the step
 on the GPU. Where JAX's loader stacks every device's bucket for one
 controller, each rank of the port loads only its own (`TrainLoader`'s
-``rank``). Paired views (MSC) and `MultiDatasetLoader` are not ported and
-raise `NotImplementedError`. An exception in the prefetch thread is raised
-in the consumer.
+``rank``). With ``pair_feat_keys`` the loader collates MSC's two views per
+scene (`collate_pair_scenes`, no Mix3D). `MultiDatasetLoader` round-robins
+over one `TrainLoader` per dataset (PPT). An exception in the prefetch
+thread is raised in the consumer.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 
-from cdsegnet_torch.data.collate import collate_scenes, mix3d
+from cdsegnet_torch.data.collate import collate_pair_scenes, collate_scenes, mix3d
 
 
 class TrainLoader:
@@ -40,6 +41,11 @@ class TrainLoader:
     draws from ``(seed, epoch, step, 0xC0FFEE, r)``, where JAX's device r
     continues the first device's stream (replaying those draws would cost
     every rank the host work of all the ranks before it).
+
+    ``pair_feat_keys``: the scenes are MSC's view pairs, collated into
+    ``view1_*``/``view2_*`` buckets by `collate_pair_scenes` with those
+    reconstruction targets, without Mix3D (meaningless across views) and
+    without micro buckets.
     """
 
     def __init__(
@@ -57,10 +63,8 @@ class TrainLoader:
         microbatch: int = 1,
         rank: int = 0,
     ):
-        if pair_feat_keys is not None:
-            raise NotImplementedError(
-                'paired views (MSC pretraining) are not ported (ROADMAP Queue 1: '
-                '"The model zoo and the rest of the engine and data")')
+        if pair_feat_keys is not None and microbatch != 1:
+            raise ValueError("paired views (MSC) take no micro buckets")
         if not 0 <= rank < num_devices:
             raise ValueError(f"rank {rank} of num_devices={num_devices}")
         if microbatch < 1 or scenes_per_device % microbatch or num_points % microbatch:
@@ -77,6 +81,7 @@ class TrainLoader:
         self.drop_last = drop_last
         self.prefetch = prefetch
         self.microbatch = microbatch
+        self.pair_feat_keys = None if pair_feat_keys is None else tuple(pair_feat_keys)
         self.scenes_per_batch = num_devices * scenes_per_device
 
     def __len__(self) -> int:
@@ -97,6 +102,8 @@ class TrainLoader:
         spd = self.scenes_per_device
         scene_ids = idxs[self.rank * spd: (self.rank + 1) * spd]
         scenes = [self.dataset.get(int(i), rng) for i in scene_ids]
+        if self.pair_feat_keys is not None:
+            return collate_pair_scenes(scenes, self.num_points, spd, self.pair_feat_keys)
         if self.microbatch == 1:
             return collate_scenes(mix3d(scenes, rng, self.mix_prob), self.num_points,
                                   spd, self.feat_dim)
@@ -183,7 +190,46 @@ class EvalLoader:
                                  self.feat_dim), scene
 
 
-def MultiDatasetLoader(*args, **kwargs):
-    raise NotImplementedError(
-        'MultiDatasetLoader (round-robin multi-dataset training) is not ported '
-        '(ROADMAP Queue 1: "The model zoo and the rest of the engine and data")')
+class MultiDatasetLoader:
+    """Round-robin over one loader per dataset with loop-ratio weighting
+    (JAX's `MultiDatasetLoader`, reference
+    `pointcept/datasets/dataloader.py:23-112`, used for PPT joint training).
+
+    The epoch is governed by the main (first) dataset: per cycle, dataset i
+    contributes ``ratios[i]`` batches; a non-main dataset that runs out
+    restarts, its r-th restart of epoch e drawing as epoch ``(e + 1) * 1000
+    + r`` of its loader; the epoch ends when the main dataset runs out.
+    Each batch carries ``_dataset_idx``, the index of its dataset."""
+
+    def __init__(self, loaders: Sequence[TrainLoader], ratios: Sequence[int]):
+        if len(loaders) != len(ratios):
+            raise ValueError(f"{len(loaders)} loaders for {len(ratios)} ratios")
+        self.loaders = list(loaders)
+        self.ratios = list(ratios)
+
+    def __len__(self) -> int:
+        # reference `dataloader.py:98-103`
+        main, r0 = len(self.loaders[0]), self.ratios[0]
+        return main // r0 * sum(self.ratios) + main % r0
+
+    def epoch(self, epoch: int) -> Iterator[Dict[str, np.ndarray]]:
+        iters = [iter(loader.epoch(epoch)) for loader in self.loaders]
+        restarts = [0] * len(iters)
+        try:
+            while True:
+                for i in range(len(iters)):
+                    for _ in range(self.ratios[i]):
+                        try:
+                            batch = next(iters[i])
+                        except StopIteration:
+                            if i == 0:
+                                return
+                            restarts[i] += 1
+                            iters[i] = iter(self.loaders[i].epoch(
+                                (epoch + 1) * 1000 + restarts[i]))
+                            batch = next(iters[i])
+                        batch["_dataset_idx"] = i
+                        yield batch
+        finally:
+            for it in iters:  # stop the loaders' prefetch threads
+                it.close()

@@ -1,8 +1,8 @@
 """Host-side (numpy) data transforms.
 
 Port of the transforms of `cdsegnet_tpu/data/transforms.py` that the shipped
-test and val pipelines use (reference `pointcept/datasets/transform.py`),
-with the same two conventions:
+pipelines use, MSC's two views among them (reference
+`pointcept/datasets/transform.py`), with the same two conventions:
 
 - every transform takes ``(data_dict, rng)`` with an explicit
   `numpy.random.Generator`, so the whole pipeline is reproducible per sample
@@ -79,6 +79,23 @@ class Collect:
             [np.atleast_2d(data[k].T).T for k in self.feat_keys], axis=-1
         ).astype(np.float32)
         return out
+
+
+@TRANSFORMS.register_module()
+class Copy:
+    """``keys_dict`` maps a key to the new key that gets a copy of it; a
+    value that is not a string is stored under its key as is."""
+
+    def __init__(self, keys_dict=None):
+        self.keys_dict = keys_dict or {}
+
+    def __call__(self, data, rng=None):
+        for k, v in self.keys_dict.items():
+            if isinstance(v, str):
+                data[v] = data[k].copy() if hasattr(data[k], "copy") else data[k]
+            else:
+                data[k] = v
+        return data
 
 
 @TRANSFORMS.register_module()
@@ -450,6 +467,27 @@ class SphereCrop:
                 center = data["coord"][n // 2]
             idx = np.argsort(np.sum((data["coord"] - center) ** 2, 1))[:point_max]
             take(data, idx)
+        return data
+
+
+@TRANSFORMS.register_module()
+class ContrastiveViewsGenerator:
+    """Two independently augmented views under ``view1_``/``view2_``
+    prefixes (reference `transform.py:1081-1104`, used by MSC): copies of
+    ``view_keys`` through ``view_trans_cfg``, view 1 first, both drawing in
+    turn from the one generator."""
+
+    def __init__(self, view_keys=("coord", "color", "normal", "origin_coord"),
+                 view_trans_cfg=None):
+        self.view_keys = view_keys
+        self.view_trans = Compose(view_trans_cfg)
+
+    def __call__(self, data, rng):
+        for prefix in ("view1_", "view2_"):
+            view = {k: data[k].copy() for k in self.view_keys if k in data}
+            view = self.view_trans(view, rng)
+            for k, v in view.items():
+                data[prefix + k] = v
         return data
 
 

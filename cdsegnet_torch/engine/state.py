@@ -12,10 +12,13 @@ place of the step's rng split, into which JAX folds the device index:
 dropout and diffusion on the device, shuffle on the CPU. Both steps are
 generic over the model's output dict (the CNF and ablation segmentors, plain
 PTv3 and PTv2, and `DefaultClassifier`, whose ``n_pred`` and ``n_target``
-are per scene; a model without ``pyramid_dropped`` reports no drops). The
-evaluation step is SSI in eval mode (the model's ``inference``:
-`CNFSegmentor`'s or an ablation segmentor's), or the plain forward's
-logits. `batch_to_point` turns a collated numpy batch into a `PointBatch`.
+are per scene; a model without ``pyramid_dropped`` reports no drops), and
+pass ``model_kwargs`` to the forward (PPT's ``condition``, a plain Python
+int). `make_msc_train_step` is the same step over MSC's two views, whose
+model gives its own loss. The evaluation step is SSI in eval mode (the
+model's ``inference``: `CNFSegmentor`'s or an ablation segmentor's), or the
+plain forward's logits. `batch_to_point` turns a collated numpy batch into
+a `PointBatch`, `msc_inputs` a collated view pair into MSC's inputs.
 """
 
 from __future__ import annotations
@@ -42,6 +45,24 @@ def batch_to_point(batch: Dict[str, np.ndarray], depth: int, num_scenes: int,
         batch=batch["batch"], mask=batch["mask"], segment=batch.get("segment"),
         instance=batch.get("instance"), instance_centroid=batch.get("instance_centroid"),
         depth=depth, num_scenes=num_scenes, device=device)
+
+
+def msc_inputs(batch: Dict[str, np.ndarray], depth: int, num_scenes: int,
+               device: Optional[Union[str, torch.device]] = None,
+               feat_keys: Sequence[str] = ("color", "normal")) -> Dict[str, object]:
+    """A collated view pair (`data.collate.collate_pair_scenes`) as the
+    keyword inputs of `models.msc.MaskedSceneContrast`: each view's
+    `PointBatch`, origin coordinates and reconstruction targets, on
+    ``device`` (the GPU unless the caller names another)."""
+    device = resolve_device(device)
+    out: Dict[str, object] = {}
+    for v in ("view1", "view2"):
+        sub = {k[len(v) + 1:]: a for k, a in batch.items() if k.startswith(v + "_")}
+        out[v] = batch_to_point(sub, depth, num_scenes, device)
+        out[f"{v}_origin_coord"] = torch.as_tensor(sub["origin_coord"], device=device)
+        out[f"{v}_target"] = {k: torch.as_tensor(sub["target_" + k], device=device)
+                              for k in feat_keys}
+    return out
 
 
 def rank_seed(seed: int, rank: int) -> int:
@@ -81,14 +102,20 @@ def _rank_mean_(model: torch.nn.Module, loss: torch.Tensor, microbatch: int) -> 
     loss.div_(world)
 
 
+MSC_METRICS = ("nce_loss", "pos_sim", "neg_sim")
+
+
 def make_train_step(model: torch.nn.Module, criteria: Criteria,
                     optimizer: KeywordOptimizer, seed: int = 0,
                     device: Optional[Union[str, torch.device]] = None,
-                    microbatch: int = 1) -> Callable[..., Dict]:
+                    microbatch: int = 1, model_kwargs: Optional[Dict] = None,
+                    generators: Optional[Dict[str, torch.Generator]] = None
+                    ) -> Callable[..., Dict]:
     """The step ``step(point, **inject) -> metrics`` on ``device`` (the GPU
     unless the caller names another; raises without one). It draws from
     ``step.generators`` (`make_generators` of ``seed`` and this process's
-    rank), which a checkpoint saves and a resume restores.
+    rank, or ``generators`` when given: steps that share them draw from one
+    stream), which a checkpoint saves and a resume restores.
 
     ``microbatch`` > 1: ``point`` is a sequence of that many micro buckets,
     trained in turn (JAX's `_grads_micro`): the running statistics carry
@@ -99,20 +126,34 @@ def make_train_step(model: torch.nn.Module, criteria: Criteria,
     the ranks (JAX's `pmean` over the mesh) before the keyword clip and
     the optimizer; the batch statistics inside each forward stay the rank's own.
 
-    ``inject`` goes to the model's forward (``ts_scene``, ``noise``,
-    ``mse_valid`` and ``perms`` replace the draws); with micros each value
-    is a sequence, one per micro. The metrics are ``loss`` (a 0-d tensor,
-    detached), ``valid_points`` (a 0-d tensor) and ``dropped_l1``, ..., one
-    per pooled level: the valid points it lost to overflow.
+    ``model_kwargs`` go to every forward (PPT's ``condition``); ``inject``
+    goes to the model's forward (``ts_scene``, ``noise``, ``mse_valid`` and
+    ``perms`` replace the draws); with micros each value is a sequence, one
+    per micro. A bucket is a `PointBatch`, or a dict of the forward's
+    keyword inputs (`msc_inputs`; ``valid_points`` counts its ``view1``).
+    A model with ``zero_unused_grads`` (PPT) gets a zero gradient for every
+    parameter its forward left unused, as JAX's step gives, so that the
+    optimizer decays and counts it as optax does. The metrics are ``loss``
+    (a 0-d tensor, detached), ``valid_points`` (a 0-d tensor),
+    ``dropped_l1``, ..., one per pooled level: the valid points it lost to
+    overflow, and MSC's ``nce_loss``, ``pos_sim`` and ``neg_sim`` when the
+    model gives them (detached; of the last micro).
     """
+    model_kwargs = dict(model_kwargs or {})
     device = resolve_device(device)
     if microbatch < 1:
         raise ValueError(f"microbatch={microbatch}")
-    generators = make_generators(seed, device, dist.rank())
+    if generators is None:
+        generators = make_generators(seed, device, dist.rank())
     world = dist.world_size()
 
-    def step(point: Union[PointBatch, Sequence[PointBatch]], **inject) -> Dict:
-        micros = [point] if isinstance(point, PointBatch) else list(point)
+    def forward(pt, inj):
+        if isinstance(pt, PointBatch):
+            return model(pt, generators=generators, **model_kwargs, **inj)
+        return model(**pt, generators=generators, **model_kwargs, **inj)
+
+    def step(point: Union[PointBatch, Dict, Sequence[PointBatch]], **inject) -> Dict:
+        micros = [point] if isinstance(point, (PointBatch, dict)) else list(point)
         if len(micros) != microbatch:
             raise ValueError(f"{len(micros)} micro buckets for microbatch={microbatch}")
         injects = ([inject] if microbatch == 1 else
@@ -121,11 +162,15 @@ def make_train_step(model: torch.nn.Module, criteria: Criteria,
         optimizer.zero_grad()
         losses, drops = [], []
         for pt, inj in zip(micros, injects):
-            out = model(pt, generators=generators, **inj)
+            out = forward(pt, inj)
             loss = criteria(out, mode="train")
             loss.backward()
             losses.append(loss.detach())
             drops.append(out.get("pyramid_dropped", ()))
+        if getattr(model, "zero_unused_grads", False):
+            for p in model.parameters():
+                if p.requires_grad and p.grad is None:
+                    p.grad = torch.zeros_like(p)
         loss = losses[0] if microbatch == 1 else torch.stack(losses).mean()
         if world > 1:
             _rank_mean_(model, loss, microbatch)
@@ -134,18 +179,35 @@ def make_train_step(model: torch.nn.Module, criteria: Criteria,
                 if p.grad is not None:
                     p.grad.div_(microbatch)
         optimizer.step()
-        metrics = dict(loss=loss, valid_points=sum(pt.mask.sum() for pt in micros))
+        metrics = dict(loss=loss, valid_points=sum(
+            (pt if isinstance(pt, PointBatch) else pt["view1"]).mask.sum() for pt in micros))
         for i, d in enumerate(zip(*drops)):
             metrics[f"dropped_l{i + 1}"] = sum(d)
+        for k in MSC_METRICS:
+            if k in out:
+                metrics[k] = out[k].detach()
         return metrics
 
     step.generators = generators
     return step
 
 
+def make_msc_train_step(model: torch.nn.Module, criteria: Criteria,
+                        optimizer: KeywordOptimizer, seed: int = 0,
+                        device: Optional[Union[str, torch.device]] = None
+                        ) -> Callable[..., Dict]:
+    """The MSC pretraining step (JAX's `make_msc_train_step`): `make_train_step`
+    over `msc_inputs` buckets with no microbatch; the model gives its own
+    ``loss`` (no criteria term applies), and ``nce_loss``, ``pos_sim`` and
+    ``neg_sim`` join ``loss`` and ``valid_points`` (view 1's).
+    ``step(inputs, seed=, score=)`` injects the hash seed and the pair
+    scores."""
+    return make_train_step(model, criteria, optimizer, seed=seed, device=device)
+
+
 def make_eval_step(model: torch.nn.Module, depth: int, num_scenes: int,
-                   device: Optional[Union[str, torch.device]] = None
-                   ) -> Callable[..., Dict]:
+                   device: Optional[Union[str, torch.device]] = None,
+                   model_kwargs: Optional[Dict] = None) -> Callable[..., Dict]:
     """The step ``step(batch, generator=None, noise=None) -> dict(seg_logits)``
     on ``device`` (the GPU unless the caller names another; raises without
     one): a collated batch through SSI in eval mode, without gradients. A
@@ -153,9 +215,14 @@ def make_eval_step(model: torch.nn.Module, depth: int, num_scenes: int,
     segmentors) runs it, drawing its noise from ``generator`` unless
     ``noise`` is given; other models evaluate through the plain forward and
     give its outputs, with ``n_pred`` as ``seg_logits`` (a classifier's
-    per-scene logits beside its ``cls_pred``)."""
+    per-scene logits beside its ``cls_pred``); one that draws its own noise
+    in evaluation (`models.ppt.PointPromptTraining`, which has
+    ``draw_ssi_noise``) takes ``noise``, or draws from ``generator``.
+    ``model_kwargs`` go to the forward (PPT's ``condition``)."""
     device = resolve_device(device)
     has_inference = hasattr(type(model), "inference")
+    draws = hasattr(model, "draw_ssi_noise")
+    model_kwargs = dict(model_kwargs or {})
 
     @torch.no_grad()
     def step(batch: Dict[str, np.ndarray], generator: Optional[torch.Generator] = None,
@@ -163,8 +230,11 @@ def make_eval_step(model: torch.nn.Module, depth: int, num_scenes: int,
         model.eval()
         point = batch_to_point(batch, depth, num_scenes, device)
         if has_inference:
-            return model.inference(point, noise=noise, generator=generator)
-        out = model(point)
+            return model.inference(point, noise=noise, generator=generator, **model_kwargs)
+        kwargs = dict(model_kwargs)
+        if draws:
+            kwargs.update(noise=noise, generators=dict(diffusion=generator))
+        out = model(point, **kwargs)
         return dict(out, seg_logits=out.get("seg_logits", out.get("n_pred")))
 
     return step

@@ -38,8 +38,10 @@ nothing past its initial state, so MSAI and MSFI split over the ranks as
 SSI does (JAX runs them on one device).
 
 Models other than `CNFSegmentor` go through their plain forward in eval
-mode and give its ``seg_logits``, else ``n_pred``, as JAX's tester sends
-them. For an ablation segmentor (`models.ablation_segmentors`) that is its
+mode, with ``cfg.model_kwargs`` (PPT's ``condition``), and give its
+``seg_logits``, else ``n_pred``, as JAX's tester sends them; PPT's dual
+branch takes the fragment's c-branch noise, as SSI does. For an ablation
+segmentor (`models.ablation_segmentors`) that is its
 training forward in eval mode: it draws a timestep and its noise and reads
 the fragment's labels. Its draws come from a generator seeded for each
 fragment from ``(cfg.seed, fragment index)``, so that they do not depend on
@@ -51,9 +53,8 @@ The shape tasks: `ClsTester` runs one forward per shape of a
 shape by the IoU of its category's parts (instance and category mIoU). Both
 run on one process, as JAX runs them on one device.
 
-Not ported, each raising `NotImplementedError`: ``model_kwargs`` (the PPT
-``condition`` of the model zoo), and the shape testers on more than one
-rank.
+Not ported, raising `NotImplementedError`: the shape testers on more than
+one rank.
 """
 
 from __future__ import annotations
@@ -114,10 +115,7 @@ class SemSegTester:
         if self.inference_mode not in ("SSI", "MSAI", "MSFI"):
             raise ValueError(f"inference_mode={self.inference_mode!r}: "
                              "'SSI', 'MSAI' or 'MSFI'")
-        if cfg.get("model_kwargs"):
-            raise NotImplementedError(
-                "model_kwargs (the model zoo's PPT condition) is not ported "
-                '(ROADMAP Queue 1: "The model zoo and the rest of the engine and data")')
+        self.model_kwargs = dict(cfg.get("model_kwargs", {}) or {})
         self.model = (model if model is not None
                       else build_model(dict(cfg.model), device=self.device)).eval()
         if self.inference_mode != "SSI" and not isinstance(self.model, CNFSegmentor):
@@ -190,8 +188,11 @@ class SemSegTester:
         if isinstance(self.model, CNFSegmentor):
             return self.model.inference(point, noise=noise,
                                         geometry=geometry)["seg_logits"]
+        kwargs = dict(self.model_kwargs)
+        if hasattr(self.model, "draw_ssi_noise"):  # PPT's dual branch
+            kwargs["noise"] = noise
         out = self.model(point, geometry=geometry,
-                         generators=dict(diffusion=self.fragment_generator))
+                         generators=dict(diffusion=self.fragment_generator), **kwargs)
         return out["seg_logits"] if "seg_logits" in out else out["n_pred"]
 
     def predict_fragment(self, frag: Dict, index: int,

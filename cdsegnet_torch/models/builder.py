@@ -5,12 +5,12 @@ ablation, `DefaultClassifier`, `PT-v2m1`/`m2`/`m3` and sparse-conv
 (`SpUNet-v1m1`, `MinkUNet`, `SpUNet-v1m3`, `OACNNs`, `SPVCNN`, `CAC-v1m1`,
 `PointGroup`), PTv1 (`PT-v1`, `PointTransformer-Seg26`/`-Seg38`/`-Seg50`)
 and window-attention (`OctFormer-v1m1`, `StratifiedTransformer`(`-v1m1`),
-`Swin3D-v1m1`) entries of `cdsegnet_tpu/models/builder.py` and the modules
-that register them: reference-style config dicts (such as the ``model``
-dict of `configs/scannet/cdsegnet.py`) map to module fields with the same
-kwarg translation. `build_model_criteria` builds the losses named
-in the same dict. The rest of the model zoo is not ported: `build_model`
-raises `NotImplementedError` for its types.
+`Swin3D-v1m1`), MSC (`MSC`, `MSC-v1m1`) and PPT (`PPT-v1m1`, `PPT-v1m2`)
+entries of `cdsegnet_tpu/models/builder.py` and the modules that register
+them: reference-style config dicts (such as the ``model`` dict of
+`configs/scannet/cdsegnet.py`) map to module fields with the same kwarg
+translation. `build_model_criteria` builds the losses named in the same
+dict. `build_model` raises `NotImplementedError` for any other type.
 """
 
 from __future__ import annotations
@@ -22,9 +22,11 @@ import torch
 from cdsegnet_torch.models.ablation_segmentors import ABLATIONS, DefaultClassifier
 from cdsegnet_torch.models.cac import CACSegmentor
 from cdsegnet_torch.models.losses import Criteria, build_criteria
+from cdsegnet_torch.models.msc import MaskedSceneContrast
 from cdsegnet_torch.models.oacnns import OACNNs
 from cdsegnet_torch.models.octformer import OctFormer
 from cdsegnet_torch.models.pointgroup import PointGroup
+from cdsegnet_torch.models.ppt import PointPromptTraining, PointPromptTrainingDecoupled
 from cdsegnet_torch.models.ptv2 import VARIANTS as PTV2_VARIANTS
 from cdsegnet_torch.models.ptv2 import build_ptv2
 from cdsegnet_torch.models.ptv1 import VARIANTS as PTV1_VARIANTS
@@ -64,6 +66,16 @@ _CAC_KEYS = {"num_classes", "backbone_out_channels", "cos_temp", "conf_thresh",
              "detach_pre_logits"}
 _POINTGROUP_KEYS = {"num_classes", "backbone_out_channels", "cluster_radius",
                     "cluster_nsample"}
+# the wrapper fields that JAX's MSC and PPT factories keep
+_MSC_KEYS = {"backbone_in_channels", "backbone_out_channels", "mask_grid_size",
+             "mask_rate", "matching_max_radius", "matching_max_pair", "nce_t",
+             "contrast_weight", "reconstruct_weight", "reconstruct_color",
+             "reconstruct_normal"}
+_PPT_KEYS = {"backbone_out_channels", "context_channels", "conditions", "backbone_mode"}
+_PPT_V1M1_KEYS = _PPT_KEYS | {
+    "valid_index", "num_class_names", "clip_embed_dim", "class_embedding_path", "dm",
+    "T", "beta_start", "beta_end", "noise_schedule", "dm_input", "dm_target",
+    "dm_min_snr", "c_in_channels"}
 
 
 def _norm_orders(order):
@@ -148,11 +160,37 @@ def _build(cfg: Dict[str, Any]) -> torch.nn.Module:
     if kind in ("PointGroup", "PointGroup-v1m1"):
         return PointGroup(backbone=_build(cfg.pop("backbone")),
                           **{k: v for k, v in cfg.items() if k in _POINTGROUP_KEYS})
+    if kind in ("MSC", "MSC-v1m1"):
+        return MaskedSceneContrast(backbone=_build(cfg.pop("backbone")),
+                                   **{k: v for k, v in cfg.items() if k in _MSC_KEYS})
+    if kind in ("PPT-v1m1", "PPT-v1m2"):
+        return _build_ppt(kind, cfg)
     if kind == "DefaultClassifier":
         return DefaultClassifier(backbone=_build(cfg.pop("backbone")),
                                  num_classes=cfg.get("num_classes", 40),
                                  backbone_embed_dim=cfg.get("backbone_embed_dim", 512))
     raise NotImplementedError(f"model type {kind!r} is not ported")
+
+
+def _tupled(v):
+    return tuple(_tupled(x) for x in v) if isinstance(v, (list, tuple)) else v
+
+
+def _build_ppt(kind: str, cfg: Dict[str, Any]) -> torch.nn.Module:
+    """PPT-v1m1 (the reference's ``condition`` kwarg gates the dual branch,
+    ``T_dim`` is the timestep width) or PPT-v1m2. A PDNorm backbone's
+    context width is the wrapper's ``context_channels`` (flax infers it)."""
+    backbone = dict(cfg.pop("backbone"))
+    if backbone.get("num_conditions"):
+        backbone["context_channels"] = cfg.get("context_channels", 256)
+    backbone = _build(backbone)
+    if kind == "PPT-v1m2":
+        keep = _PPT_KEYS | {"num_classes"}
+        return PointPromptTrainingDecoupled(
+            backbone=backbone, **{k: _tupled(v) for k, v in cfg.items() if k in keep})
+    kwargs = {k: _tupled(v) for k, v in cfg.items() if k in _PPT_V1M1_KEYS}
+    return PointPromptTraining(backbone=backbone, dual_branch=bool(cfg.get("condition", False)),
+                               t_dim=cfg.get("T_dim", 128), **kwargs)
 
 
 def build_model(cfg: Dict[str, Any],

@@ -14,7 +14,10 @@ room in the fields of a Pointcept ScanNet archive, before any voxelization.
 `SemanticKITTIDataset` read them. `write_modelnet` and
 `write_shapenet_part` write seeded primitive shapes (spheres, boxes,
 cylinders, with normals and part labels) in the datasets' own file formats
-at their published point counts.
+at their published point counts. `write_s3dis`, `write_structured3d`,
+`write_arkitscenes` and `write_scannet_pair` lay rooms out as Pointcept
+`.pth` archives in those datasets' layouts and label spaces, `write_waymo`
+sweeps as Waymo frames.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import pickle
 from typing import Dict, List
 
 import numpy as np
+import torch
 
 from cdsegnet_torch.models.structure import PointBatch, make_point_batch
 from cdsegnet_torch.utils.device import resolve_device
@@ -386,3 +390,101 @@ def write_shapenet_part(root: str, shapes: Dict[str, int], num_points: int = 250
         with open(os.path.join(root, "train_test_split",
                                f"shuffled_{split}_file_list.json"), "w") as f:
             json.dump(entries, f)
+
+
+# `room_scene`'s ScanNet-20 classes (wall, floor, cabinet, bed, chair,
+# table) in the S3DIS (13 classes: wall 2, floor 1, clutter 12, chair 8,
+# table 7) and Structured3D (25 classes, PPT's first `valid_index` row)
+# label spaces; ScanNet-20 ids the room does not use map to the ignore index
+_S3DIS_OF_SCANNET = np.array([2, 1, 12, 12, 8, -1, 7], np.int64)
+_STRUCTURED3D_OF_SCANNET = np.array([0, 1, 2, 3, 4, -1, 6], np.int64)
+# Waymo semantic ids (1-22; 0 unlabeled) of `lidar_sweep`'s surfaces
+_WAYMO_OF_NUSCENES = {_DRIVEABLE: 18, _SIDEWALK: 22, _CAR: 1, _MANMADE: 14}
+
+
+def _relabelled(room: dict, table: np.ndarray, key: str) -> dict:
+    """``room`` (a `room_scene`) with ``semantic_gt20`` mapped by ``table``
+    into ``key``, and without the ScanNet label fields."""
+    out = {k: v for k, v in room.items() if not k.startswith("semantic_gt")}
+    out[key] = table[room["semantic_gt20"]]
+    return out
+
+
+def write_s3dis(root: str, areas: Dict[str, List[dict]]) -> None:
+    """Lay `room_scene` rooms out as `S3DISDataset` reads them:
+    ``<root>/<area>/room_<i>.pth`` (``areas`` maps e.g. ``"Area_1"`` to its
+    rooms) with coord, color, normal and the 13-class ``semantic_gt``
+    (``instance_gt`` when the room has it)."""
+    for area, rooms in areas.items():
+        os.makedirs(os.path.join(root, area), exist_ok=True)
+        for i, room in enumerate(rooms):
+            _save(_relabelled(room, _S3DIS_OF_SCANNET, "semantic_gt"),
+                  os.path.join(root, area, f"room_{i}.pth"))
+
+
+def write_structured3d(root: str, splits: Dict[str, List[dict]]) -> None:
+    """Lay `room_scene` rooms out as `Structured3DDataset` reads them:
+    ``<root>/<split>/scene_<i:05d>/room_0.pth`` with coord, color, normal
+    and the 25-class ``segment``."""
+    for split, rooms in splits.items():
+        for i, room in enumerate(rooms):
+            d = os.path.join(root, split, f"scene_{i:05d}")
+            os.makedirs(d, exist_ok=True)
+            _save(_relabelled(room, _STRUCTURED3D_OF_SCANNET, "segment"),
+                  os.path.join(d, "room_0.pth"))
+
+
+def write_arkitscenes(root: str, splits: Dict[str, List[dict]]) -> None:
+    """Lay `room_scene` rooms out as `ArkitScenesDataset` reads them:
+    ``<root>/<split>/<i:08d>.pth`` with coord, color and normal only (the
+    scans are unlabeled)."""
+    for split, rooms in splits.items():
+        os.makedirs(os.path.join(root, split), exist_ok=True)
+        for i, room in enumerate(rooms):
+            _save({k: room[k] for k in ("coord", "color", "normal")},
+                  os.path.join(root, split, f"{i:08d}.pth"))
+
+
+def write_waymo(root: str, splits: Dict[str, List[Dict[str, np.ndarray]]]) -> None:
+    """Lay `lidar_sweep` sweeps out as `WaymoDataset` reads them: split
+    ``s``'s sweep i as ``<root>/<s>/segment-<i>/velodyne/000000.bin``
+    float32 (x, y, z, intensity / 255) and ``labels/000000.label`` int32
+    (N, 2): instance 0, then the Waymo class (road, sidewalk, car,
+    building; every tenth return unlabeled, 0)."""
+    for split, sweeps in splits.items():
+        for i, sweep in enumerate(sweeps):
+            base = os.path.join(root, split, f"segment-{i}")
+            for d in ("velodyne", "labels"):
+                os.makedirs(os.path.join(base, d), exist_ok=True)
+            pts = sweep["points"]
+            scan = np.concatenate([pts[:, :3], pts[:, 3:4] / 255.0], 1).astype(np.float32)
+            scan.tofile(os.path.join(base, "velodyne", "000000.bin"))
+            sem = np.zeros(len(pts), np.int32)
+            for lab, cls in _WAYMO_OF_NUSCENES.items():
+                sem[sweep["labels"] == lab] = cls
+            sem[::10] = 0
+            labels = np.stack([np.zeros_like(sem), sem], 1).astype(np.int32)
+            labels.tofile(os.path.join(base, "labels", "000000.label"))
+
+
+def write_scannet_pair(root: str, scenes: List[List[dict]],
+                       overlaps: List[List[float]]) -> None:
+    """Lay scans out as `ScanNetPairDataset` reads them: scene k's views as
+    ``<root>/scene<k:04d>_00/pcd/<j:06d>.pth`` (coord, color, normal), and
+    ``pcd/overlap.txt`` listing each consecutive pair ``j, j + 1`` with its
+    overlap ``overlaps[k][j]``, names with their leading separator (the
+    dataset reads ``data_root + name``)."""
+    for k, (views, ov) in enumerate(zip(scenes, overlaps)):
+        name = f"scene{k:04d}_00"
+        pcd = os.path.join(root, name, "pcd")
+        os.makedirs(pcd, exist_ok=True)
+        for j, view in enumerate(views):
+            _save({f: view[f] for f in ("coord", "color", "normal")},
+                  os.path.join(pcd, f"{j:06d}.pth"))
+        with open(os.path.join(pcd, "overlap.txt"), "w") as f:
+            for j, o in enumerate(ov):
+                f.write(f"/{name}/pcd/{j:06d}.pth /{name}/pcd/{j + 1:06d}.pth {o}\n")
+
+
+def _save(data: dict, path: str) -> None:
+    torch.save(data, path)

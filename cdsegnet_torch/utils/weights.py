@@ -165,7 +165,7 @@ def load_jax_variables(module: nn.Module, tree: Mapping,
             if tuple(arr.shape) != tuple(targets[name].shape):
                 raise ValueError(f"{name}: shape {arr.shape} != "
                                  f"{tuple(targets[name].shape)}")
-            values[name] = torch.from_numpy(np.ascontiguousarray(arr))
+            values[name] = torch.from_numpy(np.ascontiguousarray(arr).reshape(arr.shape))
     missing = sorted(set(targets) - set(values) - set(keep))
     if missing:
         raise ValueError(f"not filled from the JAX tree: {missing}")
@@ -216,8 +216,11 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     ``dw_weight`` (fan-in 27); ones for the
     Restomer's temperature; ones (0.5 for the ``b_`` gates) for a transfer
     gate's ``feat_scale``; ``variance_scaling(1/3, fan_in, uniform)`` for
-    PTv2's (1, C) ``grouped_weight`` (fan-in 1: uniform in [-1, 1]); running
-    mean 0 and variance 1, per condition for PDNorm."""
+    PTv2's (1, C) ``grouped_weight`` (fan-in 1: uniform in [-1, 1]); for
+    PPT a normal of std 1 for the ``embedding_table``, of std 0.02 for the
+    learned ``class_embedding``, and ln(1 / 0.07) for ``logit_scale``; a
+    truncated normal of std 0.02 for MSC's ``mask_token``; running mean 0
+    and variance 1, per condition for PDNorm."""
     from cdsegnet_torch.models.modules import (
         Dense, LayerNorm, MaskedBatchNorm, PDMaskedBatchNorm)
 
@@ -225,7 +228,15 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
         for name, p in module.named_parameters():
             owner = module.get_submodule(name.rsplit(".", 1)[0]) if "." in name else module
             leaf = name.rsplit(".", 1)[-1]
-            if leaf.endswith("_table"):  # RPE and Swin3D's cRSE tables
+            if leaf == "embedding_table":  # PPT's dataset context, normal(1)
+                nn.init.normal_(p, 0.0, 1.0, generator=generator)
+            elif leaf == "class_embedding":  # PPT's learned class table, normal(0.02)
+                nn.init.normal_(p, 0.0, 0.02, generator=generator)
+            elif leaf == "logit_scale":  # PPT's temperature, ln(1 / 0.07)
+                p.fill_(math.log(1.0 / 0.07))
+            elif leaf == "mask_token":  # MSC's, truncated normal of std 0.02
+                nn.init.trunc_normal_(p, 0.0, 0.02, -0.04, 0.04, generator=generator)
+            elif leaf.endswith("_table"):  # RPE and Swin3D's cRSE tables
                 nn.init.trunc_normal_(p, 0.0, 0.02, -0.04, 0.04, generator=generator)
             elif leaf == "dw_weight":  # OctFormer's depthwise (27, C), fan-in 27
                 lim = math.sqrt(3.0 / p.shape[0])

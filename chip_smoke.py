@@ -192,7 +192,28 @@ Phases, each fatal on failure:
    scene within ``TOL_SPARSE_CARD``; OctFormer through the training CLI
    (one evaluated epoch of 2 steps on phase 9's rooms) and the tester CLI
    (phase 8's room, its first augmentation). Finite losses; no attention
-   kernel may launch.
+   kernel may launch;
+21. msc and ppt: MSC pretraining (`configs/scannet/pretrain_msc.py`,
+   SpUNet-v1m1 in f32, random weights from a seed) on the shipped
+   pipeline's first bucket of phase 9's rooms (two views of 2 x 102,400
+   slots): the 1-NN pair match over the whole bucket timed alone (CUDA
+   events) and within the SGD-Nesterov + OneCycle step (1 warm-up, 3 timed;
+   valid pairs, ``nce_loss``, ``pos_sim``, ``neg_sim``, peak memory); the f32
+   loss on the card against the CPU's on a 16,384-slot pair with injected
+   draws (``TOL_MSC_CARD``); `MSCTrainer` through the training CLI on phase
+   9's rooms (2 steps). Then PPT (`configs/multidataset/ppt_spunet.py`,
+   PPT-v1m1 over SpUNet-v1m3 with adaptive PDNorm): `MultiDatasetTrainer`
+   through the CLI on synthetic Structured3D, ScanNet (phase 9's rooms) and
+   S3DIS trees, one epoch of 4 steps, ``_dataset_idx`` [0, 0, 1, 2], each
+   condition trained (step ms per condition); the eval forward timed on
+   phase 4's scene; PPT-v1m2 (heads 25, 20, 13) one eval forward and one
+   step. Last, PPT-v1m1 with the dual branch and ``dm`` over the flagship
+   PTv3 (the backbone, diffusion settings and criteria of
+   `configs/scannet/cdsegnet.py`, bf16): its eval forward on phase 4's scene
+   (the c-decoder included: 36 forward launches) and its AdamW step on phase
+   6's bucket (36 + 36 + 36), timed, the c-decoder's kernel shapes on the
+   bench scene checked in phase 3. MSC and PPT over SpUNet may launch no
+   attention kernel.
 
 Each phase prints its wall time (``phase <name> wall``). The last three lines are a JSON summary of the kernels, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``. Without a GPU, or
@@ -3285,6 +3306,308 @@ def phase_zoo(torch, point, train_point, tmp, n_raw, card):
     return res
 
 
+MSC_CONFIG = "scannet/pretrain_msc.py"
+PPT_CONFIG = "multidataset/ppt_spunet.py"
+MSC_CHECK_POINTS = 16384  # phase 21's card-against-CPU view pair
+TOL_MSC_CARD = 1e-4
+PPT_ROOM_SEEDS = dict(structured3d=(11, 12, 13, 14), s3dis=(15, 16))
+
+
+def msc_pair(torch, n, device, seed=1):
+    """A synthetic view pair of one scene: the scene at ``n`` slots, and a
+    second view of its points in another order with jittered features;
+    origins the points' own coordinates, targets their features."""
+    from cdsegnet_torch.utils.synthetic import synthetic_point_batch
+
+    v1 = synthetic_point_batch(n, 1, depth=10, seed=seed, device="cpu")
+    gen = torch.Generator().manual_seed(seed)
+    perm = torch.randperm(n, generator=gen)
+    perm = torch.cat([perm[v1.mask[perm]], perm[~v1.mask[perm]]])  # valid rows first
+    v2 = v1.replace(coord=v1.coord[perm], grid_coord=v1.grid_coord[perm],
+                    feat=v1.feat[perm] + 0.01 * torch.randn(v1.feat.shape, generator=gen),
+                    batch=v1.batch[perm], mask=v1.mask[perm])
+    out = {}
+    for name, v in (("view1", v1), ("view2", v2)):
+        v = v.replace(**{k: getattr(v, k).to(device) for k in
+                         ("coord", "grid_coord", "feat", "batch", "mask")})
+        out[name] = v
+        out[f"{name}_origin_coord"] = v.coord
+        out[f"{name}_target"] = dict(color=v.feat[:, :3], normal=v.feat[:, 3:])
+    return out
+
+
+def phase_msc(torch, tmp, card):
+    """Phase 21a: MSC pretraining at the shipped config's width; see the
+    module docstring."""
+    from cdsegnet_torch.data.datasets import build_dataset
+    from cdsegnet_torch.data.loader import TrainLoader
+    from cdsegnet_torch.engine.optimizer import build_optimizer
+    from cdsegnet_torch.engine.state import make_msc_train_step, msc_inputs
+    from cdsegnet_torch.models.builder import build_model, build_model_criteria
+    from cdsegnet_torch.tools import train as train_tool
+
+    from cdsegnet_torch.ops import flash_attention as fa
+
+    fa.reset_launch_counts()
+    conf = load_config(MSC_CONFIG)
+    cfg = copy.deepcopy(dict(conf.model))
+    keys = tuple(conf.pair_feat_keys)
+    res = dict(card=card)
+    # the shipped pipeline's first bucket of phase 9's rooms: 2 scenes, 2
+    # views of 102,400 slots each
+    t0 = time.perf_counter()
+    ds = build_dataset(dict(conf.data.train, data_root=os.path.join(tmp, "data")))
+    loader = TrainLoader(ds, scenes_per_device=conf.scenes_per_device,
+                         num_points=conf.bucket_num_points, seed=conf.seed, prefetch=0,
+                         pair_feat_keys=keys)
+    inputs = msc_inputs(next(loader.epoch(0)), conf.serialization_depth,
+                        conf.scenes_per_device, "cuda", keys)
+    res["batch_s"] = time.perf_counter() - t0
+    res["valid"] = [int(inputs[v].mask.sum().item()) for v in ("view1", "view2")]
+    model = build_model(cfg, device="cuda", generator=torch.Generator().manual_seed(0))
+    model.train()
+    gen = torch.Generator("cuda").manual_seed(3)
+    score = torch.rand(inputs["view1"].num_points, generator=gen, device="cuda")
+    match = lambda: model.match_pairs(inputs["view1"], inputs["view2"],
+                                      inputs["view1_origin_coord"],
+                                      inputs["view2_origin_coord"], score)
+    pairs, pair_valid = match()
+    res["match_ms"] = cuda_ms(torch, match, warmup=0, iters=2)
+    res["valid_pairs"] = int(pair_valid.sum().item())
+    opt = build_optimizer(dict(conf.optimizer), model, dict(conf.scheduler),
+                          total_steps=TRAIN_TOTAL_STEPS, device="cuda")
+    step = make_msc_train_step(model, build_model_criteria(cfg), opt, seed=0, device="cuda")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    times, metrics = [], []
+    for i in range(4):  # 1 warm-up, then 3 timed steps
+        t0 = time.perf_counter()
+        m = step(inputs)
+        torch.cuda.synchronize()
+        metrics.append({k: float(v) for k, v in m.items()})
+        if i:
+            times.append((time.perf_counter() - t0) * 1e3)
+    res.update(step_ms=statistics.median(times), step_ms_all=times, metrics=metrics,
+               match_share=res["match_ms"] / statistics.median(times),
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               lrs=opt.lrs())
+    print("msc step " + json.dumps(res), flush=True)
+    if res["valid_pairs"] == 0 or not all(np.isfinite(list(m.values())).all()
+                                          for m in metrics):
+        fail(f"MSC step: {res['valid_pairs']} valid pairs, metrics {metrics}")
+    del step, opt, model, inputs, pairs, pair_valid, score
+    torch.cuda.empty_cache()
+
+    # the f32 loss on the card against the CPU's, the same draws injected
+    model = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(0)).train()
+    draws = dict(seed=torch.tensor(12345), score=torch.rand(
+        MSC_CHECK_POINTS, generator=torch.Generator().manual_seed(4)))
+    losses = {}
+    for dev in ("cpu", "cuda"):
+        with torch.no_grad():
+            out = model.to(dev)(**msc_pair(torch, MSC_CHECK_POINTS, dev),
+                                **{k: v.to(dev) for k, v in draws.items()})
+        losses[dev] = {k: float(out[k]) for k in ("loss", "nce_loss", "color_loss",
+                                                  "normal_loss")}
+    gap = abs(losses["cuda"]["loss"] - losses["cpu"]["loss"]) / abs(losses["cpu"]["loss"])
+    res["card_gap"] = dict(slots=MSC_CHECK_POINTS, losses=losses, rel_gap=gap,
+                           tol=TOL_MSC_CARD)
+    print("msc card against cpu " + json.dumps(res["card_gap"]), flush=True)
+    del model
+    torch.cuda.empty_cache()
+    if not gap <= TOL_MSC_CARD:
+        fail(f"MSC: the f32 loss on the card differs from the CPU's by {gap}")
+
+    # MSCTrainer through the training CLI: phase 9's four rooms, 2 steps
+    save = os.path.join(tmp, "msc_run")
+    hooks = [dict(h, log_interval=1) if h["type"] == "InformationWriter" else h
+             for h in conf.hooks]
+    t0 = time.perf_counter()
+    trainer = train_tool.main(["--config-file", config_path(MSC_CONFIG), "--options",
+                               "epoch=1", f"save_path={save}", f"hooks={hooks!r}",
+                               f"data.train.data_root={os.path.join(tmp, 'data')}"])
+    torch.cuda.synchronize()
+    with open(os.path.join(save, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    cli = dict(train_s=time.perf_counter() - t0, steps=trainer.step,
+               trainer=type(trainer).__name__,
+               losses=[r["loss"] for r in recs if "loss" in r],
+               nce=[r.get("nce_loss") for r in recs if "loss" in r],
+               checkpoints=sorted(os.listdir(os.path.join(save, "model"))))
+    print("msc cli " + json.dumps(cli), flush=True)
+    del trainer
+    torch.cuda.empty_cache()
+    res["cli"] = cli
+    if cli["steps"] != 2 or cli["trainer"] != "MSCTrainer" or \
+            not np.isfinite(cli["losses"]).all() or "model_last" not in cli["checkpoints"]:
+        fail(f"MSC training CLI: {cli}")
+    res["attention_launches"] = fa.patch_attention_fwd.launches
+    if res["attention_launches"]:
+        fail(f"MSC launched the attention kernel {res['attention_launches']} times")
+    return res
+
+
+def ppt_trees(tmp):
+    """Synthetic Structured3D and S3DIS trees beside phase 9's ScanNet
+    rooms: 4 + 2 rooms."""
+    from cdsegnet_torch.utils.synthetic import room_scene, write_s3dis, write_structured3d
+
+    roots = dict(structured3d=os.path.join(tmp, "ppt", "structured3d"),
+                 s3dis=os.path.join(tmp, "ppt", "s3dis"), scannet=os.path.join(tmp, "data"))
+    write_structured3d(roots["structured3d"], {"train": [
+        room_scene(s) for s in PPT_ROOM_SEEDS["structured3d"]]})
+    write_s3dis(roots["s3dis"], {f"Area_{i + 1}": [room_scene(s)]
+                                 for i, s in enumerate(PPT_ROOM_SEEDS["s3dis"])})
+    return roots
+
+
+def phase_ppt(torch, point, train_point, tmp, card):
+    """Phase 21b-c: PPT through the training CLI and inline, and the
+    dual-branch PPT over the flagship PTv3; see the module docstring.
+    Returns the results and the dual-branch model's counted launches."""
+    from cdsegnet_torch.engine import train as train_mod
+    from cdsegnet_torch.engine.optimizer import build_optimizer
+    from cdsegnet_torch.engine.state import make_train_step
+    from cdsegnet_torch.models.builder import build_model, build_model_criteria
+    from cdsegnet_torch.ops import flash_attention as fa
+    from cdsegnet_torch.tools import train as train_tool
+
+    fa.reset_launch_counts()
+    conf = load_config(PPT_CONFIG)
+    res = dict(card=card)
+    # MultiDatasetTrainer through the CLI: Structured3D (ratio 2), ScanNet,
+    # S3DIS; 4 Structured3D rooms make one epoch of [0, 0, 1, 2]
+    t0 = time.perf_counter()
+    roots = ppt_trees(tmp)
+    write_s = time.perf_counter() - t0
+    datasets = [dict(d) for d in conf.data.train.datasets]
+    for d, key in zip(datasets, ("structured3d", "scannet", "s3dis")):
+        d["data_root"] = roots[key]
+    save = os.path.join(tmp, "ppt_run")
+    hooks = [dict(h, log_interval=1) if h["type"] == "InformationWriter" else h
+             for h in conf.hooks]
+    cfg_file = os.path.join(tmp, "ppt", "ppt.py")
+    with open(cfg_file, "w") as f:
+        f.write(f"_base_ = [{config_path(PPT_CONFIG)!r}]\nepoch = 1\nhooks = {hooks!r}\n"
+                f"data = dict(train=dict(datasets={datasets!r}))\n")
+    steps = []
+
+    def timed(fn):
+        def select(self, ds_idx):
+            inner = fn(self, ds_idx)
+
+            def run(points):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = inner(points)
+                torch.cuda.synchronize()
+                steps.append(dict(dataset=ds_idx, condition=self.condition_of(ds_idx),
+                                  ms=(time.perf_counter() - t) * 1e3,
+                                  loss=float(out["loss"])))
+                return out
+            return run
+        return select
+
+    t0 = time.perf_counter()
+    with patched((train_mod.MultiDatasetTrainer, "_select_train_step", timed)):
+        trainer = train_tool.main(["--config-file", cfg_file, "--options",
+                                   f"save_path={save}"])
+    torch.cuda.synchronize()
+    cli = dict(write_s=write_s, train_s=time.perf_counter() - t0, steps=trainer.step,
+               dataset_idx=[s["dataset"] for s in steps], per_step=steps,
+               conditions_trained=sorted(trainer.cond_steps),
+               checkpoints=sorted(os.listdir(os.path.join(save, "model"))))
+    print("ppt cli " + json.dumps(cli), flush=True)
+    del trainer
+    torch.cuda.empty_cache()
+    res["cli"] = cli
+    if cli["conditions_trained"] != [0, 1, 2] or cli["dataset_idx"] != [0, 0, 1, 2] or \
+            not np.isfinite([s["loss"] for s in steps]).all():
+        fail(f"PPT training CLI: {cli}")
+
+    # the shipped PPT-v1m1's eval forward, and PPT-v1m2 built from it
+    v1m1 = copy.deepcopy(dict(conf.model))
+    res["v1m1_eval"] = sparse_forward(torch, "ppt_v1m1", v1m1, point, tag="ppt")
+    v1m2 = {k: v for k, v in v1m1.items() if k not in ("class_embedding_path",
+                                                       "clip_embed_dim")}
+    v1m2.update(type="PPT-v1m2", num_classes=(25, 20, 13))
+    res["v1m2_eval"] = sparse_forward(torch, "ppt_v1m2", v1m2, point, tag="ppt", reps=0)
+    conf2 = copy.deepcopy(conf)
+    conf2.model = v1m2
+    res["v1m2_step"] = sparse_step(torch, "ppt_v1m2", conf2, train_point, tag="ppt",
+                                   warmups=0, reps=1)
+    res["spunet_attention_launches"] = fa.patch_attention_fwd.launches
+    if res["spunet_attention_launches"]:
+        fail(f"PPT over SpUNet launched the attention kernel "
+             f"{res['spunet_attention_launches']} times")
+
+    # the dual-branch PPT-v1m1 over the flagship PTv3 with dm: eval forward
+    # on the bench scene, training step on the 204,800-slot bucket
+    cnf = load_config("scannet/cdsegnet.py")
+    dual_cfg = dict(type="PPT-v1m1", backbone=copy.deepcopy(dict(cnf.model.backbone)),
+                    backbone_out_channels=96, context_channels=256,
+                    conditions=v1m1["conditions"], condition=True,
+                    criteria=copy.deepcopy(list(cnf.model.criteria)),
+                    loss_type=cnf.model.loss_type, task_num=cnf.model.task_num,
+                    **{k: cnf.model[k] for k in ("dm", "T", "beta_start", "beta_end",
+                                                  "noise_schedule", "T_dim", "dm_input",
+                                                  "dm_target", "dm_min_snr",
+                                                  "c_in_channels") if k in cnf.model})
+    model = build_model(dual_cfg, device="cuda", generator=torch.Generator().manual_seed(0))
+    n_params = sum(p.numel() for p in model.parameters())
+    bb = dual_cfg["backbone"]
+    n_launches = len(attention_launches(bb, c_decoder=True))
+    fa.reset_launch_counts()
+    gen = torch.Generator("cuda").manual_seed(7)
+    with torch.no_grad():
+        out = model(point, condition=1, generators=dict(diffusion=gen))
+    torch.cuda.synchronize()
+    eval_launches = fa.patch_attention_fwd.launches
+    logits = out["n_pred"]
+    finite = bool(torch.isfinite(logits[point.mask]).all().item())
+    fwd = torch.no_grad()(lambda: model(point, condition=1, generators=dict(diffusion=gen)))
+    eval_ms = cuda_ms(torch, fwd, warmup=2, iters=5)
+    dual = dict(params=n_params, eval_launches=eval_launches, eval_ms=eval_ms,
+                eval_shape=list(logits.shape), finite=finite)
+    del out, logits
+    model.train()
+    opt = build_optimizer(dict(cnf.optimizer), model, dict(cnf.scheduler),
+                          total_steps=TRAIN_TOTAL_STEPS,
+                          param_dicts=[dict(p) for p in cnf.get("param_dicts", [])],
+                          device="cuda")
+    step = make_train_step(model, build_model_criteria(dual_cfg), opt, seed=0,
+                           device="cuda", model_kwargs=dict(condition=1))
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    m = step(train_point)
+    torch.cuda.synchronize()
+    counts = dict(fwd=fa.patch_attention_fwd.launches,
+                  fwd_lse=fa.patch_attention_fwd.lse_launches,
+                  bwd_dq=fa.patch_attention_bwd_dq.launches,
+                  bwd_dkdv=fa.patch_attention_bwd_dkdv.launches)
+    losses = [float(m["loss"])]
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        m = step(train_point)
+        torch.cuda.synchronize()
+        losses.append(float(m["loss"]))
+        times.append((time.perf_counter() - t0) * 1e3)
+    dual.update(step_launches=counts, step_ms=statistics.median(times), step_ms_all=times,
+                losses=losses, peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                expected_launches=n_launches)
+    print("ppt dual " + json.dumps(dual), flush=True)
+    del step, opt, model, m
+    torch.cuda.empty_cache()
+    res["dual"] = dual
+    if eval_launches != n_launches or any(c != n_launches for c in counts.values()):
+        fail(f"the dual-branch PPT launched the kernels {eval_launches} times in its eval "
+             f"forward and {counts} in a step, expected {n_launches} each")
+    if not finite or not np.isfinite(losses).all():
+        fail(f"the dual-branch PPT: finite logits {finite}, losses {losses}")
+    return res
+
+
 def step_sums(rows, direction):
     """bf16 sums per training step in ``direction`` over the rows' launches,
     each timed on its level's real scene ids and validity."""
@@ -3393,6 +3716,10 @@ def run_phases(torch, config: str, runtime: str, tmp: str, start: float) -> int:
     patch = max(cfg["backbone"]["n_enc_patch_size"])
     launches = attention_launches(cfg["backbone"])
     rows = phase_kernels(torch, levels, launches, patch)
+    # the c-decoder (DDIM and phase 21's dual-branch PPT run it): its
+    # launches on the bench scene's levels
+    c_dec = attention_launches(cfg["backbone"], c_decoder=True)[len(launches):]
+    ppt_rows = rows + phase_kernels(torch, levels, c_dec, patch, path="ppt")
     # the tester's shapes: the levels of the room scene's first fragment
     n_raw, test_scene = tester_scene(torch, config, tmp)
     frag = test_scene["fragment_list"][0]
@@ -3405,7 +3732,6 @@ def run_phases(torch, config: str, runtime: str, tmp: str, start: float) -> int:
           f"{[lv.dropped for lv in frag_levels[1:]]}", flush=True)
     test_rows = phase_kernels(torch, frag_levels, launches, patch, path="test")
     # DDIM runs the c-decoder in eval mode: its launches on the same levels
-    c_dec = attention_launches(cfg["backbone"], c_decoder=True)[len(launches):]
     cdec_rows = phase_kernels(torch, frag_levels, c_dec, patch, path="ddim")
     del frag_levels
     # the trainer's validation shapes: the val room in the 524,288-slot bucket
@@ -3527,9 +3853,14 @@ def run_phases(torch, config: str, runtime: str, tmp: str, start: float) -> int:
     torch.cuda.empty_cache()
     clock("sparse")
     zoo = phase_zoo(torch, point, train_point, tmp, n_raw, card)
-    del point, train_point
     torch.cuda.empty_cache()
     clock("zoo")
+    msc = phase_msc(torch, tmp, card)
+    clock("msc")
+    ppt = phase_ppt(torch, point, train_point, tmp, card)
+    del point, train_point
+    torch.cuda.empty_cache()
+    clock("ppt")
     # this slice's paths through the kernels: times from phases 3 and 5 (the
     # same levels, heads and head dims), launches counted in phases 15-16
     kernel_models = {f"option_{n}": option_cfg(cfg, n)["backbone"] for n in ("a", "b")}
@@ -3612,7 +3943,20 @@ def run_phases(torch, config: str, runtime: str, tmp: str, start: float) -> int:
                         # phase 19's sparse-conv family and phase 20's
                         # zoo run no attention kernel
                         sparse=dict(launches=sparse["attention_launches"]["fwd"]),
-                        zoo=dict(launches=zoo["attention_launches"]["fwd"]))),
+                        zoo=dict(launches=zoo["attention_launches"]["fwd"]),
+                        # phase 21: the dual-branch PPT's eval forward on
+                        # phase 4's scene (times from phase 3's levels, the
+                        # c-decoder included) and training step (times from
+                        # phase 5); MSC and PPT over SpUNet launch none
+                        ppt=dict(eval=dict(forward_sums(ppt_rows),
+                                           launches=ppt["dual"]["eval_launches"],
+                                           eval_ms=ppt["dual"]["eval_ms"]),
+                                 train=dict(train_launch_sums(train_rows, train_launches,
+                                                              "fwd"),
+                                            launches=ppt["dual"]["step_launches"]["fwd"],
+                                            step_ms=ppt["dual"]["step_ms"]),
+                                 msc=dict(launches=msc["attention_launches"]),
+                                 spunet=dict(launches=ppt["spunet_attention_launches"])))),
     ]
     for name, direction in (("patch_attention_bwd_dq", "dq"),
                             ("patch_attention_bwd_dkdv", "dkdv")):
@@ -3633,7 +3977,9 @@ def run_phases(torch, config: str, runtime: str, tmp: str, start: float) -> int:
                     bb, c_decoder=True), direction), launches=slice_runs[n]["step_launches"][
                         counted]) for n, bb in kernel_models.items()},
                 sparse=dict(launches=sparse["attention_launches"][counted]),
-                zoo=dict(launches=zoo["attention_launches"][counted]))))
+                zoo=dict(launches=zoo["attention_launches"][counted]),
+                ppt=dict(train_launch_sums(train_rows, train_launches, direction),
+                         launches=ppt["dual"]["step_launches"][counted]))))
     print(f"wall time {time.perf_counter() - start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)

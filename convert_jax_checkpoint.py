@@ -28,7 +28,11 @@ temperature, the transfer gates, ``cross_block1``), PTv2 (m1's
 OA-CNNs, SPVCNN, CAC with its raw ``seg_head_kernel``, PointGroup), PTv1
 (PT-v1, Seg26/38/50) and the window-attention family (OctFormer's
 ``dw_weight`` and RPE tables, Stratified's ``kv_coarse`` and RPE tables,
-Swin3D's cRSE ``query/key/value_{xyz,rgb,norm}_table``)
+Swin3D's cRSE ``query/key/value_{xyz,rgb,norm}_table``), MSC
+(``mask_token``, ``color_head``, ``normal_head``) and PPT (v1m1's
+``embedding_table``, learned ``class_embedding``, ``proj_head`` and
+``logit_scale``; v1m2's ``seg_head{i}``; a ``class_embedding_path`` table
+is read from its ``.npy`` at build, not from the checkpoint)
 included: the bridge maps each tensor by its flax
 name, so the script needs nothing per type.
 

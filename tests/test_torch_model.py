@@ -338,7 +338,8 @@ def test_port_imports_no_jax():
                    "utils/tbwriter.py", "tools/train.py", "tools/test_time.py",
                    "parallel/dist.py", "models/ablation_segmentors.py", "models/ptv1.py",
                    "models/octformer.py", "models/stratified.py", "models/swin3d.py",
-                   "ops/sparse_attention.py", "ops/pointops.py"):
+                   "ops/sparse_attention.py", "ops/pointops.py", "models/msc.py",
+                   "models/ppt.py"):
         assert os.path.join(REPO, "cdsegnet_torch", module) in files, module
     bad = [(f, m) for f in files for m in _imports(f)
            if m.split(".")[0] in FORBIDDEN + ("convert_jax_checkpoint",)]

@@ -20,6 +20,7 @@ import json
 import os
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -162,14 +163,14 @@ def jsteps():
     draws = [micro_draws(40 + i, p) for i, p in enumerate(points)]
     variables = as_numpy(random_variables(jm, points[0]))
     buckets = [bucket_dict(p, d) for p, d in zip(points, draws)]
-    micro = jax_step(jm, variables, stack(buckets), None, 2)
-    ranks = jax_step(jm, variables, stack(buckets), make_mesh(2), 1)
-    # (device, micro, ...)
-    ranks_micro = jax_step(jm, variables, stack([stack([buckets[i] for i in micros])
-                                                 for micros in RANK_MICROS]),
-                           make_mesh(2), 2)
-    return dict(variables=variables, points=points, draws=draws, micro=micro,
-                ranks=ranks, ranks_micro=ranks_micro)
+    # (device, micro, ...) for the last; the three compile on parallel threads
+    jobs = dict(micro=(stack(buckets), None, 2), ranks=(stack(buckets), make_mesh(2), 1),
+                ranks_micro=(stack([stack([buckets[i] for i in micros])
+                                    for micros in RANK_MICROS]), make_mesh(2), 2))
+    with ThreadPoolExecutor(len(jobs)) as ex:
+        futures = {k: ex.submit(jax_step, jm, variables, *args) for k, args in jobs.items()}
+        steps = {k: f.result() for k, f in futures.items()}
+    return dict(variables=variables, points=points, draws=draws, **steps)
 
 
 def bridged(variables, params=None, stats=None):

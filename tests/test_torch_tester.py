@@ -355,9 +355,7 @@ def test_tester_and_cli_refuse_the_cpu_unless_asked(ref, tmp_path, monkeypatch):
         ValueError, id="change1"),
     # fragment-parallel testing is ported: num_devices=2 without a process
     # group is refused
-    pytest.param(dict(num_devices=2), RuntimeError, id="change2"),
-    pytest.param(dict(model_kwargs=dict(condition="ScanNet")), NotImplementedError,
-                 id="change3")])
+    pytest.param(dict(num_devices=2), RuntimeError, id="change2")])
 def test_unported_tester_paths_raise(change, error, tmp_path):
     cfg = Config(Config._wrap(scene_cfg("unused", str(tmp_path), **change)))
     with pytest.raises(error):

@@ -258,14 +258,7 @@ def test_eval_loader_matches_jax(smoke_root, jax_numpy_host_ops):
     # ranks and micro buckets are ported: a rank outside the devices, or a
     # microbatch that does not divide the scenes, is refused
     pytest.param(dict(num_devices=2, rank=2), ValueError, "rank 2", id="kwargs0"),
-    pytest.param(dict(microbatch=3), ValueError, "must divide", id="kwargs1"),
-    pytest.param(dict(pair_feat_keys=("color", "normal")), NotImplementedError,
-                 "ROADMAP", id="kwargs2")])
+    pytest.param(dict(microbatch=3), ValueError, "must divide", id="kwargs1")])
 def test_unported_loader_options_raise(kwargs, error, match):
     with pytest.raises(error, match=match):
         tloader.TrainLoader([], **kwargs)
-
-
-def test_multi_dataset_loader_is_not_ported():
-    with pytest.raises(NotImplementedError, match="MultiDatasetLoader"):
-        tloader.MultiDatasetLoader([], [])

@@ -506,20 +506,33 @@ def test_trainer_and_cli_refuse_the_cpu_unless_asked(root, tmp_path, monkeypatch
     # more than one GPU and gradient accumulation are ported: num_devices=2
     # without a process group, or a microbatch that does not divide the
     # scenes, is refused
-    (dict(num_devices=2), "more than one GPU"),
-    (dict(microbatch=3), "gradient accumulation"),
-    (dict(train=dict(type="MSCTrainer")), "MSCTrainer"),
-    (dict(train=dict(type="MultiDatasetTrainer")), "MultiDatasetTrainer"),
-    (dict(hooks=[dict(type="RuntimeProfiler")]), "RuntimeProfiler"),
-    ("val_condition", "val condition")])
+    pytest.param(dict(num_devices=2), "more than one GPU",
+                 id="change0-more than one GPU"),
+    pytest.param(dict(microbatch=3), "gradient accumulation",
+                 id="change1-gradient accumulation"),
+    pytest.param(dict(hooks=[dict(type="RuntimeProfiler")]), "RuntimeProfiler",
+                 id="change4-RuntimeProfiler")])
 def test_unported_trainer_options_raise(root, tmp_path, change, match):
     cfg = trainer_cfg(root, str(tmp_path))
-    if change == "val_condition":
-        cfg.data.val["condition"] = "ScanNet"
-    else:
-        cfg.merge_from_dict(change)
+    cfg.merge_from_dict(change)
     error = {"more than one GPU": RuntimeError, "gradient accumulation": ValueError}.get(
         match, NotImplementedError)
     with pytest.raises(error, match=match):
         TRAINERS.build(dict(cfg.get("train", dict(type="DefaultTrainer"))), cfg=cfg,
                        device="cpu")
+
+
+def test_val_condition_is_ignored_without_model_conditions(root, tmp_path):
+    """A val dataset's ``condition`` names a PPT condition; JAX's trainer
+    ignores it when the model has no ``conditions``
+    (`cdsegnet_tpu/engine/train.py:135-142`), and so does the port: the
+    trainer builds, and its evaluation step equals one without it."""
+    cfg = trainer_cfg(root, str(tmp_path / "a"))
+    cfg.data.val["condition"] = "ScanNet"
+    tr = Trainer(cfg, device="cpu")
+    plain = Trainer(trainer_cfg(root, str(tmp_path / "b")), device="cpu")
+    batch, _ = next(iter(tr.val_loader))
+    noise = torch.randn((batch["feat"].shape[0], 6), generator=torch.Generator().manual_seed(0))
+    got = tr.eval_step(batch, noise=noise)["seg_logits"]
+    want = plain.eval_step(batch, noise=noise)["seg_logits"]
+    assert torch.equal(got, want)

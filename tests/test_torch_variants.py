@@ -10,8 +10,8 @@ noise, MSE mask and curve permutations injected, against `jax.grad`; the
 nuScenes Baseline, PTv3+CNF and plain PTv3 as well. Also: every config file
 under `configs/{scannet,scannet200,nuscenes,modelnet40,shapenetpart,
 semantic_kitti}/` loads through the port's `Config`, and those of the
-CDSegNet family, PTv2, the sparse-conv family, PTv1 and the
-window-attention family build."""
+CDSegNet family, PTv2, the sparse-conv family, PTv1, the
+window-attention family and MSC pretraining build."""
 
 import copy
 import glob
@@ -52,8 +52,6 @@ VARIANTS = {"scannet/baseline.py": "fit", "scannet/ptv3_cnf.py": "fit",
             "scannet/ptv3_plain.py": "fit", "scannet200/cdsegnet.py": "fit",
             "nuscenes/cdsegnet.py": "overflow", "nuscenes/ptv3_cnf.py": "overflow",
             "nuscenes/baseline.py": "overflow", "nuscenes/ptv3_plain.py": "overflow"}
-FAMILY = ("cdsegnet", "cdsegnet_time", "baseline", "ptv3_cnf", "ptv3_cnf_time",
-          "ptv3_plain")
 T = lambda x: torch.from_numpy(np.array(x))
 
 
@@ -359,6 +357,32 @@ def _window_builds_as_jax(model_cfg):
             assert getattr(m.backbone, f) == tuple(getattr(jm.backbone, f)), f
 
 
+MSC_CONFIG = "scannet/pretrain_msc.py"
+
+
+def _msc_builds_as_jax(model_cfg):
+    """MSC's model at a test width (its SpUNet's channels cut, every other
+    field as shipped): the port's has the JAX model's every parameter and
+    running statistic (the mask token and both reconstruction heads among
+    them; JAX's shapes from an init with both views and their targets), and
+    the wrapper's fields."""
+    small = copy.deepcopy(dict(model_cfg))
+    small["backbone"].update(SPARSE_WIDTH[small["backbone"]["type"]])
+    small["backbone_out_channels"] = 8
+    m = tbuild(copy.deepcopy(small), device="cpu")
+    jm = jbuild(copy.deepcopy(small))
+    pt = _ptv2_point(small)
+    tgt = {k: jnp.zeros((pt.num_points, 3)) for k in ("color", "normal")}
+    shapes = jax.eval_shape(lambda p: jm.init(jax.random.PRNGKey(0), p, p, p.coord, p.coord,
+                                              tgt, tgt, train=False), pt)
+    load_jax_variables(m, jax.tree_util.tree_map(lambda x: np.zeros(x.shape, np.float32),
+                                                 shapes))
+    for f in ("mask_grid_size", "mask_rate", "matching_max_radius", "matching_max_pair",
+              "nce_t", "contrast_weight", "reconstruct_weight"):
+        assert getattr(m, f) == getattr(jm, f), f
+    assert m.mask_token.shape == (1, small["backbone_in_channels"])
+
+
 def _ptv2_point(cfg, n=4096):
     """Shapes only: JAX's kNN needs every level at least k = 16 slots wide,
     and the coarsest holds n / 128."""
@@ -377,7 +401,7 @@ def test_config_loads_and_builds(name):
     (SpUNet, OA-CNNs, CAC, PointGroup, SPVCNN), PTv1 or a window-attention
     one (OctFormer, Stratified, Swin3D) with JAX's parameters
     (`_ptv2_builds_as_jax`, `_sparse_builds_as_jax`, `_window_builds_as_jax`),
-    every other model raises `NotImplementedError`."""
+    and MSC pretraining's (`_msc_builds_as_jax`)."""
     path = os.path.join(CONFIGS, name)
     cfg, jcfg = Config.fromfile(path), JConfig.fromfile(path)
     assert cfg.model == dict(jcfg.model)
@@ -392,9 +416,8 @@ def test_config_loads_and_builds(name):
     if name in WINDOW_CONFIGS:
         _window_builds_as_jax(cfg.model)
         return
-    if os.path.splitext(os.path.basename(name))[0] not in FAMILY:
-        with pytest.raises(NotImplementedError):
-            tbuild(copy.deepcopy(cfg.model), device="cpu")
+    if name == MSC_CONFIG:
+        _msc_builds_as_jax(cfg.model)
         return
     small = shrink(cfg.model)
     m, jm = tbuild(copy.deepcopy(small), device="cpu"), jbuild(copy.deepcopy(small))

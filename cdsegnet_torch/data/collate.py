@@ -9,11 +9,14 @@ the JAX package keep the same drops. Mix3D merges scene pairs with
 probability ``mix_prob`` (reference `point_collate_fn`).
 `collate_pair_scenes` packs MSC's two views into two aligned buckets. JAX's
 `collate_sharded`, its stack of every device's bucket, is not ported: each
-rank of the port collates its own.
+rank of the port collates its own. With ``CDSEG_VALIDATE`` set,
+`collate_scenes` checks that every scene's voxels are unique
+(`models.structure.assert_unique_voxels`), as JAX's does.
 """
 
 from __future__ import annotations
 
+import os
 import sys
 from typing import Dict, List, Optional, Sequence
 
@@ -119,6 +122,11 @@ def collate_scenes(
         out["instance"] = instance
         out["instance_centroid"] = centroid
     out.update(extras)
+    if os.environ.get("CDSEG_VALIDATE"):
+        # the neighbor tables trust unique voxels per scene
+        from cdsegnet_torch.models.structure import assert_unique_voxels
+
+        assert_unique_voxels(grid, batch, mask, where="collate_scenes")
     return out
 
 

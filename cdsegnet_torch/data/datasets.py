@@ -14,7 +14,10 @@ Waymo scans are globbed per sequence; ModelNet40 and ShapeNetPart shapes are
 text files, with the shape's class in ``category``. `ConcatDataset` chains
 datasets (PPT's multi-dataset training reads each through its own loader);
 `ScanNetPairDataset` gives two transformed views of overlapping scans (MSC
-pretraining). The shared decode cache (``cache=True``) is not ported.
+pretraining). With ``cache=True`` the datasets that read `.pth` or `.npy`
+scenes decode each once into the shared cache (`data/cache.py`); in test
+mode a ``crop`` (`SphereCrop` mode "all") splits every voxelized part into
+covering crops.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from cdsegnet_torch.data.cache import shared_dict
 from cdsegnet_torch.data.transforms import TRANSFORMS, Compose
 from cdsegnet_torch.utils.registry import Registry
 
@@ -64,8 +68,6 @@ class DefaultDataset:
         ignore_index: int = -1,
         cache: bool = False,
     ):
-        if cache:
-            raise NotImplementedError("the shared decode cache is not ported")
         self.split = split
         self.data_root = data_root
         self.transform = Compose(transform)
@@ -73,13 +75,15 @@ class DefaultDataset:
         self.test_cfg = test_cfg if test_mode else None
         self.loop = loop if not test_mode else 1
         self.ignore_index = ignore_index
+        self.cache = cache
         if test_mode:
             tc = dict(test_cfg or {})
             self.test_voxelize = (
                 TRANSFORMS.build(dict(tc["voxelize"])) if tc.get("voxelize") else None
             )
-            if tc.get("crop"):
-                raise NotImplementedError("test-time crops (SphereCrop) are not ported")
+            self.test_crop = (
+                TRANSFORMS.build(dict(tc["crop"])) if tc.get("crop") else None
+            )
             self.post_transform = Compose(tc.get("post_transform"))
             self.aug_transform = [Compose(a) for a in tc.get("aug_transform", [[]])]
         self.data_list = self.get_data_list()
@@ -94,8 +98,15 @@ class DefaultDataset:
             out += sorted(glob.glob(os.path.join(self.data_root, s, "*")))
         return out
 
+    def _load(self, path: str) -> Dict:
+        """The scene at ``path``, through the shared decode cache when
+        ``cache`` is set (reference `DataCacheOperator`, `scannet.py:44-60`)."""
+        if not self.cache:
+            return _load_scene(path)
+        return shared_dict(path, lambda: _load_scene(path))
+
     def get_data(self, idx: int) -> Dict:
-        data = _load_scene(self.data_list[idx % len(self.data_list)])
+        data = self._load(self.data_list[idx % len(self.data_list)])
         coord = np.asarray(data["coord"], np.float32)
         out = dict(coord=coord)
         for k in ("color", "normal", "strength"):
@@ -137,7 +148,9 @@ class DefaultDataset:
             else:
                 aug_data["index"] = np.arange(aug_data["coord"].shape[0])
                 parts = [aug_data]
-            fragment_list += parts
+            for part in parts:
+                fragment_list += (self.test_crop(part, rng) if self.test_crop is not None
+                                  else [part])
         result["fragment_list"] = [
             self.post_transform(f, rng) for f in fragment_list
         ]
@@ -191,7 +204,7 @@ class ScanNetDataset(DefaultDataset):
         return super().get_data_list()
 
     def get_data(self, idx: int) -> Dict:
-        data = _load_scene(self.data_list[idx % len(self.data_list)])
+        data = self._load(self.data_list[idx % len(self.data_list)])
         coord = np.asarray(data["coord"], np.float32)
         out = dict(
             coord=coord,
@@ -514,7 +527,7 @@ class S3DISDataset(DefaultDataset):
     index."""
 
     def get_data(self, idx: int) -> Dict:
-        data = _load_scene(self.data_list[idx % len(self.data_list)])
+        data = self._load(self.data_list[idx % len(self.data_list)])
         coord = np.asarray(data["coord"], np.float32)
         out = dict(coord=coord)
         for k in ("color", "normal"):
@@ -593,7 +606,7 @@ class ArkitScenesDataset(DefaultDataset):
     class2id = np.array(VALID_CLASS_IDS_200)
 
     def get_data(self, idx: int) -> Dict:
-        data = _load_scene(self.data_list[idx % len(self.data_list)])
+        data = self._load(self.data_list[idx % len(self.data_list)])
         coord = np.asarray(data["coord"], np.float32)
         return dict(coord=coord, color=np.asarray(data["color"], np.float32),
                     normal=np.asarray(data["normal"], np.float32),

@@ -1,7 +1,6 @@
 """Host-side (numpy) data transforms.
 
-Port of the transforms of `cdsegnet_tpu/data/transforms.py` that the shipped
-pipelines use, MSC's two views among them (reference
+Port of every transform of `cdsegnet_tpu/data/transforms.py` (reference
 `pointcept/datasets/transform.py`), with the same two conventions:
 
 - every transform takes ``(data_dict, rng)`` with an explicit
@@ -17,7 +16,9 @@ the pick sorts stably, where the C library's `std::sort` may order equal
 keys otherwise. The training augmentations of `configs/scannet/cdsegnet.py`
 (dropout, jitter, elastic distortion, chromatic, sphere crop) draw from the
 same generator calls, in the same order, as JAX's. `ElasticDistortion` needs
-scipy and does nothing without it, as in the JAX package.
+scipy and does nothing without it, as in the JAX package. `SphereCrop`'s
+mode "all" covers a test fragment with crops of ``point_max`` points (the
+tester's test-time ``crop``).
 """
 
 from __future__ import annotations
@@ -107,6 +108,25 @@ class NormalizeColor:
 
 
 @TRANSFORMS.register_module()
+class NormalizeCoord:
+    def __call__(self, data, rng=None):
+        if "coord" in data:
+            centroid = np.mean(data["coord"], axis=0)
+            data["coord"] -= centroid
+            m = np.max(np.sqrt(np.sum(data["coord"] ** 2, axis=1)))
+            data["coord"] = data["coord"] / m
+        return data
+
+
+@TRANSFORMS.register_module()
+class PositiveShift:
+    def __call__(self, data, rng=None):
+        if "coord" in data:
+            data["coord"] -= data["coord"].min(axis=0)
+        return data
+
+
+@TRANSFORMS.register_module()
 class CenterShift:
     def __init__(self, apply_z=True):
         self.apply_z = apply_z
@@ -120,6 +140,29 @@ class CenterShift:
                  lo[2] if self.apply_z else 0.0]
             )
             data["coord"] = data["coord"] - shift
+        return data
+
+
+@TRANSFORMS.register_module()
+class RandomShift:
+    def __init__(self, shift=((-0.2, 0.2), (-0.2, 0.2), (0, 0))):
+        self.shift = shift
+
+    def __call__(self, data, rng):
+        if "coord" in data:
+            s = np.array([rng.uniform(lo, hi) for lo, hi in self.shift])
+            data["coord"] = data["coord"] + s
+        return data
+
+
+@TRANSFORMS.register_module()
+class PointClip:
+    def __init__(self, point_cloud_range=(-80, -80, -3, 80, 80, 1)):
+        self.range = np.array(point_cloud_range, np.float32)
+
+    def __call__(self, data, rng=None):
+        if "coord" in data:
+            data["coord"] = np.clip(data["coord"], self.range[:3], self.range[3:])
         return data
 
 
@@ -285,6 +328,30 @@ class ChromaticJitter:
 
 
 @TRANSFORMS.register_module()
+class RandomColorDrop:
+    def __init__(self, p=0.2, color_augment=0.0):
+        self.p = p
+        self.color_augment = color_augment
+
+    def __call__(self, data, rng):
+        if "color" in data and rng.random() < self.p:
+            data["color"] = data["color"] * self.color_augment
+        return data
+
+
+@TRANSFORMS.register_module()
+class RandomColorGrayScale:
+    def __init__(self, p=0.1):
+        self.p = p
+
+    def __call__(self, data, rng):
+        if "color" in data and rng.random() < self.p:
+            gray = data["color"][:, :3] @ np.array([0.299, 0.587, 0.114])
+            data["color"][:, :3] = gray[:, None]
+        return data
+
+
+@TRANSFORMS.register_module()
 class ElasticDistortion:
     def __init__(self, distortion_params=None):
         self.params = distortion_params or [[0.2, 0.4], [0.8, 1.6]]
@@ -441,17 +508,16 @@ class GridSample:
 @TRANSFORMS.register_module()
 class SphereCrop:
     """Keep the ``point_max`` points nearest a center: a random point
-    ("random") or the middle one ("center"). The test-time covering crops
-    (mode "all") are not ported."""
+    ("random") or the middle one ("center"). Mode "all" returns a list of
+    covering crops (reference `transform.py:944-1001`): each is centred on
+    the point of lowest priority (small random priorities, raised for the
+    points a crop took, the more the nearer its centre) until every point
+    lies in a crop; a crop carries its squared distances as ``weight``."""
 
     def __init__(self, point_max=80000, sample_rate=None, mode="random"):
         self.point_max = point_max
         self.sample_rate = sample_rate
         assert mode in ("random", "center", "all")
-        if mode == "all":
-            raise NotImplementedError(
-                'SphereCrop mode "all" (test-time crops) is not ported (ROADMAP '
-                'Queue 1: "The model zoo and the rest of the engine and data")')
         self.mode = mode
 
     def __call__(self, data, rng):
@@ -460,6 +526,30 @@ class SphereCrop:
             if self.sample_rate is not None else self.point_max
         )
         n = data["coord"].shape[0]
+        if self.mode == "all":
+            if "index" not in data:
+                data["index"] = np.arange(n)
+            if n <= point_max:
+                out = dict(data)
+                out["weight"] = np.zeros(n)
+                return [out]
+            parts = []
+            coord_p = rng.random(n) * 1e-3
+            covered = np.zeros(n, bool)
+            while not covered.all():
+                init = np.argmin(coord_p)
+                d2 = np.sum((data["coord"] - data["coord"][init]) ** 2, 1)
+                # numpy's default sort, as JAX's: ties fall as they do there
+                idx_crop = np.argsort(d2)[:point_max]
+                part = {k: (v[idx_crop] if k in POINT_KEYS and hasattr(v, "__len__")
+                            and len(v) == n else v)
+                        for k, v in data.items()}
+                part["weight"] = d2[idx_crop]
+                parts.append(part)
+                coord_p[idx_crop] += np.square(
+                    1 - d2[idx_crop] / max(d2[idx_crop].max(), 1e-12))
+                covered[idx_crop] = True
+            return parts
         if n > point_max:
             if self.mode == "random":
                 center = data["coord"][rng.integers(n)]
@@ -467,6 +557,161 @@ class SphereCrop:
                 center = data["coord"][n // 2]
             idx = np.argsort(np.sum((data["coord"] - center) ** 2, 1))[:point_max]
             take(data, idx)
+        return data
+
+
+@TRANSFORMS.register_module()
+class ShufflePoint:
+    def __call__(self, data, rng):
+        idx = rng.permutation(data["coord"].shape[0])
+        return take(data, idx)
+
+
+@TRANSFORMS.register_module()
+class ToTensor:
+    """A no-op, as in the JAX package: arrays stay numpy until collation."""
+
+    def __call__(self, data, rng=None):
+        return data
+
+
+@TRANSFORMS.register_module()
+class Add:
+    def __init__(self, keys_dict=None):
+        self.keys_dict = keys_dict or {}
+
+    def __call__(self, data, rng=None):
+        data.update(self.keys_dict)
+        return data
+
+
+@TRANSFORMS.register_module()
+class HueSaturationTranslation:
+    """HSV-space hue and saturation jitter (reference `transform.py:651-716`)."""
+
+    def __init__(self, hue_max=0.5, saturation_max=0.2):
+        self.hue_max = hue_max
+        self.saturation_max = saturation_max
+
+    @staticmethod
+    def rgb_to_hsv(rgb):
+        hsv = np.zeros_like(rgb)
+        maxc = rgb.max(-1)
+        minc = rgb.min(-1)
+        delta = maxc - minc
+        hsv[..., 2] = maxc
+        m = maxc > 0
+        hsv[..., 1][m] = delta[m] / maxc[m]
+        dz = delta.copy()
+        dz[delta == 0] = 1.0
+        rc = (maxc - rgb[..., 0]) / dz
+        gc = (maxc - rgb[..., 1]) / dz
+        bc = (maxc - rgb[..., 2]) / dz
+        h = 4.0 + gc - rc
+        h[rgb[..., 1] == maxc] = (2.0 + rc - bc)[rgb[..., 1] == maxc]
+        h[rgb[..., 0] == maxc] = (bc - gc)[rgb[..., 0] == maxc]
+        h[delta == 0] = 0.0
+        hsv[..., 0] = (h / 6.0) % 1.0
+        return hsv
+
+    @staticmethod
+    def hsv_to_rgb(hsv):
+        h, s, v = hsv[..., 0], hsv[..., 1], hsv[..., 2]
+        i = np.floor(h * 6.0)
+        f = h * 6.0 - i
+        p = v * (1 - s)
+        q = v * (1 - s * f)
+        t = v * (1 - s * (1 - f))
+        i = i.astype(int) % 6
+        out = np.zeros_like(hsv)
+        lut = [(v, t, p), (q, v, p), (p, v, t), (p, q, v), (t, p, v), (v, p, q)]
+        for k, (r, g, b) in enumerate(lut):
+            m = i == k
+            out[..., 0][m] = r[m]
+            out[..., 1][m] = g[m]
+            out[..., 2][m] = b[m]
+        return out
+
+    def __call__(self, data, rng):
+        if "color" in data:
+            hsv = self.rgb_to_hsv(data["color"][:, :3] / 255.0)
+            hsv[..., 0] = (hsv[..., 0] + rng.uniform(-self.hue_max, self.hue_max)) % 1.0
+            hsv[..., 1] = np.clip(
+                hsv[..., 1] + rng.uniform(-self.saturation_max, self.saturation_max),
+                0, 1)
+            data["color"][:, :3] = np.clip(self.hsv_to_rgb(hsv) * 255.0, 0, 255)
+        return data
+
+
+@TRANSFORMS.register_module()
+class CropBoundary:
+    """Drop the points labelled 0 or 1 (reference `transform.py:1060-1075`)."""
+
+    def __call__(self, data, rng=None):
+        seg = data["segment"]
+        keep = np.where((seg != 0) & (seg != 1))[0]
+        return take(data, keep)
+
+
+@TRANSFORMS.register_module()
+class ClipGaussianJitter:
+    """Gaussian coordinate jitter as the reference's active implementation
+    (`transform.py:371-383`) has it: despite the name it neither clips nor
+    scales; a ``normal(mean, std)`` draw is added to the coordinates."""
+
+    def __init__(self, mean=0.0, std=1.0):
+        self.mean = mean
+        self.std = std
+
+    def __call__(self, data, rng):
+        if "coord" in data:
+            data["coord"] = data["coord"] + rng.normal(
+                self.mean, self.std, data["coord"].shape).astype(data["coord"].dtype)
+        return data
+
+
+@TRANSFORMS.register_module()
+class RandomColorJitter:
+    """Torchvision-style colour jitter on 0-255 RGB (reference
+    `transform.py:467-546`): brightness, contrast and saturation factors
+    drawn from [1 - v, 1 + v] and a hue shift from [-h, h], in that order,
+    applied with probability ``p``."""
+
+    def __init__(self, brightness=0.0, contrast=0.0, saturation=0.0,
+                 hue=0.0, p=0.95):
+        self.brightness = brightness
+        self.contrast = contrast
+        self.saturation = saturation
+        self.hue = min(max(hue, 0.0), 0.5)
+        self.p = p
+
+    @staticmethod
+    def _blend(a, b, f):
+        return np.clip(f * a + (1 - f) * b, 0, 255)
+
+    def __call__(self, data, rng):
+        if "color" not in data or rng.random() >= self.p:
+            return data
+        color = data["color"][:, :3].astype(np.float64)
+        if self.brightness > 0:
+            f = rng.uniform(max(0, 1 - self.brightness), 1 + self.brightness)
+            color = np.clip(color * f, 0, 255)
+        if self.contrast > 0:
+            f = rng.uniform(max(0, 1 - self.contrast), 1 + self.contrast)
+            gray = (0.299 * color[:, 0] + 0.587 * color[:, 1]
+                    + 0.114 * color[:, 2]).mean()
+            color = self._blend(color, gray, f)
+        if self.saturation > 0:
+            f = rng.uniform(max(0, 1 - self.saturation), 1 + self.saturation)
+            gray = (0.299 * color[:, 0] + 0.587 * color[:, 1]
+                    + 0.114 * color[:, 2])[:, None]
+            color = self._blend(color, gray, f)
+        if self.hue > 0:
+            shift = rng.uniform(-self.hue, self.hue)
+            hsv = HueSaturationTranslation.rgb_to_hsv(color / 255.0)
+            hsv[..., 0] = (hsv[..., 0] + shift) % 1.0
+            color = np.clip(HueSaturationTranslation.hsv_to_rgb(hsv) * 255.0, 0, 255)
+        data["color"][:, :3] = color.astype(data["color"].dtype)
         return data
 
 

@@ -12,10 +12,9 @@ generators, checkpoint manager, storage, logger and ``comm_info``. In a process 
 ranks (`parallel.dist`) every hook runs on every rank: the evaluator splits
 the val scenes over the ranks and sums their histograms, the information
 writer and the files act on rank 0, and the checkpoint loader reads on
-every rank.
-
-Not ported, raising `NotImplementedError` when built: the profiling hook
-`RuntimeProfiler`.
+every rank. The profiling hook `RuntimeProfiler` lives in
+`engine/profiling.py`, which registers it here when this module is
+imported.
 """
 
 from __future__ import annotations
@@ -399,5 +398,5 @@ class PreciseEvaluator(HookBase):
         self.tester.test()
 
 
-HOOKS.register_unported(("RuntimeProfiler",), "The decode cache, test-time crops "
-                        "and the rest of the host surface")
+# the profiling hook imports this module: register it last
+import cdsegnet_torch.engine.profiling  # noqa: E402,F401

@@ -1,13 +1,9 @@
 """Masked losses and the Criteria combiner (EW / GLS).
 
-Port of the parts of `cdsegnet_tpu/models/losses.py` that the CNF training
-step, the ablation segmentors, CAC and PointGroup use. Every loss takes
-explicit validity masks instead of boolean indexing, as in JAX, so shapes
-stay static. GLS for CDSegNet is ``loss = sqrt(MSE * (CE + Lovasz))`` with
+Port of `cdsegnet_tpu/models/losses.py`. Every loss takes explicit
+validity masks instead of boolean indexing, as in JAX, so shapes stay
+static. GLS for CDSegNet is ``loss = sqrt(MSE * (CE + Lovasz))`` with
 task_num=2.
-
-Loss kinds that none of them uses (focal, binary focal, dice) are not
-ported: `Criteria` raises `NotImplementedError` for them.
 """
 
 from __future__ import annotations
@@ -81,6 +77,43 @@ def lovasz_softmax_loss(logits: torch.Tensor, target: torch.Tensor,
     losses = (err_s * grad).sum(-1)
     present = (fg.sum(-1) > 0).float()
     return (losses * present).sum() / torch.clamp(present.sum(), min=1.0)
+
+
+def binary_focal_loss(logits: torch.Tensor, target: torch.Tensor, valid: torch.Tensor,
+                      gamma: float = 2.0, alpha: float = 0.5) -> torch.Tensor:
+    """Binary focal loss on logits (reference `misc.py:148-182`); ``target``
+    broadcasts against ``logits`` as in JAX."""
+    t = target.float()
+    x = logits.float()
+    bce = torch.clamp(x, min=0) - x * t + torch.log1p(torch.exp(-x.abs()))
+    pt = torch.exp(-bce)
+    a = alpha * t + (1 - alpha) * (1 - t)
+    return masked_mean(a * (1 - pt) ** gamma * bce, valid)
+
+
+def focal_loss(logits: torch.Tensor, target: torch.Tensor, valid: torch.Tensor,
+               gamma: float = 2.0, alpha: float = 0.5) -> torch.Tensor:
+    """Multiclass sigmoid focal loss (reference `misc.py:185-261`)."""
+    num_classes = logits.shape[-1]
+    tgt = F.one_hot(target.long().clamp(0, num_classes - 1), num_classes).float()
+    p = torch.sigmoid(logits.float())
+    one_minus_pt = (1 - p) * tgt + p * (1 - tgt)
+    w = (alpha * tgt + (1 - alpha) * (1 - tgt)) * one_minus_pt ** gamma
+    bce = torch.clamp(logits, min=0) - logits * tgt + torch.log1p(torch.exp(-logits.abs()))
+    return masked_mean(bce * w, valid)
+
+
+def dice_loss(logits: torch.Tensor, target: torch.Tensor, valid: torch.Tensor,
+              smooth: float = 1.0, exponent: float = 2.0) -> torch.Tensor:
+    """Multiclass Dice (reference `misc.py:264-312`), over every class."""
+    num_classes = logits.shape[-1]
+    p = torch.softmax(logits.float(), dim=-1)
+    v = valid.float()[:, None]
+    tgt = F.one_hot(target.long().clamp(0, num_classes - 1), num_classes).float() * v
+    p = p * v
+    num = 2 * (p * tgt).sum(0) + smooth
+    den = (p ** exponent + tgt ** exponent).sum(0) + smooth
+    return (1 - num / den).mean()
 
 
 def d3pm_kl_loss(pred_q_logits: torch.Tensor, true_q_logits: torch.Tensor,
@@ -173,8 +206,6 @@ _ALLOWED_KEYS = {
     "OffsetL1Loss": {"type", "loss_weight"},
     "OffsetCosineLoss": {"type", "loss_weight"},
 }
-_PORTED = ("MSELoss", "CrossEntropyLoss", "LovaszLoss", "SmoothCELoss", "D3PMKLLoss",
-           "CACDistillLoss", "OffsetL1Loss", "OffsetCosineLoss")
 
 
 class Criteria:
@@ -198,8 +229,6 @@ class Criteria:
                 raise ValueError(
                     f"{kind}: unknown config keys {sorted(unknown)} "
                     f"(allowed: {sorted(_ALLOWED_KEYS[kind])})")
-            if kind not in _PORTED:
-                raise NotImplementedError(f"{kind} is not ported")
 
     def _terms(self, out: Dict[str, torch.Tensor]):
         terms = []
@@ -222,6 +251,15 @@ class Criteria:
                 terms.append(w * cross_entropy_loss(
                     out[pk], out[cfg.get("target", "n_target")], out["seg_valid"],
                     label_smoothing=smoothing, weight=cfg.get("weight")))
+            elif kind in ("FocalLoss", "BinaryFocalLoss"):
+                fn = focal_loss if kind == "FocalLoss" else binary_focal_loss
+                terms.append(w * fn(out["n_pred"], out["n_target"], out["seg_valid"],
+                                    gamma=cfg.get("gamma", 2.0),
+                                    alpha=cfg.get("alpha", 0.5)))
+            elif kind == "DiceLoss":
+                terms.append(w * dice_loss(out["n_pred"], out["n_target"], out["seg_valid"],
+                                           smooth=cfg.get("smooth", 1.0),
+                                           exponent=cfg.get("exponent", 2.0)))
             elif kind == "D3PMKLLoss":
                 pk = cfg.get("pred", "d3pm_pred_q")
                 if pk not in out:

@@ -98,6 +98,31 @@ def make_point_batch(
     )
 
 
+def assert_unique_voxels(grid_coord, batch, mask, where: str = "") -> None:
+    """Host-side check of the GridSample invariant: voxels unique per scene.
+
+    The neighbor-table builds trust it (`exact_match_lookup`'s ``max_run``
+    and the mirror halving of `build_neighbor_table`) and return missing
+    neighbors where it fails. The collator calls this on every bucket when
+    ``CDSEG_VALIDATE`` is set. Raises `ValueError` naming the worst voxel,
+    with JAX's message. Takes numpy arrays or tensors.
+    """
+    gc, bt, mk = (x.detach().cpu().numpy() if isinstance(x, torch.Tensor)
+                  else np.asarray(x) for x in (grid_coord, batch, mask))
+    mk = mk.astype(bool)
+    rows = np.concatenate([bt[mk, None], gc[mk]], axis=1)
+    uniq, counts = np.unique(rows, axis=0, return_counts=True)
+    if (counts > 1).any():
+        worst = uniq[np.argmax(counts)]
+        raise ValueError(
+            f"duplicate voxels{' in ' + where if where else ''}: "
+            f"{int((counts > 1).sum())} voxel(s) occupied by multiple points "
+            f"(worst: scene {worst[0]} voxel {tuple(worst[1:])} x"
+            f"{int(counts.max())}). Neighbor tables require unique voxels "
+            f"per scene (the GridSample invariant) — deduplicate upstream."
+        )
+
+
 def _arange(n, like, dtype=torch.int64):
     return torch.arange(n, dtype=dtype, device=like.device)
 

@@ -6,13 +6,8 @@ carries a ``type`` key resolved against a named registry.
 
 from __future__ import annotations
 
-import functools
 import inspect
 from typing import Any, Callable, Dict, Optional
-
-
-def _raise_unported(name: str, item: str, /, **kwargs):
-    raise NotImplementedError(f'{name} is not ported (ROADMAP Queue 1: "{item}")')
 
 
 class Registry:
@@ -30,12 +25,6 @@ class Registry:
             return cls
 
         return deco
-
-    def register_unported(self, names, item: str) -> None:
-        """Register each of ``names`` as a builder that raises
-        `NotImplementedError` naming the ROADMAP item that ports it."""
-        for name in names:
-            self._registry[name] = functools.partial(_raise_unported, name, item)
 
     def get(self, key: str) -> Callable:
         if key not in self._registry:

@@ -213,7 +213,29 @@ Phases, each fatal on failure:
    (the c-decoder included: 36 forward launches) and its AdamW step on phase
    6's bucket (36 + 36 + 36), timed, the c-decoder's kernel shapes on the
    bench scene checked in phase 3. MSC and PPT over SpUNet may launch no
-   attention kernel.
+   attention kernel;
+22. host: the test-time covering crops, the visualizer, the decode cache
+   and `RuntimeProfiler`. The tester CLI on phase 8's room and checkpoint
+   with ``crop=SphereCrop(point_max=80000, mode="all")`` (JAX's default
+   point_max; every grid fragment of the room holds more and splits) and
+   the first 2 of the 13 augmentations (a cut in length only): as many
+   fragments as the host pipeline gives on the CPU with the same seed
+   (crops per grid fragment printed), 32 launches each, no plain
+   attention, every raw point covered; the first and the last crop's
+   probabilities, and their votes, against the plain route on the card
+   (``TOL_TEST``); the first crop's kernel shapes checked in phase 3 (path
+   ``crop``). Then `cdsegnet_torch/tools/visualize.py` on a coarse
+   prediction (the tester's labels at one raw point per 20 cm voxel): its
+   1-NN lift on the card must give every raw point the CPU lift's label
+   (the PLY byte-equal). Last, the training CLI on phase 9's rooms with
+   ``data.train.cache=True`` (the cache under the phase's temporary
+   directory) and ``RuntimeProfiler(wait=1, active=2)``, 2 epochs of 2
+   steps without evaluation: 36 + 36 + 36 launches per step, one cache file
+   per scene and no other, the first bucket of a cached loader equal to an
+   uncached one's array for array, one trace file, the hook's logged
+   summary, and the three ``*_mma_kernel``s among the 100 heaviest names of
+   the trace (`summarize_trace`). Prints the step ms with
+   and without the profiler and the cache's first and later scene loads.
 
 Each phase prints its wall time (``phase <name> wall``). The last three lines are a JSON summary of the kernels, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``. Without a GPU, or
@@ -226,6 +248,7 @@ import collections
 import contextlib
 import copy
 import functools
+import glob
 import json
 import os
 import re
@@ -3608,6 +3631,305 @@ def phase_ppt(torch, point, train_point, tmp, card):
     return res
 
 
+CROP = dict(type="SphereCrop", point_max=80000, mode="all")  # JAX's default point_max
+CROP_AUGS = 2  # phase 22's crop tester: the first 2 of the 13 augmentations
+PROFILE = dict(type="RuntimeProfiler", wait=1, active=2)
+PROFILED_KERNELS = ("patch_attention_fwd_mma_kernel", "patch_attention_bwd_dq_mma_kernel",
+                    "patch_attention_bwd_dkdv_mma_kernel")
+REMAP_GRID = 0.2  # phase 22's coarse prediction: one raw point per 20 cm voxel
+
+
+def crop_options(tmp):
+    """The tester's ``--options`` of phase 22: phase 8's room through the
+    shipped test pipeline with covering crops, its first augmentations."""
+    augs = load_config("scannet/cdsegnet.py").data.test.test_cfg.aug_transform[:CROP_AUGS]
+    return [f"data.test.data_root={os.path.join(tmp, 'data')}",
+            f"data.test.test_cfg.crop={CROP!r}",
+            f"data.test.test_cfg.aug_transform={json.loads(json.dumps(augs))!r}"]
+
+
+def crop_scene(config, tmp):
+    """Phase 22's test item, made by the host pipeline on the CPU with the
+    tester's seed: grid fragments per augmentation and crops per grid
+    fragment."""
+    from cdsegnet_torch.data.datasets import build_dataset
+    from cdsegnet_torch.engine.config import Config, parse_options
+
+    cfg = Config.fromfile(config)
+    cfg.merge_from_dict(parse_options(crop_options(tmp)))
+    ds = build_dataset(dict(cfg.data.test))
+    grid, crops = [], []
+    voxelize, crop = ds.test_voxelize, ds.test_crop
+    ds.test_voxelize = lambda data, rng: grid.append(voxelize(data, rng)) or grid[-1]
+    ds.test_crop = lambda part, rng: crops.append(crop(part, rng)) or crops[-1]
+    t0 = time.perf_counter()
+    scene = ds.get(0, np.random.default_rng(cfg.seed))
+    host_s = time.perf_counter() - t0
+    per_frag = [len(c) for c in crops]
+    sizes = [len(f["coord"]) for f in scene["fragment_list"]]
+    print(f"crop scene: {len(grid)} augmentations (of 13, a cut in length only) x grid "
+          f"fragments {[len(g) for g in grid]}; every grid fragment of "
+          f"{min(len(p['coord']) for g in grid for p in g)}-"
+          f"{max(len(p['coord']) for g in grid for p in g)} points split into "
+          f"{per_frag} crops of {min(sizes)}-{max(sizes)} points (point_max "
+          f"{CROP['point_max']}): {len(sizes)} fragments; host pipeline {host_s:.2f} s",
+          flush=True)
+    if min(per_frag) < 2 or len(sizes) != sum(per_frag):
+        fail("a grid fragment of the crop scene did not split into crops")
+    return scene
+
+
+def phase_host(torch, config, cfg, tmp, ckpt, n_raw, scene, n_launches, n_train_launches,
+               card):
+    """The covering-crop tester, the visualizer on its prediction, and the
+    trainer with the decode cache and `RuntimeProfiler`; see the module
+    docstring (phase 22)."""
+    from cdsegnet_torch.data import datasets
+    from cdsegnet_torch.data.cache import cache_path
+    from cdsegnet_torch.data.collate import pick_bucket
+    from cdsegnet_torch.data.loader import TrainLoader
+    from cdsegnet_torch.engine import train as train_mod
+    from cdsegnet_torch.engine.config import Config, parse_options
+    from cdsegnet_torch.engine.profiling import summarize_trace
+    from cdsegnet_torch.engine.test import DEFAULT_BUCKETS, SemSegTester
+    from cdsegnet_torch.models.builder import build_model
+    from cdsegnet_torch.ops import flash_attention as fa
+    from cdsegnet_torch.tools import test as test_tool
+    from cdsegnet_torch.tools import train as train_tool
+    from cdsegnet_torch.tools import visualize
+    from cdsegnet_torch.utils.visualization import read_ply, remap_to_origin, save_segmentation
+
+    start = time.perf_counter()
+    # ---- the covering-crop tester through its CLI ----
+    save = os.path.join(tmp, "crop")
+    argv = ["--config-file", config, "--checkpoint", ckpt, "--options",
+            f"save_path={save}"] + crop_options(tmp)
+    frags, plain_calls = [], [0]
+    covered = np.zeros(n_raw, bool)
+
+    def mark(fn):
+        def run(self, frag, index, *args, **kwargs):
+            covered[frag["index"]] = True
+            return fn(self, frag, index, *args, **kwargs)
+        return run
+
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    with patched((fa, "patch_attention", counting_plain(plain_calls)),
+                 (SemSegTester, "predict_fragment", mark),
+                 (SemSegTester, "forward_fragment",
+                  recording_forward(torch, frags, plain_calls))):
+        tester = test_tool.main(argv)
+    torch.cuda.synchronize()
+    scene_s = time.perf_counter() - t0
+    launches = fa.patch_attention_fwd.launches
+    n_frag = len(scene["fragment_list"])
+    forward_s = sum(f["ms"] for f in frags) / 1e3
+    pred = np.load(os.path.join(save, "result", "scene0000_00_pred.npy"))
+    crop = dict(fragments=len(frags), host_pipeline_fragments=n_frag, launches=launches,
+                per_fragment=sorted({f["launches"] for f in frags}),
+                plain=sum(f["plain"] for f in frags), covered=int(covered.sum()),
+                raw_points=n_raw, buckets=sorted({f["bucket"] for f in frags}),
+                points=[min(f["points"] for f in frags), max(f["points"] for f in frags)],
+                scene_s=scene_s, forward_s=forward_s, other_s=scene_s - forward_s,
+                ssi_ms_median=statistics.median(f["ms"] for f in frags),
+                result=tester.result)
+    print("host crop tester " + json.dumps(crop), flush=True)
+    if len(frags) != n_frag or launches != n_launches * n_frag:
+        fail(f"the crop tester ran {len(frags)} fragments and {launches} launches, expected "
+             f"{n_frag} (the host pipeline's) and {n_launches * n_frag}")
+    if crop["per_fragment"] != [n_launches] or crop["plain"] or \
+            not all(f["finite"] for f in frags):
+        fail("crop fragments: wrong launch count, plain attention or non-finite logits")
+    if not covered.all() or pred.shape != (n_raw,):
+        fail(f"the crops cover {int(covered.sum())} of {n_raw} raw points")
+    if not all(0.0 <= v <= 1.0 for v in tester.result.values()):
+        fail(f"crop tester metrics out of [0, 1]: {tester.result}")
+
+    # the route gap: the first and the last crop through the kernel and the
+    # plain route with one noise draw each, and their votes summed
+    plain_cfg = copy.deepcopy(cfg)
+    plain_cfg["backbone"]["use_pallas"] = False
+    plain_model = build_model(plain_cfg, device="cuda")
+    plain_model.load_state_dict(tester.model.state_dict())
+    plain_tester = SemSegTester(tester.cfg, model=plain_model, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    votes_k = torch.zeros((n_raw, tester.cfg.data.num_classes), device="cuda")
+    votes_p = torch.zeros_like(votes_k)
+    gaps = []
+    for i in (0, n_frag - 1):
+        frag = scene["fragment_list"][i]
+        bucket = pick_bucket(len(frag["coord"]), DEFAULT_BUCKETS)
+        noise = torch.randn((bucket, 6), generator=gen, device="cuda")
+        noise_fn = lambda index, b, c: noise
+        pk = tester.predict_fragment(frag, i, noise_fn)
+        pp = plain_tester.predict_fragment(frag, i, noise_fn)
+        idx = torch.as_tensor(frag["index"], device="cuda")
+        votes_k.index_add_(0, idx, pk)
+        votes_p.index_add_(0, idx, pp)
+        gaps.append(dict(fragment=i, max_abs_dp=(pk - pp).abs().max().item(),
+                         argmax_agree=(pk.argmax(1) == pp.argmax(1)).float().mean().item()))
+    # the voted probabilities: each point's mean over the crops holding it
+    n_votes = votes_k.sum(1, keepdim=True)
+    voted = n_votes[:, 0] > 0
+    votes_k, votes_p = votes_k[voted] / n_votes[voted], votes_p[voted] / n_votes[voted]
+    gaps.append(dict(fragment="voted", points=int(voted.sum().item()),
+                     max_abs_dp=(votes_k - votes_p).abs().max().item(),
+                     argmax_agree=(votes_k.argmax(1) == votes_p.argmax(1)).float()
+                     .mean().item()))
+    del plain_tester, plain_model, votes_k, votes_p
+    torch.cuda.empty_cache()
+    print("host crop route gap " + json.dumps(gaps), flush=True)
+    if any(g["max_abs_dp"] > TOL_TEST[0] or g["argmax_agree"] < TOL_TEST[1] for g in gaps):
+        fail("crop probabilities through the kernel disagree with the plain route")
+
+    # ---- the visualizer: a coarse prediction lifted to the raw points ----
+    room = torch.load(os.path.join(tmp, "data", "val", "scene0000_00.pth"),
+                      weights_only=False)
+    coord = np.asarray(room["coord"], np.float32)
+    _, first = np.unique(np.floor(coord / REMAP_GRID).astype(np.int64), axis=0,
+                         return_index=True)
+    viz = os.path.join(tmp, "viz")
+    np.save(os.path.join(tmp, "coarse_pred.npy"), pred[first])
+    np.save(os.path.join(tmp, "coarse_coord.npy"), coord[first])
+    t0 = time.perf_counter()
+    visualize.main(["--scene", os.path.join(tmp, "data", "val", "scene0000_00.pth"),
+                    "--pred", os.path.join(tmp, "coarse_pred.npy"), "--sampled-coord",
+                    os.path.join(tmp, "coarse_coord.npy"), "--out", viz])
+    viz_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    on_card = remap_to_origin(coord, coord[first], pred[first])
+    card_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    on_cpu = remap_to_origin(coord, coord[first], pred[first], device="cpu")
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    save_segmentation(coord, on_cpu, os.path.join(tmp, "cpu_pred.ply"), 20)
+    same_ply = (open(os.path.join(viz, "scene0000_00_pred.ply"), "rb").read()
+                == open(os.path.join(tmp, "cpu_pred.ply"), "rb").read())
+    viz_res = dict(sampled=len(first), raw_points=n_raw, cli_s=viz_s, remap_card_ms=card_ms,
+                   remap_cpu_ms=cpu_ms, differing=int((on_card != on_cpu).sum()),
+                   same_ply=same_ply, files=sorted(os.listdir(viz)),
+                   agree_with_tester=float((on_cpu == pred).mean()))
+    print("host visualize " + json.dumps(viz_res), flush=True)
+    if viz_res["differing"] or not same_ply or len(read_ply(
+            os.path.join(viz, "scene0000_00_pred.ply"))[0]) != n_raw:
+        fail("the card's 1-NN lift of the coarse prediction differs from the CPU's")
+
+    # ---- the trainer with the decode cache and RuntimeProfiler ----
+    cache_dir = os.path.join(tmp, "cache")
+    train_save = os.path.join(tmp, "host_train")
+    data_root = os.path.join(tmp, "data")
+    hook_cfg = [dict(type="IterationTimer", warmup_iter=1),
+                dict(type="InformationWriter", log_interval=1), PROFILE]
+    targv = ["--config-file", config, "--options", "epoch=2", "eval_epoch=2",
+             f"save_path={train_save}", f"hooks={hook_cfg!r}", "data.train.cache=True",
+             f"data.train.data_root={data_root}", f"data.val.data_root={data_root}"]
+    steps, loads = [], []
+
+    def timed_step(factory):
+        def build(*args, **kwargs):
+            step = factory(*args, **kwargs)
+
+            @functools.wraps(step)
+            def run(*a, **kw):
+                torch.cuda.synchronize()
+                before = (fa.patch_attention_fwd.launches, fa.patch_attention_bwd_dq.launches,
+                          fa.patch_attention_bwd_dkdv.launches)
+                t0 = time.perf_counter()
+                out = step(*a, **kw)
+                torch.cuda.synchronize()
+                after = (fa.patch_attention_fwd.launches, fa.patch_attention_bwd_dq.launches,
+                         fa.patch_attention_bwd_dkdv.launches)
+                steps.append(dict(ms=(time.perf_counter() - t0) * 1e3,
+                                  launches=[b - a for a, b in zip(before, after)],
+                                  loss=float(out["loss"])))
+                return out
+            return run
+        return build
+
+    def timed_load(fn):
+        def run(self, path):
+            cached = self.cache and os.path.exists(cache_path(path))
+            t0 = time.perf_counter()
+            out = fn(self, path)
+            loads.append(dict(path=path, s=time.perf_counter() - t0, cached=cached))
+            return out
+        return run
+
+    old_dir = os.environ.get("CDSEG_CACHE_DIR")
+    os.environ["CDSEG_CACHE_DIR"] = cache_dir
+    try:
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        with patched((train_mod, "make_train_step", timed_step),
+                     (datasets.DefaultDataset, "_load", timed_load)):
+            trainer = train_tool.main(targv)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        train_paths = sorted(trainer.train_ds.data_list)
+        files = sorted(os.listdir(cache_dir))
+        want_files = sorted(os.path.basename(cache_path(p)) for p in train_paths)
+        # the first bucket of the cached loader (read from the files the
+        # run wrote) against the uncached loader's, same seed
+        tcfg = Config.fromfile(config)
+        tcfg.merge_from_dict(parse_options(targv[targv.index("--options") + 1:]))
+        firsts = []
+        for cache in (True, False):
+            ds = datasets.build_dataset(dict(tcfg.data.train, cache=cache))
+            loader = TrainLoader(ds, num_devices=1, scenes_per_device=tcfg.scenes_per_device,
+                                 num_points=tcfg.bucket_num_points, mix_prob=tcfg.mix_prob,
+                                 seed=tcfg.seed)
+            epoch = loader.epoch(0)
+            firsts.append(next(epoch))
+            epoch.close()
+    finally:
+        if old_dir is None:
+            os.environ.pop("CDSEG_CACHE_DIR", None)
+        else:
+            os.environ["CDSEG_CACHE_DIR"] = old_dir
+    same_bucket = firsts[0].keys() == firsts[1].keys() and all(
+        np.array_equal(np.asarray(firsts[0][k]), np.asarray(firsts[1][k])) for k in firsts[0])
+    traces = glob.glob(os.path.join(train_save, "trace", "plugins", "profile", "*",
+                                    "*.trace.json.gz"))
+    profile = [ln.split("] ", 1)[1] for ln in
+               open(os.path.join(train_save, "train.log")).read().splitlines()
+               if "[profile]" in ln]
+    # the hook logs its 20 heaviest names; the kernels are looked up among
+    # the trace's 100 heaviest, with their rank
+    ranked = summarize_trace(os.path.join(train_save, "trace"), 100)
+    named = {k: [(rank + 1, name, dur / 1e3) for rank, (name, dur) in enumerate(ranked)
+                 if k in name] for k in PROFILED_KERNELS}
+    first_loads = [x["s"] for x in loads if not x["cached"]]
+    later_loads = [x["s"] for x in loads if x["cached"]]
+    train = dict(steps=len(steps), step_ms=[x["ms"] for x in steps],
+                 profiled_step_ms=[x["ms"] for i, x in enumerate(steps) if i in (1, 2)],
+                 unprofiled_step_ms=[x["ms"] for i, x in enumerate(steps) if i not in (1, 2)],
+                 launches=[x["launches"] for x in steps], losses=[x["loss"] for x in steps],
+                 cache_files=len(files), stray=sorted(set(files) - set(want_files)),
+                 first_load_s=first_loads, later_load_s=later_loads,
+                 same_first_bucket=same_bucket, trace_files=len(traces),
+                 trace_mb=sum(os.path.getsize(t) for t in traces) / 2 ** 20,
+                 profile_lines=len(profile), kernels_in_trace={
+                     k: v[0] if v else None for k, v in named.items()},
+                 wall_s=train_s)
+    print("host cached trainer " + json.dumps(train), flush=True)
+    if len(steps) != 4 or any(x["launches"] != [n_train_launches] * 3 for x in steps) or \
+            not np.isfinite(train["losses"]).all():
+        fail(f"the cached trainer's steps: {train['launches']}, losses {train['losses']}")
+    if files != want_files:
+        fail(f"the cache holds {files}, expected one file per scene {want_files}")
+    if len(first_loads) != len(train_paths) or not later_loads:
+        fail(f"cache loads: {len(first_loads)} decoded, {len(later_loads)} read")
+    if not same_bucket:
+        fail("the cached loader's first bucket differs from the uncached one's")
+    if len(traces) != 1 or not profile or not all(named.values()):
+        fail(f"trace files {traces}, {len(profile)} summary lines; the trace names {named}")
+    result = dict(crop=dict(crop, route_gaps=gaps), visualize=viz_res, train=train,
+                  phase_s=time.perf_counter() - start, card=card)
+    print("host " + json.dumps(dict(phase_s=result["phase_s"], card=card)), flush=True)
+    return result
+
+
 def step_sums(rows, direction):
     """bf16 sums per training step in ``direction`` over the rows' launches,
     each timed on its level's real scene ids and validity."""
@@ -3731,6 +4053,17 @@ def run_phases(torch, config: str, runtime: str, tmp: str, start: float) -> int:
           f"sizes {[lv.size for lv in frag_levels]}, dropped per level "
           f"{[lv.dropped for lv in frag_levels[1:]]}", flush=True)
     test_rows = phase_kernels(torch, frag_levels, launches, patch, path="test")
+    # phase 22's covering crops: the levels of the room's first crop
+    c_scene = crop_scene(config, tmp)
+    crop = c_scene["fragment_list"][0]
+    bucket = pick_bucket(len(crop["coord"]), DEFAULT_BUCKETS)
+    lv, _ = model.backbone.precompute_geometry(
+        batch_to_point(collate_scenes([crop], bucket, 1), depth, 1, "cuda"))
+    print(f"crop fragment 0: {len(crop['coord'])} points in the {bucket} bucket, level "
+          f"sizes {[x.size for x in lv]}, dropped per level {[int(x.dropped) for x in lv[1:]]}",
+          flush=True)
+    crop_rows = phase_kernels(torch, lv, launches, patch, path="crop")
+    del lv
     # DDIM runs the c-decoder in eval mode: its launches on the same levels
     cdec_rows = phase_kernels(torch, frag_levels, c_dec, patch, path="ddim")
     del frag_levels
@@ -3861,6 +4194,11 @@ def run_phases(torch, config: str, runtime: str, tmp: str, start: float) -> int:
     del point, train_point
     torch.cuda.empty_cache()
     clock("ppt")
+    host = phase_host(torch, config, cfg, tmp, ckpt, n_raw, c_scene, len(launches),
+                      len(train_launches), card)
+    del c_scene
+    torch.cuda.empty_cache()
+    clock("host")
     # this slice's paths through the kernels: times from phases 3 and 5 (the
     # same levels, heads and head dims), launches counted in phases 15-16
     kernel_models = {f"option_{n}": option_cfg(cfg, n)["backbone"] for n in ("a", "b")}
@@ -3879,6 +4217,12 @@ def run_phases(torch, config: str, runtime: str, tmp: str, start: float) -> int:
                         test=dict(forward_sums(test_rows), launches=test["launches"],
                                   fragments=test["fragments"],
                                   per_fragment=test["per_fragment"]),
+                        # per covering crop of phase 22's tester: times from
+                        # phase 3 (the first crop's levels), launches counted
+                        # in phase 22's run
+                        crop=dict(forward_sums(crop_rows), launches=host["crop"]["launches"],
+                                  fragments=host["crop"]["fragments"],
+                                  per_fragment=host["crop"]["per_fragment"]),
                         # per validation SSI at the 524,288-slot bucket: times
                         # from phase 3, launches counted in phase 9's runs
                         eval=dict(forward_sums(eval_rows),

@@ -1,13 +1,12 @@
-"""The NCF ablation segmentors (③ ContinuousDM, ④ CCDM, ⑤ DiscreteDM, ⑥
-CDDM and the single-branch DM) in the port against the JAX package, on the
-tiny configs of tests/test_ablation_segmentors.py with weights made with
-numpy from a seed and carried across: the training forward and one step
-through `make_train_step` (loss, gradients, running statistics) with every
-draw injected, SSI, `denoise_step` and `inference_multistep` MSAI and MSFI
-with the initial state and JAX's Gumbel uniforms fed in, and `D3PMKLLoss`.
-Then the tester's non-CNF route against JAX's `SemSegTester`, the training
-CLI on an ablation config, a converted JAX ablation checkpoint, and the
-refusal of `DefaultClassifier` by `models/builder.py`.
+"""The NCF ablation segmentors ③ ContinuousDM, ④ CCDM and ⑤ DiscreteDM in
+the port against the JAX package (⑥ CDDM and the single-branch DM in
+tests/test_torch_ablation_cddm.py, over this file's helpers), on the tiny
+configs of tests/test_ablation_segmentors.py with weights made with numpy
+from a seed and carried across: the training forward and one step through
+`make_train_step` (loss, gradients, running statistics) with every draw
+injected, SSI, `denoise_step` and `inference_multistep` MSAI and MSFI with
+the initial state and JAX's Gumbel uniforms fed in. Then the tester's
+non-CNF route against JAX's `SemSegTester` and the evaluator's draws.
 
 JAX's forwards are composed from the package's public pieces (as
 tests/test_torch_train.py composes `CNFSegmentor.__call__`) so that the
@@ -25,8 +24,6 @@ gradient bound from a float64 copy of the port in the port and 0.9x in JAX
 of it (measured on the CPU)."""
 
 import copy
-import os
-from concurrent.futures import ThreadPoolExecutor
 
 import pytest
 
@@ -37,31 +34,26 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 import optax  # noqa: E402
 
-import convert_jax_checkpoint as converter  # noqa: E402
 from cdsegnet_tpu.engine.state import TrainState  # noqa: E402
 from cdsegnet_tpu.engine.test import SemSegTester as JTester  # noqa: E402
 from cdsegnet_tpu.models import ablation_segmentors as ja  # noqa: E402
 from cdsegnet_tpu.models import losses as jl  # noqa: E402
 from cdsegnet_tpu.models.builder import build_model as jbuild  # noqa: E402
 from cdsegnet_tpu.models.structure import make_point_batch as jmake  # noqa: E402
-from cdsegnet_torch.engine.checkpoint import CheckpointManager  # noqa: E402
 from cdsegnet_torch.engine.config import Config  # noqa: E402
 from cdsegnet_torch.engine.optimizer import build_optimizer  # noqa: E402
 from cdsegnet_torch.engine.state import make_train_step  # noqa: E402
 from cdsegnet_torch.engine.test import SemSegTester  # noqa: E402
 from cdsegnet_torch.models import ablation_segmentors as ta  # noqa: E402
-from cdsegnet_torch.models import losses as tl  # noqa: E402
 from cdsegnet_torch.models.builder import build_model as tbuild  # noqa: E402
 from cdsegnet_torch.models.builder import build_model_criteria  # noqa: E402
-from cdsegnet_torch.tools import train as ttrain  # noqa: E402
 from cdsegnet_torch.utils.weights import load_jax_variables  # noqa: E402
 from test_ablation_segmentors import _cfg  # noqa: E402
 from test_engine import _write_synthetic_dataset  # noqa: E402
-from test_torch_convert import save_jax_train_state, write_config  # noqa: E402
 from cdsegnet_torch.utils.synthetic import synthetic_arrays  # noqa: E402
 from test_torch_model import as_numpy, random_variables, to_port  # noqa: E402
 from test_torch_tester import scene_cfg  # noqa: E402
-from test_torch_trainer import default_hooks, trainer_cfg  # noqa: E402
+from test_torch_trainer import trainer_cfg  # noqa: E402
 
 torch.set_num_threads(2)
 T = lambda x: torch.from_numpy(np.array(x))
@@ -69,6 +61,8 @@ K = 5  # the tiny configs' classes
 N = 1024  # slots of the test batch: two scenes, depth 7
 KINDS = ("ContinuousDMSegmentor", "CCDMSegmentor", "DiscreteDMSegmentor",
          "CDDMSegmentor", "DMSegmentor")
+# ③-⑤ here; ⑥ and DM in tests/test_torch_ablation_cddm.py
+HERE = KINDS[:3]
 MSE = dict(type="MSELoss", loss_weight=1.0)
 CE = dict(type="CrossEntropyLoss", loss_weight=1.0)
 LOVASZ = dict(type="LovaszLoss", mode="multiclass", loss_weight=1.0)
@@ -271,12 +265,11 @@ def reference(i, kind):
 
 @pytest.fixture(scope="module")
 def jref():
-    """The five JAX references, compiled on parallel threads, with
-    `d3pm_ddim_sample` sowing its uniforms for their duration."""
+    """The JAX references of this file's kinds, with `d3pm_ddim_sample`
+    sowing its uniforms for their duration."""
     ja._D3PMMixin.d3pm_ddim_sample = _sowing_sample
     try:
-        with ThreadPoolExecutor(len(KINDS)) as ex:
-            return dict(zip(KINDS, ex.map(reference, range(len(KINDS)), KINDS)))
+        return {kind: reference(KINDS.index(kind), kind) for kind in HERE}
     finally:
         ja._D3PMMixin.d3pm_ddim_sample = _SAMPLE
 
@@ -297,15 +290,13 @@ def to_state(x):
     return tuple(T(a) for a in x) if isinstance(x, tuple) else T(x)
 
 
-@pytest.mark.parametrize("kind", KINDS)
-def test_ablation_forward_matches_jax(jref, kind):
+def check_forward(ref, kind):
     """Every output of the training forward that `Criteria` reads, with the
     draws injected. Training mode normalizes with batch statistics, so the
     outputs are held to the whole-model bound of tests/test_torch_model.py,
     1e-4 of max |x| + 1e-5 (⑤'s n_pred differs by 1.08e-5 of its max |x|
     here, measured on the CPU); the loss and gradients are held in the step
     test."""
-    ref = jref[kind]
     m = port_model(ref).train()
     out = m(to_port(ref["point"]), **port_inject(ref["draws"]))
     want = ref["out"]
@@ -320,12 +311,10 @@ def test_ablation_forward_matches_jax(jref, kind):
     assert out["pyramid_dropped"] == [0, 0, 0, 0]
 
 
-@pytest.mark.parametrize("kind", KINDS)
-def test_ablation_train_step_matches_jax(jref, kind):
+def check_train_step(ref, kind):
     """One step through `make_train_step`: the loss, every parameter's
     gradient (left on the parameters after the update) and the new running
     statistics against `jax.grad`."""
-    ref = jref[kind]
     m = port_model(ref)
     opt = build_optimizer(dict(type="AdamW", lr=1e-3), m, device="cpu")
     step = make_train_step(m, build_model_criteria(ref["cfg"]), opt, device="cpu")
@@ -347,21 +336,17 @@ def test_ablation_train_step_matches_jax(jref, kind):
                                    err_msg=name)
 
 
-@pytest.mark.parametrize("kind", KINDS)
-def test_ablation_ssi_matches_jax(jref, kind):
-    ref = jref[kind]
+def check_ssi(ref, kind):
     m = port_model(ref)
     got = m.inference(to_port(ref["point"]), **port_inject(ref["ssi_draws"]))["seg_logits"]
     assert_close(got.numpy(), ref["ssi"], np.asarray(ref["point"].mask))
 
 
-@pytest.mark.parametrize("kind", KINDS)
-def test_ablation_multistep_matches_jax(jref, kind):
+def check_multistep(ref, kind):
     """`denoise_step` from JAX's initial state (t = T-1, then t = 0 on
     that step's state) and `inference_multistep` MSAI and MSFI with JAX's
     state and Gumbel uniforms: categorical states equal, logits and
     Gaussian states within the logits bound."""
-    ref = jref[kind]
     m = port_model(ref)
     pt = to_port(ref["point"])
     valid = np.asarray(ref["point"].mask)
@@ -386,22 +371,6 @@ def test_ablation_multistep_matches_jax(jref, kind):
         got = ta.inference_multistep(m, pt, step=STEPS, mode=mode,
                                      state=to_state(ref["state0"]), uniforms=us)
         assert_close(got.numpy(), ref["multi"][mode]["logits"], valid)
-
-
-def test_d3pm_kl_loss_in_criteria_matches_jax():
-    rng = np.random.RandomState(3)
-    n = 300
-    out = dict(d3pm_pred_q=3 * rng.randn(n, K), d3pm_true_q=np.log(
-        rng.dirichlet(np.ones(K), n) + 1e-6), n_pred=rng.randn(n, K),
-        n_target=rng.randint(-1, K, n), seg_valid=np.arange(n) < 260)
-    out = {k: v.astype(np.float32) if v.dtype == np.float64 else v for k, v in out.items()}
-    out["seg_valid"] &= out["n_target"] >= 0
-    cfgs = [KL, dict(CE, pred="n_pred"), dict(KL, pred="d3pm_true_q", loss_weight=0.5)]
-    got = tl.Criteria(cfgs, "EW")({k: T(v) for k, v in out.items()}).item()
-    want = float(jl.Criteria(cfgs, "EW")({k: jnp.asarray(v) for k, v in out.items()}))
-    np.testing.assert_allclose(got, want, rtol=1e-6)
-    kl = tl.d3pm_kl_loss(T(out["d3pm_pred_q"]), T(out["d3pm_true_q"]), T(out["seg_valid"]))
-    assert kl.item() > 0.1
 
 
 # ---- the engine on an ablation model ----
@@ -486,28 +455,6 @@ def test_tester_non_cnf_route_matches_jax(jref, tmp_path, monkeypatch):
     assert miou == pytest.approx(jmiou, abs=1e-6)
 
 
-def test_tester_ablation_draws_do_not_depend_on_the_rank(jref, tmp_path):
-    """The non-CNF route draws from a generator seeded per fragment: the
-    same fragment forwarded twice, after other fragments or none, gives the
-    same probabilities."""
-    kind = "CDDMSegmentor"
-    ref = jref[kind]
-    root = str(tmp_path / "data")
-    _write_synthetic_dataset(root, n_scenes=2, n_points=300)
-    m = port_model(ref)
-    cfg = Config(Config._wrap(scene_cfg(root, str(tmp_path / "port"),
-                                        model=copy.deepcopy(ref["cfg"]))))
-    from cdsegnet_torch.data.datasets import build_dataset
-
-    scene = build_dataset(dict(cfg.data.test)).get(0, np.random.default_rng(0))
-    frags = scene["fragment_list"]
-    a = SemSegTester(cfg, model=m, device="cpu", verbose=False)
-    first = [a.predict_fragment(f, i) for i, f in enumerate(frags)]
-    b = SemSegTester(cfg, model=m, device="cpu", verbose=False)
-    last = b.predict_fragment(frags[-1], len(frags) - 1)
-    assert len(frags) > 1 and torch.equal(first[-1], last)
-
-
 def test_evaluator_draws_each_scenes_start_from_its_own_generator(jref, tmp_path):
     """`SemSegEvaluator` on ⑤: the model draws its SSI start (no
     `draw_ssi_noise`) from a generator seeded for scene i from ``(seed +
@@ -540,40 +487,21 @@ def test_evaluator_draws_each_scenes_start_from_its_own_generator(jref, tmp_path
     assert not torch.equal(seen[0][1], seen[1][1])
 
 
-def test_train_cli_trains_an_ablation_config(tmp_path):
-    """⑥ through the training CLI on the CPU: one evaluated epoch of two
-    steps (the evaluator's SSI draws the model's own noise), checkpoints."""
-    root = str(tmp_path / "data")
-    _write_synthetic_dataset(root)
-    save = str(tmp_path / "run")
-    cfg = trainer_cfg(root, save, epoch=1, model=ablation_cfg("CDDMSegmentor"),
-                      hooks=default_hooks(1))
-    path = write_config(tmp_path / "cddm.py", cfg["model"],
-                        **{k: v for k, v in cfg.items() if k != "model"})
-    trainer = ttrain.main(["--config-file", path, "--device", "cpu"])
-    assert trainer.step == 2
-    assert {"model_best", "model_last"} <= set(os.listdir(os.path.join(save, "model")))
-    log = open(os.path.join(save, "train.log")).read()
-    assert "Train [1/1][2/2] loss" in log and "Val result: mIoU" in log
-    import json
-
-    recs = [json.loads(x) for x in open(os.path.join(save, "metrics.jsonl"))]
-    assert all(np.isfinite(r["loss"]) for r in recs if "loss" in r)
+@pytest.mark.parametrize("kind", HERE)
+def test_ablation_forward_matches_jax(jref, kind):
+    check_forward(jref[kind], kind)
 
 
-def test_converted_ablation_checkpoint_loads(jref, tmp_path):
-    """A `TrainState` of ⑥ saved by JAX's `CheckpointManager` converts with
-    `convert_jax_checkpoint.py` (strict, nothing kept from the initializer)
-    and gives JAX's SSI logits."""
-    kind = "CDDMSegmentor"
-    ref = jref[kind]
-    config = write_config(tmp_path / "cddm.py", copy.deepcopy(ref["cfg"]))
-    jax_dir = save_jax_train_state(ref["variables"], str(tmp_path / "jax"), 5)
-    out_file = str(tmp_path / "port" / "model" / "model_last")
-    got = converter.main(["--config-file", config, "--jax-checkpoint", jax_dir,
-                          "--output", out_file])
-    assert got["step"] == 5 and got["kept"] == []
-    m = tbuild(copy.deepcopy(ref["cfg"]), device="cpu")
-    CheckpointManager(os.path.dirname(out_file)).restore(m, "model_last")
-    logits = m.inference(to_port(ref["point"]), **port_inject(ref["ssi_draws"]))["seg_logits"]
-    assert_close(logits.numpy(), ref["ssi"], np.asarray(ref["point"].mask))
+@pytest.mark.parametrize("kind", HERE)
+def test_ablation_train_step_matches_jax(jref, kind):
+    check_train_step(jref[kind], kind)
+
+
+@pytest.mark.parametrize("kind", HERE)
+def test_ablation_ssi_matches_jax(jref, kind):
+    check_ssi(jref[kind], kind)
+
+
+@pytest.mark.parametrize("kind", HERE)
+def test_ablation_multistep_matches_jax(jref, kind):
+    check_multistep(jref[kind], kind)

@@ -94,9 +94,9 @@ def test_baseline_checkpoint_converts_and_names_its_timestep_mlp(tmp_path, capsy
     d = dict(mse_valid=np.asarray(pt.mask) & (np.random.RandomState(5).rand(N) < 0.5))
     crit = jl.Criteria(cfg["criteria"], loss_type=cfg.get("loss_type", "EW"),
                        task_num=cfg.get("task_num", 2))
-    out, _ = jm.apply(variables, pt, {k: jnp.asarray(v) for k, v in d.items()}, geometry,
-                      method=jax_train_out, mutable=["batch_stats"])
-    want = float(crit(out, mode="train"))
+    want = float(jax.jit(lambda v, p, dd, g: crit(jm.apply(
+        v, p, dd, g, method=jax_train_out, mutable=["batch_stats"])[0], mode="train"))(
+        variables, pt, {k: jnp.asarray(v) for k, v in d.items()}, geometry))
 
     config = write_config(tmp_path / "baseline.py", cfg)
     jax_dir = save_jax_train_state(variables, str(tmp_path / "jax"), 3)

@@ -6,6 +6,7 @@ port's device and import rules."""
 import ast
 import copy
 import os
+import tempfile
 
 import pytest
 
@@ -31,6 +32,26 @@ from test_model import TINY_MODEL  # noqa: E402
 torch.set_num_threads(2)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N = 256
+
+
+def share_jax_compiles_across_the_run():
+    """One persistent JAX compilation cache for the whole test run, shared
+    by its xdist workers (`PYTEST_XDIST_TESTRUNUID`, under the run's
+    temporary directory): a JAX reference that several files compile (the
+    same function, shapes and constants) is compiled once. It keeps
+    compiled code only; every reference still runs. Every worker imports
+    this module while collecting, before any test compiles; a JAX test file
+    collected earlier may already have compiled, hence the reset."""
+    run = os.environ.get("PYTEST_XDIST_TESTRUNUID")
+    if run:
+        from jax.experimental.compilation_cache import compilation_cache
+
+        compilation_cache.set_cache_dir(
+            os.path.join(tempfile.gettempdir(), f"cdseg_jax_compiles_{run}"))
+        compilation_cache.reset_cache()
+
+
+share_jax_compiles_across_the_run()
 
 
 def tiny_cfg(dtype="float32", **backbone):
@@ -106,6 +127,7 @@ def ref():
         return c_out.feat, n_out.feat
 
     bb = jax.jit(lambda v, p, nz: jm32.apply(v, p, nz, method=both))
+    geometry = jax.jit(lambda p: jm32.backbone.precompute_geometry(p))
     ssi32, ssi16 = ssi(jm32), ssi(jm16)
     out = {}
     for name, p in pts.items():
@@ -113,8 +135,7 @@ def ref():
             f32=np.asarray(ssi32(variables, p, jnp.asarray(noise))),
             bf16=np.asarray(ssi16(variables, p, jnp.asarray(noise))),
             c=np.asarray(bb(variables, p, jnp.asarray(noise))[0]),
-            dropped=[int(lv.dropped) for lv in
-                     jm32.backbone.precompute_geometry(p)[0][1:]],
+            dropped=[int(lv.dropped) for lv in geometry(p)[0][1:]],
         )
     return dict(points=pts, variables=variables, noise=noise, out=out,
                 backbone=jm32.backbone)
@@ -243,47 +264,6 @@ def test_weight_loading_is_strict(ref):
         load_jax_variables(m, v)
 
 
-OPTIONS = [("xcpe_mode", "cond"), ("enable_rpe", True), ("tm_restomer", True),
-           ("tm_bidirectional", True), ("tm_feat", "channel_scale"),
-           ("b_factor", (1.2, 1.0, 1.0, 1.0))]
-
-
-def _option_ssi(case):
-    field, value = case
-    jm = jbuild(tiny_cfg(**{field: value}))
-    pt = batches()["fit"]
-    noise = np.random.RandomState(2).randn(N, 6).astype(np.float32)
-    variables = as_numpy(random_variables(jm, pt))
-    logits = jax.jit(lambda v: jm.apply(v, pt, noise, method=JCNF.inference)[
-        "seg_logits"])(variables)
-    return variables, noise, np.asarray(logits)
-
-
-@pytest.fixture(scope="module")
-def option_ref():
-    """JAX SSI of the tiny model with each option of `OPTIONS`, compiled on
-    parallel threads."""
-    from concurrent.futures import ThreadPoolExecutor
-
-    with ThreadPoolExecutor(len(OPTIONS)) as ex:
-        return dict(zip(OPTIONS, ex.map(_option_ssi, OPTIONS)))
-
-
-@pytest.mark.parametrize("field,value", OPTIONS)
-def test_option_paths_match_jax(option_ref, field, value):
-    """Each option of the PTv3 surface that the port once refused builds
-    and gives JAX's SSI logits (tests/test_torch_options.py holds each
-    module and the training step)."""
-    variables, noise, want = option_ref[(field, value)]
-    m = tbuild(tiny_cfg(**{field: value}), device="cpu")
-    load_jax_variables(m, variables)
-    pt = batches()["fit"]
-    got = m.inference(to_port(pt), noise=torch.from_numpy(noise))["seg_logits"].numpy()
-    valid = np.asarray(pt.mask)
-    err = np.abs(got - want)[valid].max()
-    assert err <= 1e-5 * np.abs(want[valid]).max() + 1e-6
-
-
 def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -339,7 +319,12 @@ def test_port_imports_no_jax():
                    "parallel/dist.py", "models/ablation_segmentors.py", "models/ptv1.py",
                    "models/octformer.py", "models/stratified.py", "models/swin3d.py",
                    "ops/sparse_attention.py", "ops/pointops.py", "models/msc.py",
-                   "models/ppt.py"):
+                   "models/ppt.py", "data/cache.py", "engine/profiling.py",
+                   "models/structure.py", "utils/visualization.py", "tools/visualize.py",
+                   "tools/preprocess_s3dis.py", "tools/preprocess_arkitscenes.py",
+                   "tools/preprocess_structured3d.py", "tools/preprocess_scannet.py",
+                   "tools/preprocess_nuscenes.py", "tools/preprocess_waymo.py",
+                   "tools/fidelity_ablations.py"):
         assert os.path.join(REPO, "cdsegnet_torch", module) in files, module
     bad = [(f, m) for f in files for m in _imports(f)
            if m.split(".")[0] in FORBIDDEN + ("convert_jax_checkpoint",)]

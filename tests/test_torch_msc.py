@@ -13,7 +13,6 @@ nothing of the JAX package changes."""
 import copy
 import os
 import types
-from concurrent.futures import ThreadPoolExecutor
 
 import pytest
 
@@ -158,10 +157,8 @@ def ref(rooms):
             fn = jmsc_step(jm, crit, tx, DEPTH, 2, None, feat_keys=FEAT_KEYS)
             return fn(state, {k: jnp.asarray(v) for k, v in batches[0].items()})
 
-        with ThreadPoolExecutor(2) as ex:  # the two compiles in parallel
-            g, st = ex.submit(grads), ex.submit(step)
-            (loss, (out, stats)), grads = g.result()
-            state, metrics = st.result()
+        (loss, (out, stats)), grads = grads()
+        state, metrics = step()
         return dict(batches=batches, scene=scene, score=score, variables=variables,
                     loss=float(loss), out={k: np.asarray(v) for k, v in out.items()},
                     grads=as_numpy(grads), stats=as_numpy(stats),

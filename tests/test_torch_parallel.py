@@ -127,11 +127,11 @@ def jax_step(jm, variables, buckets, mesh, microbatch):
     grads = as_numpy(new_state.opt_state)
     tx = jbuild_optimizer(OPTIMIZER, variables["params"], SCHEDULER, TOTAL_STEPS,
                           PARAM_DICTS)
-    upd, _ = tx.update(jax.tree_util.tree_map(jnp.asarray, grads),
-                       tx.init(variables["params"]), variables["params"])
+    upd, _ = jax.jit(tx.update)(jax.tree_util.tree_map(jnp.asarray, grads),
+                                jax.jit(tx.init)(variables["params"]), variables["params"])
     return dict(loss=float(metrics["loss"]), grads=grads,
                 stats=as_numpy(new_state.batch_stats),
-                params=as_numpy(optax.apply_updates(variables["params"], upd)),
+                params=as_numpy(jax.jit(optax.apply_updates)(variables["params"], upd)),
                 valid_points=int(np.sum(metrics["valid_points"])))
 
 
@@ -163,7 +163,8 @@ def jsteps():
     draws = [micro_draws(40 + i, p) for i, p in enumerate(points)]
     variables = as_numpy(random_variables(jm, points[0]))
     buckets = [bucket_dict(p, d) for p, d in zip(points, draws)]
-    # (device, micro, ...) for the last; the three compile on parallel threads
+    # (device, micro, ...) for the last; the three compile on parallel
+    # threads (this file runs late in the suite, where cores are free)
     jobs = dict(micro=(stack(buckets), None, 2), ranks=(stack(buckets), make_mesh(2), 1),
                 ranks_micro=(stack([stack([buckets[i] for i in micros])
                                     for micros in RANK_MICROS]), make_mesh(2), 2))
@@ -531,6 +532,48 @@ class Recorder:
         return self.ds.get(idx, rng)
 
 
+def test_cli_two_ranks_resume_equals_an_uninterrupted_run(root, tmp_path):
+    """``tools/train.py --num-gpus 2 --device cpu`` on the tiny config (two
+    gloo ranks, microbatch 2, 2 epochs of 2 steps), run through; then the
+    same run stopped after epoch 1 (a hook raises on both ranks) and
+    resumed by the CLI: it ends bit-equal to the uninterrupted run, model,
+    optimizer and both ranks' generators. Rank 0 alone writes the log, the
+    metrics and the checkpoints."""
+    whole = cli(str(tmp_path / "whole"), root)
+    assert whole["step"] == 4 and len(whole["rank_generators"]) == 2
+    resumed_dir = str(tmp_path / "resumed")
+    with pytest.raises(Exception, match="stopped after epoch 1"):
+        dist.launch(torch_ranks.train_cli_stopped, 2,
+                    args=(cli_argv(resumed_dir, root, stop=True),), device="cpu", timeout=300)
+    assert sorted(os.listdir(os.path.join(resumed_dir, "model"))) == [
+        "epoch_1", "model_best", "model_last"]
+    assert CheckpointManager(os.path.join(resumed_dir, "model")).restore_raw()["step"] == 2
+    resumed = cli(resumed_dir, root, "resume=True")
+    assert resumed["step"] == 4
+    for k, v in whole["model"].items():
+        assert torch.equal(v, resumed["model"][k]), k
+    ow, orr = whole["optimizer"], resumed["optimizer"]
+    assert ow["count"] == orr["count"] == 4
+    for i, st in ow["opt"]["state"].items():
+        for k, v in st.items():
+            assert torch.equal(v, orr["opt"]["state"][i][k]), (i, k)
+    for a, b in zip(whole["rank_generators"], resumed["rank_generators"]):
+        for k in a:
+            assert torch.equal(a[k], b[k]), k
+    assert not torch.equal(whole["rank_generators"][0]["dropout"],
+                           whole["rank_generators"][1]["dropout"])
+    log = open(tmp_path / "whole" / "train.log").read()
+    assert log.count("Train [2/2][2/2] loss") == 1 and log.count("Val result") == 2
+    recs = [json.loads(line) for line in open(tmp_path / "whole" / "metrics.jsonl")]
+    assert [r["step"] for r in recs] == [1, 2, 3, 4]
+    # a checkpoint of two ranks does not resume one
+    tr = Trainer(trainer_cfg(root, resumed_dir, resume=True), device="cpu")
+    with pytest.raises(ValueError, match="generators of 2 ranks"):
+        tr.train()
+
+
+# ---- the rules ----
+
 @pytest.fixture
 def smoke_root(tmp_path):
     data = str(tmp_path / "data")
@@ -601,48 +644,6 @@ def cli(save, root_dir, *extra):
     assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
     return CheckpointManager(os.path.join(save, "model")).restore_raw("model_last")
 
-
-def test_cli_two_ranks_resume_equals_an_uninterrupted_run(root, tmp_path):
-    """``tools/train.py --num-gpus 2 --device cpu`` on the tiny config (two
-    gloo ranks, microbatch 2, 2 epochs of 2 steps), run through; then the
-    same run stopped after epoch 1 (a hook raises on both ranks) and
-    resumed by the CLI: it ends bit-equal to the uninterrupted run, model,
-    optimizer and both ranks' generators. Rank 0 alone writes the log, the
-    metrics and the checkpoints."""
-    whole = cli(str(tmp_path / "whole"), root)
-    assert whole["step"] == 4 and len(whole["rank_generators"]) == 2
-    resumed_dir = str(tmp_path / "resumed")
-    with pytest.raises(Exception, match="stopped after epoch 1"):
-        dist.launch(torch_ranks.train_cli_stopped, 2,
-                    args=(cli_argv(resumed_dir, root, stop=True),), device="cpu", timeout=300)
-    assert sorted(os.listdir(os.path.join(resumed_dir, "model"))) == [
-        "epoch_1", "model_best", "model_last"]
-    assert CheckpointManager(os.path.join(resumed_dir, "model")).restore_raw()["step"] == 2
-    resumed = cli(resumed_dir, root, "resume=True")
-    assert resumed["step"] == 4
-    for k, v in whole["model"].items():
-        assert torch.equal(v, resumed["model"][k]), k
-    ow, orr = whole["optimizer"], resumed["optimizer"]
-    assert ow["count"] == orr["count"] == 4
-    for i, st in ow["opt"]["state"].items():
-        for k, v in st.items():
-            assert torch.equal(v, orr["opt"]["state"][i][k]), (i, k)
-    for a, b in zip(whole["rank_generators"], resumed["rank_generators"]):
-        for k in a:
-            assert torch.equal(a[k], b[k]), k
-    assert not torch.equal(whole["rank_generators"][0]["dropout"],
-                           whole["rank_generators"][1]["dropout"])
-    log = open(tmp_path / "whole" / "train.log").read()
-    assert log.count("Train [2/2][2/2] loss") == 1 and log.count("Val result") == 2
-    recs = [json.loads(line) for line in open(tmp_path / "whole" / "metrics.jsonl")]
-    assert [r["step"] for r in recs] == [1, 2, 3, 4]
-    # a checkpoint of two ranks does not resume one
-    tr = Trainer(trainer_cfg(root, resumed_dir, resume=True), device="cpu")
-    with pytest.raises(ValueError, match="generators of 2 ranks"):
-        tr.train()
-
-
-# ---- the rules ----
 
 def test_more_devices_need_a_process_group(root, tmp_path, monkeypatch):
     assert not dist.is_initialized() and dist.world_size() == 1

@@ -16,7 +16,6 @@ and changes nothing of the JAX package."""
 import copy
 import os
 import types
-from concurrent.futures import ThreadPoolExecutor
 
 import pytest
 
@@ -147,8 +146,8 @@ def _train_ref(cfg, pt, cond, criteria, rngs=None, v=None):
 
 @pytest.fixture(scope="module")
 def ref(tmp_path_factory):
-    """Every JAX model reference, compiled on parallel threads (inputs as
-    jit arguments); the dual branch's draws injected."""
+    """Every JAX model reference (inputs as jit arguments); the dual
+    branch's draws injected."""
     npy = str(tmp_path_factory.mktemp("ppt") / "clip.npy")
     np.save(npy, np.random.RandomState(5).randn(36, 16).astype(np.float32))
     pt, dual_pt = point(), point(DUAL_N, seed=6, depth=6)
@@ -173,9 +172,7 @@ def ref(tmp_path_factory):
         npy=lambda: _eval_ref(dict(V1M1, class_embedding_path=npy), pt, (1,), npy_v),
     )
     try:
-        with ThreadPoolExecutor(4) as ex:
-            futures = {k: ex.submit(f) for k, f in jobs.items()}
-            res = {k: f.result() for k, f in futures.items()}
+        res = {k: f() for k, f in jobs.items()}
     finally:
         mp.undo()
     res.update(npy_path=npy, point=pt, dual_point=dual_pt, ts=ts, noise=noise)

@@ -25,7 +25,6 @@ learning rate at the elements whose JAX gradient lies within the gradient
 bound of 0, where the sign is not determined."""
 
 import copy
-from concurrent.futures import ThreadPoolExecutor
 
 import pytest
 
@@ -148,8 +147,8 @@ def _step_ref(_):
     (loss, stats), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
         v["params"], v["batch_stats"], pt)
     tx = jbuild_optimizer(dict(ADAMW), v["params"], dict(ONECYCLE), total_steps=10)
-    updates, _ = tx.update(grads, tx.init(v["params"]), v["params"])
-    params = optax.apply_updates(v["params"], updates)
+    updates, _ = jax.jit(tx.update)(grads, jax.jit(tx.init)(v["params"]), v["params"])
+    params = jax.jit(optax.apply_updates)(v["params"], updates)
     return dict(cfg=cfg, variables=v, loss=float(loss), params=as_numpy(params),
                 stats=as_numpy(stats), grads=as_numpy(grads))
 
@@ -159,12 +158,9 @@ JOBS = ([("fps", c) for c in FPS_CASES] + [("eval", 0), ("train", 0), ("step", 0
 
 @pytest.fixture(scope="module")
 def ref():
-    """Every JAX reference, compiled on parallel threads; inputs are jit
-    arguments, never constants."""
+    """Every JAX reference; inputs are jit arguments, never constants."""
     fns = dict(fps=_fps_ref, eval=_eval_ref, train=_train_ref, step=_step_ref)
-    with ThreadPoolExecutor(4) as ex:
-        outs = ex.map(lambda job: fns[job[0]](job[1]), JOBS)
-        return dict(zip(JOBS, outs))
+    return {job: fns[job[0]](job[1]) for job in JOBS}
 
 
 def port_model(cfg, variables):

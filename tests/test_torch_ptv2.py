@@ -10,7 +10,6 @@ JAX, whose own module cannot build there. Inputs are made with numpy from a
 seed; weights with numpy and carried across with `load_jax_variables`."""
 
 import copy
-from concurrent.futures import ThreadPoolExecutor
 
 import pytest
 
@@ -158,14 +157,12 @@ JOBS = ([("gva", n) for n in GVA] + [("block", n) for n in BLOCKS]
 
 @pytest.fixture(scope="module")
 def ref():
-    """Every JAX reference, compiled on parallel threads. The inputs are
-    arguments of each jitted function, never constants: XLA would fold the
-    kNN distances of a constant point without fused multiply-adds and order
-    near-ties otherwise."""
+    """Every JAX reference. The inputs are arguments of each jitted
+    function, never constants: XLA would fold the kNN distances of a
+    constant point without fused multiply-adds and order near-ties
+    otherwise."""
     fns = dict(gva=_gva_ref, block=_block_ref, model=_model_ref, train=_train_ref)
-    with ThreadPoolExecutor(4) as ex:
-        outs = ex.map(lambda job: fns[job[0]](job[1]), JOBS)
-        return dict(zip(JOBS, outs))
+    return {job: fns[job[0]](job[1]) for job in JOBS}
 
 
 def _close(got, want, rel=1e-5):

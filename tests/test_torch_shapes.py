@@ -13,7 +13,6 @@ import os
 import subprocess
 import sys
 import types
-from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -99,7 +98,7 @@ class Log:
 
 class Capture(logging.Handler):
     """The messages of logger ``name`` that start with one of ``prefixes``
-    (the JAX testers share one logger and run on parallel threads)."""
+    (the JAX testers share one logger)."""
 
     def __init__(self, name, prefixes):
         super().__init__()
@@ -254,7 +253,7 @@ def _jax_remap(cfg):
 
 @pytest.fixture(scope="module")
 def jref(trees):
-    """The JAX testers and evaluators, on parallel threads."""
+    """The JAX testers and evaluators."""
     jobs = dict(cls=(_jax_cls, shape_cfg(CLS_CONFIG, trees["modelnet"])),
                 part=(_jax_part, shape_cfg(PART_CONFIG, trees["shapenet"])),
                 cls_eval=(_jax_cls_eval, shape_cfg(CLS_CONFIG, trees["modelnet"],
@@ -263,9 +262,7 @@ def jref(trees):
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jnative, "_LIB", None)
         mp.setattr(jnative, "_TRIED", True)
-        with ThreadPoolExecutor(len(jobs)) as ex:
-            futs = {k: ex.submit(fn, cfg) for k, (fn, cfg) in jobs.items()}
-            return {k: dict(f.result(), cfg=jobs[k][1]) for k, f in futs.items()}
+        return {k: dict(fn(cfg), cfg=cfg) for k, (fn, cfg) in jobs.items()}
 
 
 def port_model(ref):

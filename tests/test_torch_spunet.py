@@ -19,7 +19,6 @@ holds dozens here."""
 
 import copy
 import os
-from concurrent.futures import ThreadPoolExecutor
 
 import pytest
 
@@ -159,8 +158,8 @@ def _step_ref(_):
     (loss, stats), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
         v["params"], v["batch_stats"], pt)
     tx = jbuild_optimizer(dict(SGD), v["params"], dict(ONECYCLE), total_steps=10)
-    updates, _ = tx.update(grads, tx.init(v["params"]), v["params"])
-    params = optax.apply_updates(v["params"], updates)
+    updates, _ = jax.jit(tx.update)(grads, jax.jit(tx.init)(v["params"]), v["params"])
+    params = jax.jit(optax.apply_updates)(v["params"], updates)
     return dict(cfg=cfg, variables=v, loss=float(loss), params=as_numpy(params),
                 stats=as_numpy(stats))
 
@@ -185,12 +184,9 @@ JOBS = ([("eval", n) for n in MODELS] + [("train", n) for n in TRAINED]
 
 @pytest.fixture(scope="module")
 def ref():
-    """Every JAX reference, compiled on parallel threads; inputs are jit
-    arguments, never constants."""
+    """Every JAX reference; inputs are jit arguments, never constants."""
     fns = dict(eval=_eval_ref, train=_train_ref, step=_step_ref, clusters=_clusters_ref)
-    with ThreadPoolExecutor(4) as ex:
-        outs = ex.map(lambda job: fns[job[0]](job[1]), JOBS)
-        return dict(zip(JOBS, outs))
+    return {job: fns[job[0]](job[1]) for job in JOBS}
 
 
 def _close(got, want, rel=1e-5):

@@ -1,6 +1,7 @@
 """Port tester against the JAX package: `SemSegTester` on two synthetic
 ScanNet-format scenes with the tiny model in f32, the same weights carried
-over and JAX's per-fragment noise fed to the port; the port's checkpoints;
+over and JAX's per-fragment noise fed to the port, with and without the
+test-time covering crops; the port's checkpoints;
 the testing CLI end to end on the CPU; and the port's device and
 not-ported rules for the tester."""
 
@@ -59,14 +60,22 @@ TEST_DATA = dict(
 )
 
 
-def scene_cfg(root, save, **extra):
-    """The JAX engine test's layout (`tests/test_engine.py`), on one device."""
+# the covering crops of the crop tester: every 300-point fragment splits
+# into two crops, which stay in the 512-slot bucket
+CROP = dict(type="SphereCrop", point_max=260, mode="all")
+
+
+def scene_cfg(root, save, crop=None, **extra):
+    """The JAX engine test's layout (`tests/test_engine.py`), on one device;
+    ``crop``: the test-time crop."""
+    test = copy.deepcopy(dict(TEST_DATA, data_root=root))
+    test["test_cfg"]["crop"] = crop
     cfg = dict(
         save_path=save, seed=0, serialization_depth=7, submission=True,
         test_buckets=[256, 512], ignore_index=-1, num_devices=1,
         model=copy.deepcopy(TINY_MODEL),
         data=dict(num_classes=5, ignore_index=-1, names=[f"c{i}" for i in range(5)],
-                  test=dict(TEST_DATA, data_root=root)))
+                  test=test))
     cfg.update(extra)
     return cfg
 
@@ -84,10 +93,37 @@ def port_model(variables):
     return m
 
 
+def jax_run(tester, save, crop=None):
+    """One `test()` of JAX's tester with ``crop``: per-fragment noise and
+    probabilities (recorded by wrapping the instance's methods), records,
+    preds and submissions."""
+    run = dict(noise=[], probs=[])
+    prepare, predict = tester._prepare_fragment, tester.predict_fragment
+
+    def record_noise(frag, rng):
+        out = prepare(frag, rng)
+        run["noise"].append(np.asarray(out[3]))
+        return out
+
+    def record_probs(frag, rng):
+        p = predict(frag, rng)
+        run["probs"].append(np.asarray(p))
+        return p
+
+    tester.cfg = Config(Config._wrap(scene_cfg(tester.root, save, crop=crop)))
+    tester.save_path = save
+    tester._prepare_fragment, tester.predict_fragment = record_noise, record_probs
+    try:
+        run["miou"] = tester.test()
+    finally:
+        tester._prepare_fragment, tester.predict_fragment = prepare, predict
+    return dict(run, records=tester.records, out=outputs(save, sorted(tester.records)))
+
+
 @pytest.fixture(scope="module")
 def ref(tmp_path_factory):
-    """JAX's tester run: per-fragment noise and probabilities (recorded by
-    wrapping the instance's methods), records, preds and submissions."""
+    """JAX's tester run on the grid fragments, and the tester itself (its
+    compiled forward serves `crop_ref`)."""
     tmp = tmp_path_factory.mktemp("tester")
     root = str(tmp / "data")
     _write_synthetic_dataset(root, n_scenes=2, n_points=300)
@@ -100,32 +136,26 @@ def ref(tmp_path_factory):
                   segment=jnp.zeros((n,), jnp.int32), depth=7, num_scenes=1)
     variables = random_variables(model, point)
     state = TrainState.create(variables, optax.identity(), jax.random.PRNGKey(0))
-    save = str(tmp / "jax")
-    tester = JTester(Config(Config._wrap(scene_cfg(root, save))), state=state,
+    tester = JTester(Config(Config._wrap(scene_cfg(root, str(tmp / "unused")))), state=state,
                      model=model, verbose=False)
-    noise, probs = [], []
-    prepare, predict = tester._prepare_fragment, tester.predict_fragment
-
-    def record_noise(frag, rng):
-        out = prepare(frag, rng)
-        noise.append(np.asarray(out[3]))
-        return out
-
-    def record_probs(frag, rng):
-        p = predict(frag, rng)
-        probs.append(np.asarray(p))
-        return p
-
-    tester._prepare_fragment = record_noise
-    tester.predict_fragment = record_probs
-    miou = tester.test()
-    return dict(root=root, variables=variables, noise=noise, probs=probs, miou=miou,
-                records=tester.records, out=outputs(save, sorted(tester.records)))
+    tester.root = root
+    run = jax_run(tester, str(tmp / "jax"))
+    return dict(run, root=root, variables=variables, tester=tester, tmp=tmp)
 
 
-def test_semseg_tester_matches_jax(ref, tmp_path):
-    save = str(tmp_path / "port")
-    tester = SemSegTester(Config(Config._wrap(scene_cfg(ref["root"], save))),
+@pytest.fixture(scope="module")
+def crop_ref(ref):
+    """JAX's tester run with the covering crops, on the same compiled
+    forward."""
+    return jax_run(ref["tester"], str(ref["tmp"] / "jax_crop"), crop=CROP)
+
+
+def run_against_jax(ref, run, save, crop=None):
+    """The port's tester with JAX's noise of ``run`` fed in: per-fragment
+    probabilities within 1e-4, preds where the top two votes differ by
+    more than 1e-4, then records, preds and submissions equal; returns the
+    tester and its mIoU."""
+    tester = SemSegTester(Config(Config._wrap(scene_cfg(ref["root"], save, crop=crop))),
                           model=port_model(ref["variables"]), device="cpu",
                           verbose=False)
     probs, index_of = [], []
@@ -151,19 +181,19 @@ def test_semseg_tester_matches_jax(ref, tmp_path):
 
     def jax_noise(index, bucket, c_in):
         calls.append(index)
-        assert ref["noise"][index].shape == (bucket, c_in)
-        return np.array(ref["noise"][index])
+        assert run["noise"][index].shape == (bucket, c_in)
+        return np.array(run["noise"][index])
 
     miou = tester.test(noise_fn=jax_noise)
     # 2 scenes x 2 augmentations x the largest voxel occupancy of each
-    assert calls == list(range(len(ref["noise"]))) and len(calls) >= 4
-    assert len(probs) == len(ref["probs"])
-    for got, want in zip(probs, ref["probs"]):
+    assert calls == list(range(len(run["noise"]))) and len(calls) >= 4
+    assert len(probs) == len(run["probs"])
+    for got, want in zip(probs, run["probs"]):
         assert got.shape == want.shape
         assert np.abs(got - want).max() <= 1e-4
     # preds wherever the top two votes differ by more than 1e-4; then the
     # records and the files, which the tolerance leaves equal here
-    names = sorted(ref["records"])
+    names = sorted(run["records"])
     assert sorted(tester.records) == names
     got_out = outputs(save, names)
     for (first, count), name in zip(per_scene, names):
@@ -172,15 +202,22 @@ def test_semseg_tester_matches_jax(ref, tmp_path):
             votes[index_of[k]] += probs[k]
         top2 = np.sort(votes, axis=1)[:, -2:]
         decided = top2[:, 1] - top2[:, 0] > 1e-4
-        got_pred, want_pred = got_out[name][0], ref["out"][name][0]
+        got_pred, want_pred = got_out[name][0], run["out"][name][0]
         assert got_pred.dtype == want_pred.dtype and got_pred.shape == want_pred.shape
         np.testing.assert_array_equal(got_pred[decided], want_pred[decided])
         for k in ("intersection", "union", "target"):
-            np.testing.assert_array_equal(tester.records[name][k], ref["records"][name][k])
+            np.testing.assert_array_equal(tester.records[name][k], run["records"][name][k])
         np.testing.assert_array_equal(got_pred, want_pred)
-        assert got_out[name][1] == ref["out"][name][1]
-    assert miou == pytest.approx(ref["miou"], abs=0)
+        assert got_out[name][1] == run["out"][name][1]
+    assert miou == pytest.approx(run["miou"], abs=0)
     assert 0.0 <= tester.result["macc"] <= 1.0 and 0.0 <= tester.result["allacc"] <= 1.0
+    return tester, miou
+
+
+def test_semseg_tester_matches_jax(ref, tmp_path):
+    save = str(tmp_path / "port")
+    tester, miou = run_against_jax(ref, ref, save)
+    assert len(ref["noise"]) >= 4  # 2 scenes x 2 augmentations x voxel occupancy
 
     # a second run reads every scene's cached prediction: no forward
     rerun = SemSegTester(Config(Config._wrap(scene_cfg(ref["root"], save))),
@@ -190,6 +227,17 @@ def test_semseg_tester_matches_jax(ref, tmp_path):
     for name in ref["records"]:
         for k in ("intersection", "union", "target"):
             np.testing.assert_array_equal(rerun.records[name][k], ref["records"][name][k])
+
+
+def test_crop_tester_matches_jax(ref, crop_ref, tmp_path):
+    """The test-time covering crops (`SphereCrop` mode "all" after the grid
+    sampling): each crop is one forward; records, preds and submissions
+    equal JAX's, every raw point voted."""
+    assert len(crop_ref["noise"]) > len(ref["noise"])
+    tester, _ = run_against_jax(ref, crop_ref, str(tmp_path / "port"), crop=CROP)
+    for name in crop_ref["records"]:
+        assert np.load(tmp_path / "port" / "result" / f"{name}_pred.npy").shape == (300,)
+        assert tester.records[name]["target"].sum() == 300
 
 
 def test_noise_is_seeded_per_fragment(ref):

@@ -88,11 +88,6 @@ def test_elastic_distortion_with_and_without_scipy(scipy_present, monkeypatch):
         assert after == np.random.default_rng(3).random()  # and none at all
 
 
-def test_sphere_crop_all_is_not_ported():
-    with pytest.raises(NotImplementedError, match="test-time crops"):
-        ttransforms.SphereCrop(mode="all")
-
-
 def test_dropout_keeps_the_sampled_index():
     """Limited annotations: `RandomDropout` keeps every labelled point and
     re-indexes ``sampled_index`` as JAX does."""

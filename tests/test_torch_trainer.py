@@ -1,12 +1,13 @@
 """Port trainer against the JAX package: `SemSegEvaluator` with the same
 weights and noise, the device histograms, the overflow warning, checkpoint
 saving, the schedule of `configs/scannet/cdsegnet.py`, the metric and event
-files; then the port alone: a resumed run equals an uninterrupted one bit
-for bit, the training CLI end to end on the CPU, and the device and
-not-ported rules. JAX's hooks run on stub trainers: no JAX train step is
-compiled."""
+files, `RuntimeProfiler`'s window and its trace summary; then the port
+alone: a resumed run equals an uninterrupted one bit for bit, the training
+CLI end to end on the CPU, and the device and configuration rules. JAX's
+hooks run on stub trainers: no JAX train step is compiled."""
 
 import copy
+import glob
 import json
 import os
 import subprocess
@@ -27,6 +28,7 @@ from cdsegnet_tpu.data import loader as jloader  # noqa: E402
 from cdsegnet_tpu.data import native as jnative  # noqa: E402
 from cdsegnet_tpu.engine import events as jevents  # noqa: E402
 from cdsegnet_tpu.engine import hooks as jhooks  # noqa: E402
+from cdsegnet_tpu.engine import profiling as jprofiling  # noqa: E402
 from cdsegnet_tpu.engine.checkpoint import CheckpointManager as JManager  # noqa: E402
 from cdsegnet_tpu.engine.optimizer import onecycle_schedule as jonecycle  # noqa: E402
 from cdsegnet_tpu.engine.state import TrainState  # noqa: E402
@@ -41,6 +43,7 @@ from cdsegnet_torch.data import datasets as tdatasets  # noqa: E402
 from cdsegnet_torch.data import loader as tloader  # noqa: E402
 from cdsegnet_torch.engine import events as tevents  # noqa: E402
 from cdsegnet_torch.engine import hooks as thooks  # noqa: E402
+from cdsegnet_torch.engine import profiling as tprofiling  # noqa: E402
 from cdsegnet_torch.engine.checkpoint import CheckpointManager  # noqa: E402
 from cdsegnet_torch.engine.config import Config  # noqa: E402
 from cdsegnet_torch.engine.state import make_eval_step  # noqa: E402
@@ -509,14 +512,11 @@ def test_trainer_and_cli_refuse_the_cpu_unless_asked(root, tmp_path, monkeypatch
     pytest.param(dict(num_devices=2), "more than one GPU",
                  id="change0-more than one GPU"),
     pytest.param(dict(microbatch=3), "gradient accumulation",
-                 id="change1-gradient accumulation"),
-    pytest.param(dict(hooks=[dict(type="RuntimeProfiler")]), "RuntimeProfiler",
-                 id="change4-RuntimeProfiler")])
+                 id="change1-gradient accumulation")])
 def test_unported_trainer_options_raise(root, tmp_path, change, match):
     cfg = trainer_cfg(root, str(tmp_path))
     cfg.merge_from_dict(change)
-    error = {"more than one GPU": RuntimeError, "gradient accumulation": ValueError}.get(
-        match, NotImplementedError)
+    error = {"more than one GPU": RuntimeError, "gradient accumulation": ValueError}[match]
     with pytest.raises(error, match=match):
         TRAINERS.build(dict(cfg.get("train", dict(type="DefaultTrainer"))), cfg=cfg,
                        device="cpu")
@@ -536,3 +536,78 @@ def test_val_condition_is_ignored_without_model_conditions(root, tmp_path):
     got = tr.eval_step(batch, noise=noise)["seg_logits"]
     want = plain.eval_step(batch, noise=noise)["seg_logits"]
     assert torch.equal(got, want)
+
+
+class Window(thooks.HookBase):
+    """Records, before and after each step, the update count and whether
+    the profiler it follows is tracing."""
+
+    def __init__(self, profiler):
+        self.profiler, self.seen = profiler, []
+
+    def before_step(self):
+        self.seen.append(("before", self.trainer.step, self.profiler._prof is not None))
+
+    def after_step(self):
+        self.seen.append(("after", self.trainer.step, self.profiler._prof is not None))
+
+
+def jax_window(wait, active, steps, monkeypatch):
+    """JAX's `RuntimeProfiler` on a stub trainer: the update counts at
+    which it starts and stops its trace, and those after each step it
+    traced."""
+    calls, traced = [], []
+    monkeypatch.setattr(jprofiling.jax.profiler, "start_trace",
+                        lambda d: calls.append(("start", int(tr.state.step))))
+    monkeypatch.setattr(jprofiling.jax.profiler, "stop_trace",
+                        lambda: calls.append(("stop", int(tr.state.step))))
+    tr = types.SimpleNamespace(save_path="unused", state=types.SimpleNamespace(step=0),
+                               logger=Log())
+    hook = jprofiling.RuntimeProfiler(wait=wait, active=active, log_summary=False)
+    hook.trainer = tr
+    for _ in range(steps):
+        hook.before_step()
+        tr.state.step += 1
+        hook.after_step()
+        if hook._running:
+            traced.append(int(tr.state.step))
+    hook.after_train()
+    return calls, traced
+
+
+@pytest.mark.parametrize("wait,active", [(1, 2), (3, 5)])
+def test_runtime_profiler_window_and_summary_match_jax(root, tmp_path, monkeypatch,
+                                                       wait, active):
+    """On the tiny CPU trainer (4 steps): the trace starts and stops at
+    JAX's update counts (at the end of training when the window outlasts
+    it), lands where JAX's profiler writes, and JAX's `summarize_trace`
+    gives the port's list for it; the logged summary is that list."""
+    save = str(tmp_path / "run")
+    cfg = trainer_cfg(root, save, hooks=[
+        dict(type="RuntimeProfiler", wait=wait, active=active)])
+    tr = Trainer(cfg, device="cpu")
+    prof = tr.hooks[0]
+    window = Window(prof)
+    window.trainer = tr
+    tr.hooks.append(window)
+    lines = []
+    monkeypatch.setattr(tr.logger, "info", lambda msg: lines.append(msg))
+    tr.train()
+    assert tr.step == 4
+    traced = [step for when, step, on in window.seen if when == "after" and on]
+    started = [step for when, step, on in window.seen if when == "before" and on]
+    calls, want = jax_window(wait, active, 4, monkeypatch)
+    start, stop = calls[0][1], calls[1][1]
+    assert [c[0] for c in calls] == ["start", "stop"]
+    assert traced == want and started[0] == start, (window.seen, calls)
+    assert prof._prof is None  # stopped: after the window, or by after_train
+    files = glob.glob(os.path.join(save, "trace", "plugins", "profile", "*",
+                                   "*.trace.json.gz"))
+    assert len(files) == 1
+    got = tprofiling.summarize_trace(prof.trace_dir)
+    assert got and got == jprofiling.summarize_trace(prof.trace_dir)
+    summary = [ln for ln in lines if ln.startswith("[profile]")]
+    if stop < wait + active:  # stopped by after_train: no summary, as in JAX
+        assert summary == []
+    else:
+        assert summary == [f"[profile] {dur / 1e3:9.2f} ms {name[:90]}" for name, dur in got]

@@ -26,7 +26,6 @@ import copy
 import os
 import re
 import threading
-from concurrent.futures import ThreadPoolExecutor
 
 import pytest
 
@@ -173,17 +172,15 @@ JOBS = ([("eval", n) for n in MODELS] + [("train", n) for n in MODELS]
 
 @pytest.fixture(scope="module")
 def ref():
-    """Every JAX reference, compiled on parallel threads (each thread
-    records its own stochastic-depth masks); inputs are jit arguments."""
+    """Every JAX reference (each records its own stochastic-depth masks,
+    in its thread's list); inputs are jit arguments."""
     fns = dict(eval=_eval_ref, train=_train_ref, sparse=_sparse_ref)
     mods = (joct, jstrat, jswin)
     saved = [m.drop_path for m in mods]
     for m in mods:
         m.drop_path = _capturing_drop_path
     try:
-        with ThreadPoolExecutor(4) as ex:
-            outs = ex.map(lambda job: fns[job[0]](job[1]), JOBS)
-            return dict(zip(JOBS, outs))
+        return {job: fns[job[0]](job[1]) for job in JOBS}
     finally:
         for m, f in zip(mods, saved):
             m.drop_path = f

@@ -8,7 +8,11 @@ the layout that JAX's profiler writes and `summarize_trace` reads in both
 packages; then the heaviest event names, logged as ``[profile] <ms> <name>``.
 On the card the trace holds its activity (kernels, copies and the CUDA
 calls that launched them), so that the summary ranks the kernels, as JAX's
-ranks the device's fused ops; on the CPU it holds the host operators.
+ranks the device's fused ops; on the CPU it holds the host operators. A
+`utils.tracing` capture over the same window adds the port's spans
+(``train.*``, ``trainer.*``, ``geometry``) to the trace on its own clock,
+on tracks of their own, and its counters (``host_syncs`` on the card,
+``pyramid.*``), so that the summary ranks the spans beside the kernels.
 """
 
 from __future__ import annotations
@@ -18,13 +22,13 @@ import glob
 import gzip
 import json
 import os
-import shutil
 import socket
 import time
 
 import torch
 
 from cdsegnet_torch.engine.hooks import HOOKS, HookBase
+from cdsegnet_torch.utils import tracing
 
 
 def summarize_trace(trace_dir: str, top: int = 20):
@@ -53,7 +57,7 @@ class RuntimeProfiler(HookBase):
         self.wait = wait
         self.active = active
         self.log_summary = log_summary
-        self._prof = None
+        self._prof = self._spans = None
 
     @property
     def trace_dir(self) -> str:
@@ -66,6 +70,7 @@ class RuntimeProfiler(HookBase):
                 torch.profiler.ProfilerActivity.CPU
             self._prof = torch.profiler.profile(activities=[activity])
             self._prof.start()
+            self._spans = tracing.capture().start()
 
     def after_step(self):
         if self._prof is not None and self.trainer.step >= self.wait + self.active:
@@ -83,12 +88,16 @@ class RuntimeProfiler(HookBase):
         if torch.device(self.trainer.device).type == "cuda":
             torch.cuda.synchronize(self.trainer.device)
         self._prof.stop()
+        self._spans.stop()
         run = os.path.join(self.trace_dir, "plugins", "profile",
                            time.strftime("%Y_%m_%d_%H_%M_%S"))
         os.makedirs(run, exist_ok=True)
         path = os.path.join(run, f"{socket.gethostname()}.trace.json")
         self._prof.export_chrome_trace(path)
-        with open(path, "rb") as src, gzip.open(path + ".gz", "wb") as dst:
-            shutil.copyfileobj(src, dst)
+        with open(path) as f:
+            data = json.load(f)
+        data["traceEvents"] += self._spans.events(data["baseTimeNanoseconds"])
+        with gzip.open(path + ".gz", "wt") as f:
+            json.dump(data, f)
         os.remove(path)
-        self._prof = None
+        self._prof = self._spans = None

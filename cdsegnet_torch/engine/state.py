@@ -32,6 +32,7 @@ from cdsegnet_torch.engine.optimizer import KeywordOptimizer
 from cdsegnet_torch.models.losses import Criteria
 from cdsegnet_torch.models.structure import PointBatch, make_point_batch
 from cdsegnet_torch.parallel import dist
+from cdsegnet_torch.utils import tracing
 from cdsegnet_torch.utils.device import resolve_device
 
 
@@ -153,6 +154,10 @@ def make_train_step(model: torch.nn.Module, criteria: Criteria,
         return model(**pt, generators=generators, **model_kwargs, **inj)
 
     def step(point: Union[PointBatch, Dict, Sequence[PointBatch]], **inject) -> Dict:
+        with tracing.span("train.step"):
+            return _step(point, **inject)
+
+    def _step(point, **inject) -> Dict:
         micros = [point] if isinstance(point, (PointBatch, dict)) else list(point)
         if len(micros) != microbatch:
             raise ValueError(f"{len(micros)} micro buckets for microbatch={microbatch}")
@@ -162,9 +167,11 @@ def make_train_step(model: torch.nn.Module, criteria: Criteria,
         optimizer.zero_grad()
         losses, drops = [], []
         for pt, inj in zip(micros, injects):
-            out = forward(pt, inj)
-            loss = criteria(out, mode="train")
-            loss.backward()
+            with tracing.span("train.forward"):
+                out = forward(pt, inj)
+                loss = criteria(out, mode="train")
+            with tracing.span("train.backward"):
+                loss.backward()
             losses.append(loss.detach())
             drops.append(out.get("pyramid_dropped", ()))
         if getattr(model, "zero_unused_grads", False):
@@ -178,7 +185,8 @@ def make_train_step(model: torch.nn.Module, criteria: Criteria,
             for p in model.parameters():
                 if p.grad is not None:
                     p.grad.div_(microbatch)
-        optimizer.step()
+        with tracing.span("train.optimizer"):
+            optimizer.step()
         metrics = dict(loss=loss, valid_points=sum(
             (pt if isinstance(pt, PointBatch) else pt["view1"]).mask.sum() for pt in micros))
         for i, d in enumerate(zip(*drops)):

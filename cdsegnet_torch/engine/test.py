@@ -72,6 +72,7 @@ from cdsegnet_torch.models.builder import build_model
 from cdsegnet_torch.models.segmentor import CNFSegmentor, inference_ddim
 from cdsegnet_torch.models.structure import PointBatch
 from cdsegnet_torch.parallel import dist
+from cdsegnet_torch.utils import tracing
 from cdsegnet_torch.utils.device import resolve_device
 from cdsegnet_torch.utils.logger import get_root_logger
 from cdsegnet_torch.utils.misc import intersection_and_union
@@ -200,10 +201,13 @@ class SemSegTester:
                          feat_noise_fn: Optional[FeatNoiseFn] = None) -> torch.Tensor:
         """Softmax probabilities ``(n_frag, num_classes)``, f32 on the
         device, of fragment number ``index``."""
-        n_frag, point, noise = self._prepare_fragment(frag, index, noise_fn,
-                                                      feat_noise_fn)
-        logits = self.forward_fragment(point, noise)
-        return torch.softmax(logits[:n_frag].float(), dim=-1)
+        with tracing.span("infer.request"):
+            with tracing.span("infer.prepare"):
+                n_frag, point, noise = self._prepare_fragment(frag, index, noise_fn,
+                                                              feat_noise_fn)
+            with tracing.span("infer.forward"):
+                logits = self.forward_fragment(point, noise)
+                return torch.softmax(logits[:n_frag].float(), dim=-1)
 
     def _finalize_scene(self, ds, name: str, pred: np.ndarray,
                         segment: np.ndarray):

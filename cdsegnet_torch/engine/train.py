@@ -32,6 +32,7 @@ of generators.
 
 from __future__ import annotations
 
+import itertools
 import os
 from typing import Any, Dict, Optional, Union
 
@@ -47,6 +48,7 @@ from cdsegnet_torch.engine.state import (batch_to_point, make_eval_step,
                                          make_msc_train_step, make_train_step, msc_inputs)
 from cdsegnet_torch.models.builder import build_model, build_model_criteria
 from cdsegnet_torch.parallel import dist
+from cdsegnet_torch.utils import tracing
 from cdsegnet_torch.utils.device import resolve_device
 from cdsegnet_torch.utils.logger import get_root_logger
 from cdsegnet_torch.utils.registry import Registry
@@ -223,15 +225,23 @@ class Trainer:
         self._overflow_warned = 0
         for self.epoch in range(self.start_epoch, self.max_epoch):
             self._call_hooks("before_epoch")
-            for self.step_in_epoch, batch in enumerate(
-                    self.train_loader.epoch(self.epoch)):
-                ds_idx = batch.pop("_dataset_idx", None)
-                self._call_hooks("before_step")
-                points = self.batch_to_points(batch)
-                step = self._select_train_step(ds_idx)
-                self.comm_info["metrics"] = self._host_metrics(step(points))
-                self._warn_on_overflow(self.comm_info["metrics"])
-                self._call_hooks("after_step")
+            batches = iter(self.train_loader.epoch(self.epoch))
+            for i in itertools.count():
+                with tracing.span("trainer.iteration"):
+                    with tracing.span("trainer.data_wait"):
+                        batch = next(batches, None)
+                    if batch is None:
+                        break
+                    self.step_in_epoch = i
+                    ds_idx = batch.pop("_dataset_idx", None)
+                    self._call_hooks("before_step")
+                    with tracing.span("trainer.to_device"):
+                        points = self.batch_to_points(batch)
+                    metrics = self._select_train_step(ds_idx)(points)
+                    with tracing.span("trainer.metrics"):
+                        self.comm_info["metrics"] = self._host_metrics(metrics)
+                    self._warn_on_overflow(self.comm_info["metrics"])
+                    self._call_hooks("after_step")
             self._call_hooks("after_epoch")
         self._call_hooks("after_train")
         self.storage.close()

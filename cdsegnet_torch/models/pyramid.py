@@ -27,6 +27,7 @@ from cdsegnet_torch.models.structure import (
     serialize,
 )
 from cdsegnet_torch.ops import segments as seg_ops
+from cdsegnet_torch.utils import tracing
 
 
 @dataclasses.dataclass
@@ -263,6 +264,11 @@ def build_pyramid(
     per level, level 0 first, as JAX's ``jax.random.permutation`` of
     ``jax.random.split(shuffle_key, len(strides) + 1)[i]`` does.
     """
+    with tracing.span("geometry"):
+        return _build_pyramid(point, strides, capacities, orders, stem_kernel, exactness, perms)
+
+
+def _build_pyramid(point, strides, capacities, orders, stem_kernel, exactness, perms):
     if exactness not in ("cond", "parity", "sorted"):
         raise ValueError(f"unknown exactness {exactness!r}")
     if perms is None:
@@ -275,6 +281,9 @@ def build_pyramid(
     n_pool = len(levels) - 1
     if n_pool:
         drops = torch.stack([lv.dropped for lv in levels[1:]]).tolist()
+        if tracing.enabled():
+            for i, d in enumerate(drops, 1):
+                tracing.count(f"pyramid.dropped_l{i}", d)
         levels = [levels[0]] + [lv.replace(dropped=int(d))
                                 for lv, d in zip(levels[1:], drops)]
 
@@ -295,6 +304,8 @@ def build_pyramid(
         use_parity = True
     else:
         use_parity = sum(lv.dropped for lv in levels[1:]) == 0
+        if not use_parity:
+            tracing.count("pyramid.sorted_build")
     build = _parity_chain if use_parity else _sorted_tables
     tables, stem_nbr = build(levels, n_pool, want_k5)
     for tbl, lv in zip(tables, range(n_pool - 1, -1, -1)):

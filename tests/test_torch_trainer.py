@@ -8,6 +8,7 @@ hooks run on stub trainers: no JAX train step is compiled."""
 
 import copy
 import glob
+import gzip
 import json
 import os
 import subprocess
@@ -604,6 +605,10 @@ def test_runtime_profiler_window_and_summary_match_jax(root, tmp_path, monkeypat
     files = glob.glob(os.path.join(save, "trace", "plugins", "profile", "*",
                                    "*.trace.json.gz"))
     assert len(files) == 1
+    with gzip.open(files[0]) as f:
+        spans = [e for e in json.load(f)["traceEvents"] if e.get("cat") == "span"]
+    # the port's spans of the same window, merged on the trace's clock
+    assert {"trainer.data_wait", "train.step"} <= {e["name"] for e in spans if e["ph"] == "X"}
     got = tprofiling.summarize_trace(prof.trace_dir)
     assert got and got == jprofiling.summarize_trace(prof.trace_dir)
     summary = [ln for ln in lines if ln.startswith("[profile]")]

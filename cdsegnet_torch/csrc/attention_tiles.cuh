@@ -1,5 +1,6 @@
 // Building blocks of the tensor-core patch-attention kernels
-// (patch_attention_fwd.cu, patch_attention_bwd.cu), for Hopper (sm_90a).
+// (patch_attention_fwd.cu, patch_attention_bwd.cu), for Hopper (sm_90a);
+// subm_conv.cu takes its copy, ldmatrix and mma primitives.
 //
 // Each warp owns 16 rows of one side as m16n8k16 A fragments; the other side
 // streams through shared memory in bf16 tiles (cp.async, 16 bytes a thread),

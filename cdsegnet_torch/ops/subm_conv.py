@@ -1,13 +1,27 @@
-"""Submanifold sparse convolution as a neighbor gather plus one matmul.
+"""Submanifold sparse convolution: a neighbor gather plus one matmul on the
+CPU, hand-written implicit-GEMM kernels on the GPU.
 
 Port of `cdsegnet_tpu/ops/subm_conv.py`. Outputs exist only at input sites.
 The weight layout is ``(K, C_in, C_out)`` with K in `kernel_offsets` order;
-a missing neighbor (index N in the table) reads a zero row appended to the
-features, so no index ever falls outside the gathered tensor.
+a missing neighbor (index N in the table) reads a zero row.
+
+On a CPU tensor `subm_conv_apply` is the plain version: the gathered
+``(N, K C_in)`` rows times the flattened weight, under ordinary autograd. On
+a CUDA tensor it launches `cdsegnet_torch/csrc/subm_conv.cu` inside a
+`torch.autograd.Function`: the forward kernel reads each neighbor row into
+shared memory inside the product and skips the taps that no row of a 64-row
+tile reads (bfloat16; float32 keeps the gather + matmul forward, see
+`_forward`); the input gradient is the same kernel over the output gradient
+with the reflected weight (`reflected_weight`: the tables are symmetric);
+the weight gradient is a kernel that sums over the rows of the tiles that
+read each tap, in row splits that the wrapper adds in a fixed order. What
+autograd keeps is the features, the table and the weight, not the gathered
+rows.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import Optional
 
@@ -15,6 +29,13 @@ import numpy as np
 import torch
 
 from cdsegnet_torch.models.structure import _parity_bits, _parity_select_tables
+from cdsegnet_torch.utils.cuda_build import load_library
+
+KERNEL = "subm_conv"
+TILE_ROWS = 64  # rows of a tile whose taps a launch skips together
+MAX_TAPS = 128
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 class _GatherRows(torch.autograd.Function):
@@ -57,6 +78,17 @@ def _gather_rows(feat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return gather_rows(padded, idx.reshape(-1), len(feat))
 
 
+def _plain_conv(feat, neighbor_idx, weight, bias):
+    """The plain version: gather the neighbor rows, one matmul."""
+    n, c_in = feat.shape
+    k = neighbor_idx.shape[1]
+    g = _gather_rows(feat, neighbor_idx).reshape(n, k * c_in)
+    out = g @ weight.reshape(k * c_in, -1).to(feat.dtype)
+    if bias is not None:
+        out = out + bias.to(feat.dtype)
+    return out
+
+
 def subm_conv_apply(
     feat: torch.Tensor,
     neighbor_idx: torch.Tensor,
@@ -67,22 +99,218 @@ def subm_conv_apply(
 
     Args:
       feat: (N, C_in) features.
-      neighbor_idx: (N, K) int; value N marks missing neighbors.
+      neighbor_idx: (N, K) int; value N marks missing neighbors. On the GPU
+        the table must be symmetric (row i reads j at tap k exactly when j
+        reads i at tap K-1-k), as every table `models.structure` builds is.
       weight: (K, C_in, C_out).
       bias: optional (C_out,).
 
     Returns:
       (N, C_out) in ``feat.dtype`` (float32 accumulation).
     """
-    n, c_in = feat.shape
     k = neighbor_idx.shape[1]
     if weight.shape[0] != k:
         raise ValueError(f"weight taps {weight.shape[0]} != table width {k}")
-    g = _gather_rows(feat, neighbor_idx).reshape(n, k * c_in)
-    out = g @ weight.reshape(k * c_in, -1).to(feat.dtype)
+    if feat.device.type == "cpu":
+        return _plain_conv(feat, neighbor_idx, weight, bias)
+    if feat.device.type != "cuda":
+        raise ValueError(f"no kernel for device {feat.device}")
+    feat, neighbor_idx = feat.contiguous(), neighbor_idx.to(torch.int32).contiguous()
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (feat, weight, bias)):
+        return _SubMConvGemm.apply(feat, neighbor_idx, weight, bias)
+    return _forward(feat, neighbor_idx, weight, bias, None)
+
+
+def _forward(feat, neighbor_idx, weight, bias, taps):
+    """The conv's value on CUDA tensors; ``taps`` (uint8, when given)
+    receives `tile_taps`. bfloat16 runs the forward kernel. float32 keeps
+    the plain gather + matmul, whose product is the library's to the bit:
+    a sound change of the order of the float32 sums (the kernel's, or the
+    plain form's own taken tap by tap) moves SpUNet's first gradients of
+    its BatchNorm parameters by about 1e-3 of their norm, past what the
+    benchmark's float32 reference allows (PERF.md §6); both gradients
+    still run the kernels."""
+    if feat.dtype != torch.float32:
+        return subm_conv_gemm_fwd(feat, neighbor_idx, weight, bias, tile_taps=taps)
+    if taps is not None:
+        taps.copy_(tile_taps(neighbor_idx))
+    return _plain_conv(feat, neighbor_idx, weight, bias)
+
+
+# ---------------------------------------------------------------------------
+# the kernels' wrappers (CUDA tensors only)
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel(symbol: str):
+    fn = getattr(load_library(KERNEL), f"cdseg_subm_conv_gemm_{symbol}")
+    fn.argtypes = {"fwd": [_P] * 7 + [_I] * 7 + [_P],
+                   "wgrad": [_P] * 5 + [_I] * 6 + [_P],
+                   "fwd_splits": [_I] * 6, "splits": [_I] * 6}[symbol]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: CUDA error {err}")
+
+
+def _check(x, neighbor_idx, c_in, what):
+    """Raise on inputs the kernels do not take; ``x`` is (N, c_in)."""
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"{what}: features must be float32 or bfloat16, got {x.dtype}")
+    if x.dim() != 2 or x.shape[1] != c_in:
+        raise ValueError(f"{what}: features {tuple(x.shape)} do not have {c_in} channels")
+    if neighbor_idx.dtype != torch.int32 or neighbor_idx.dim() != 2 \
+            or neighbor_idx.shape[0] != x.shape[0]:
+        raise TypeError(f"{what}: the table must be int32 of shape (N, K), got "
+                        f"{neighbor_idx.dtype} {tuple(neighbor_idx.shape)}")
+    if not 0 < neighbor_idx.shape[1] <= MAX_TAPS:
+        raise ValueError(f"{what}: {neighbor_idx.shape[1]} taps (at most {MAX_TAPS})")
+    for name, t in (("features", x), ("table", neighbor_idx)):
+        if t.device != x.device:
+            raise ValueError(f"{what}: {name} on {t.device}, features on {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
+
+
+def _launch_fwd(x, neighbor_idx, w, bias, tile_taps):
+    """The forward kernel: ``conv(x) + bias`` with ``w`` (K, C_in, C_out)
+    in x's dtype; fills ``tile_taps`` when given. Where the kernel splits
+    its blocks' taps (few rows, wide channels), the splits' float32 shares
+    are summed here in a fixed order."""
+    n, (k, c_in, c_out) = x.shape[0], w.shape
+    _check(x, neighbor_idx, c_in, "subm_conv_gemm_fwd")
+    if n == 0:
+        return torch.empty((n, c_out), dtype=x.dtype, device=x.device)
     if bias is not None:
-        out = out + bias.to(feat.dtype)
-    return out
+        bias = bias.to(device=x.device, dtype=torch.float32).contiguous()
+    is_bf16, sms = _DTYPES[x.dtype], _sms(x.device.index or 0)
+    splits = _kernel("fwd_splits")(n, k, c_in, c_out, is_bf16, sms)
+    y = partial = None
+    if splits > 1:
+        partial = torch.empty((splits, n, c_out), dtype=torch.float32, device=x.device)
+    else:
+        y = torch.empty((n, c_out), dtype=x.dtype, device=x.device)
+    _raise_on(_kernel("fwd")(
+        x.data_ptr(), neighbor_idx.data_ptr(), w.data_ptr(),
+        None if bias is None else bias.data_ptr(), None if y is None else y.data_ptr(),
+        None if partial is None else partial.data_ptr(),
+        None if tile_taps is None else tile_taps.data_ptr(), n, k, c_in, c_out, splits,
+        is_bf16, sms, _stream(x)), "subm_conv_gemm_fwd")
+    return y if partial is None else partial.sum(0).to(x.dtype)
+
+
+def subm_conv_gemm_fwd(feat, neighbor_idx, weight, bias=None, tile_taps=None):
+    """The forward kernel: ``subm_conv_apply``'s value on CUDA tensors.
+    ``tile_taps``, a uint8 ``(ceil(N / 64), K)`` tensor, receives which taps
+    each 64-row tile reads (the weight gradient's input)."""
+    w = weight.detach().to(feat.dtype).contiguous()
+    y = _launch_fwd(feat, neighbor_idx, w, bias, tile_taps)
+    subm_conv_gemm_fwd.launches += 1
+    return y
+
+
+def subm_conv_gemm_dgrad(grad_out, neighbor_idx, weight):
+    """The input gradient: the forward kernel over ``grad_out`` with the
+    reflected weight (`reflected_weight`)."""
+    w = reflected_weight(weight.detach().to(grad_out.dtype)).contiguous()
+    dx = _launch_fwd(grad_out, neighbor_idx, w, None, None)
+    subm_conv_gemm_dgrad.launches += 1
+    return dx
+
+
+def subm_conv_gemm_wgrad(feat, neighbor_idx, grad_out, tile_taps):
+    """The weight-gradient kernel: (K, C_in, C_out) in float32, summed over
+    the rows of the tiles that ``tile_taps`` marks for each tap."""
+    n, c_in = feat.shape
+    k, c_out = neighbor_idx.shape[1], grad_out.shape[1]
+    _check(feat, neighbor_idx, c_in, "subm_conv_gemm_wgrad")
+    _check(grad_out, neighbor_idx, c_out, "subm_conv_gemm_wgrad")
+    if grad_out.dtype != feat.dtype:
+        raise TypeError(f"gradient {grad_out.dtype} and features {feat.dtype} differ")
+    if n == 0:
+        return torch.zeros((k, c_in, c_out), dtype=torch.float32, device=feat.device)
+    is_bf16 = _DTYPES[feat.dtype]
+    splits = _kernel("splits")(n, k, c_in, c_out, is_bf16, _sms(feat.device.index or 0))
+    partial = torch.empty((splits, k, c_in, c_out), dtype=torch.float32, device=feat.device)
+    _raise_on(_kernel("wgrad")(
+        feat.data_ptr(), neighbor_idx.data_ptr(), grad_out.data_ptr(), tile_taps.data_ptr(),
+        partial.data_ptr(), n, k, c_in, c_out, splits, is_bf16, _stream(feat)),
+        "subm_conv_gemm_wgrad")
+    subm_conv_gemm_wgrad.launches += 1
+    return partial.sum(0)
+
+
+for _fn in (subm_conv_gemm_fwd, subm_conv_gemm_dgrad, subm_conv_gemm_wgrad):
+    _fn.launches = 0
+
+
+class _SubMConvGemm(torch.autograd.Function):
+    """`_forward`; the input gradient through the forward kernel and the
+    reflected weight, the weight gradient through its own kernel. Saves
+    the features, the table, the weight and the tiles' taps."""
+
+    @staticmethod
+    def forward(ctx, feat, neighbor_idx, weight, bias):
+        taps = None
+        if ctx.needs_input_grad[2]:
+            taps = torch.empty((-(-feat.shape[0] // TILE_ROWS), neighbor_idx.shape[1]),
+                               dtype=torch.uint8, device=feat.device)
+        out = _forward(feat, neighbor_idx, weight, bias, taps)
+        ctx.save_for_backward(feat, neighbor_idx, weight, taps)
+        ctx.bias_dtype = None if bias is None else bias.dtype
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        feat, neighbor_idx, weight, taps = ctx.saved_tensors
+        g = g.contiguous()
+        d_feat = d_weight = d_bias = None
+        if ctx.needs_input_grad[0]:
+            d_feat = subm_conv_gemm_dgrad(g, neighbor_idx, weight)
+        if ctx.needs_input_grad[2]:
+            d_weight = subm_conv_gemm_wgrad(feat, neighbor_idx, g, taps).to(weight.dtype)
+        if ctx.needs_input_grad[3]:
+            d_bias = g.float().sum(0).to(ctx.bias_dtype)
+        return d_feat, None, d_weight, d_bias
+
+
+# ---------------------------------------------------------------------------
+# the kernels' arithmetic in plain PyTorch (tests, chip_smoke.py)
+
+
+def reflected_weight(weight: torch.Tensor) -> torch.Tensor:
+    """``W'[k] = W[K-1-k]^T``, (K, C_out, C_in): over a symmetric table the
+    input gradient of a conv is the conv of the output gradient with W'."""
+    return weight.flip(0).transpose(1, 2)
+
+
+def tile_taps(neighbor_idx: torch.Tensor, block_rows: int = TILE_ROWS) -> torch.Tensor:
+    """(ceil(N / block_rows), K) bool: whether some row of each tile of
+    ``block_rows`` rows has a neighbor at each tap."""
+    n, k = neighbor_idx.shape
+    tiles = -(-n // block_rows)
+    hit = torch.zeros((tiles * block_rows, k), dtype=torch.bool, device=neighbor_idx.device)
+    hit[:n] = neighbor_idx != n
+    return hit.reshape(tiles, block_rows, k).any(1)
+
+
+def tile_tap_share(neighbor_idx: torch.Tensor, block_rows: int = TILE_ROWS) -> float:
+    """The share of (tile, tap) pairs that a launch over ``neighbor_idx``
+    runs with tiles of ``block_rows`` rows (reads the answer to the host)."""
+    return tile_taps(neighbor_idx, block_rows).float().mean().item()
 
 
 def _block_diagonal(weight_a, weight_b, dtype):

@@ -133,18 +133,23 @@ class _Open:
 
 def _launches() -> Dict[str, int]:
     from cdsegnet_torch.ops import flash_attention as fa
+    from cdsegnet_torch.ops import subm_conv as sc
 
     return dict(fwd=fa.patch_attention_fwd.launches,
                 fwd_lse=fa.patch_attention_fwd.lse_launches,
                 dq=fa.patch_attention_bwd_dq.launches,
-                dkdv=fa.patch_attention_bwd_dkdv.launches)
+                dkdv=fa.patch_attention_bwd_dkdv.launches,
+                conv_fwd=sc.subm_conv_gemm_fwd.launches,
+                conv_dgrad=sc.subm_conv_gemm_dgrad.launches,
+                conv_wgrad=sc.subm_conv_gemm_wgrad.launches)
 
 
 class Capture:
     """What one `capture` recorded: ``spans`` (`Span`, by start),
     ``counters`` (totals by name), ``counts`` (each increment as ``(time,
-    name, span id or None, n)``), ``launches`` (the attention kernels
-    launched meanwhile: ``fwd``, ``fwd_lse``, ``dq``, ``dkdv``),
+    name, span id or None, n)``), ``launches`` (the kernels launched
+    meanwhile: attention ``fwd``, ``fwd_lse``, ``dq``, ``dkdv``; the
+    submanifold conv's ``conv_fwd``, ``conv_dgrad``, ``conv_wgrad``),
     ``thread`` (the thread that opened it) and ``start_ns``/``end_ns``."""
 
     def __init__(self):

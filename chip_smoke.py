@@ -235,7 +235,18 @@ Phases, each fatal on failure:
    uncached one's array for array, one trace file, the hook's logged
    summary, and the three ``*_mma_kernel``s among the 100 heaviest names of
    the trace (`summarize_trace`). Prints the step ms with
-   and without the profiler and the cache's first and later scene loads.
+   and without the profiler and the cache's first and later scene loads;
+23. conv: the submanifold conv's implicit-GEMM kernels
+   (`cdsegnet_torch/csrc/subm_conv.cu`: forward, input gradient, weight
+   gradient) at the training shapes. One step each of SpUNet (f32, the
+   shipped config) and the flagship (bf16) on phase 6's bucket reads the
+   launches from the wrappers' counters and holds them to the convs that
+   forward hooks saw run, with their tables and widths (one weight gradient
+   per conv, an input gradient for all but the stems, a forward per bf16
+   conv: f32 convs forward by gather + matmul); each
+   distinct shape is checked against the plain version (``TOL_CONV``) and
+   timed beside its bound, the plain gather + matmul (forward and
+   backward) and the dense product of the gathered rows; sums per step.
 
 Each phase prints its wall time (``phase <name> wall``). The last three lines are a JSON summary of the kernels, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``. Without a GPU, or
@@ -267,6 +278,11 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 NUM_POINTS = 104448  # the bench scene of the JAX package (bench.py)
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # H100 SXM, dense
 PEAK_BYTES = 3.35e12
+# conv kernels against the plain version, of the largest |plain value|: f32
+# sums in another order; bf16 outputs rounded once (the plain version rounds
+# its product, then its bias add); weight gradients in f32 on both sides
+TOL_CONV = {"float32": dict(fwd=1e-5, dgrad=1e-5, wgrad=1e-5),
+            "bfloat16": dict(fwd=1e-2, dgrad=1e-2, wgrad=1e-3)}
 SFU_EXP_PER_S = 16 * 132 * 1.98e9  # exp2 per clock per SM x SMs x boost clock
 # kernel vs plain version on the same inputs: f32 is f32 arithmetic on both
 # sides; in bf16 the plain version rounds p to bf16 before p.v
@@ -3930,6 +3946,205 @@ def phase_host(torch, config, cfg, tmp, ckpt, n_raw, scene, n_launches, n_train_
     return result
 
 
+CONV_KINDS = ("fwd", "dgrad", "wgrad")
+
+
+@contextlib.contextmanager
+def recorded_convs(sc, model, calls):
+    """While open, observe each submanifold conv of ``model`` that runs
+    the kernels, from forward hooks (the launch path is left as it is):
+    ``(table, C_in, C_out, dtype, input needs a gradient)`` in ``calls``.
+    A `SubMConv` ran them when its output comes from the kernels' autograd
+    Function (the blocked forms gather); a `DualEmbedding` (bf16) when the
+    forward kernel's counter moved."""
+    from cdsegnet_torch.models.modules import SubMConv
+    from cdsegnet_torch.models.ptv3 import DualEmbedding
+
+    def arg(args, kwargs, i, name):
+        return args[i] if len(args) > i else kwargs[name]
+
+    def on_conv(module, args, kwargs, out):
+        if isinstance(out.grad_fn, sc._SubMConvGemm._backward_cls):
+            feat = arg(args, kwargs, 0, "feat")
+            _, c_in, c_out = module.weight.shape
+            calls.append((arg(args, kwargs, 1, "neighbor_idx"), c_in, c_out, module.dtype,
+                          feat.requires_grad))
+
+    def before_stem(module, args, kwargs):
+        module._conv_fwd_before = sc.subm_conv_gemm_fwd.launches
+
+    def on_stem(module, args, kwargs, out):
+        if sc.subm_conv_gemm_fwd.launches > module._conv_fwd_before:
+            n_feat, c_feat = arg(args, kwargs, 0, "n_feat"), arg(args, kwargs, 1, "c_feat")
+            c_in = module.n_weight.shape[1] + module.c_weight.shape[1]
+            c_out = module.n_weight.shape[2] + module.c_weight.shape[2]
+            calls.append((arg(args, kwargs, 3, "stem_neighbor"), c_in, c_out, module.dtype,
+                          n_feat.requires_grad or c_feat.requires_grad))
+
+    handles = []
+    for m in model.modules():
+        if isinstance(m, SubMConv):
+            handles.append(m.register_forward_hook(on_conv, with_kwargs=True))
+        elif isinstance(m, DualEmbedding):
+            handles.append(m.register_forward_pre_hook(before_stem, with_kwargs=True))
+            handles.append(m.register_forward_hook(on_stem, with_kwargs=True))
+    try:
+        yield calls
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def conv_launches(torch, calls):
+    """The kernels' launches that ``calls`` make: a weight gradient each, an
+    input gradient where the input needs one, a forward each in bf16 (f32
+    convs forward by gather + matmul, `subm_conv._forward`)."""
+    out = collections.Counter(wgrad=len(calls))
+    out["dgrad"] = sum(1 for c in calls if c[4])
+    out["fwd"] = sum(1 for c in calls if c[3] == torch.bfloat16)
+    return out
+
+
+def conv_rows(torch, sc, calls):
+    """Per distinct (table, C_in, C_out, dtype) of ``calls``: its launches
+    per step by kind, and the kernels' times (CUDA events) on random inputs
+    of its shape beside the bound, the plain version (gather + matmul,
+    forward and autograd's backward) and the dense product of the gathered
+    rows (``torch.matmul``, the yardstick)."""
+    shapes = collections.OrderedDict()
+    for call in calls:
+        nbr, c_in, c_out, dtype = call[:4]
+        key = (nbr.data_ptr(), tuple(nbr.shape), c_in, c_out, dtype)
+        shapes.setdefault(key, dict(nbr=nbr.to(torch.int32).contiguous(),
+                                    launches=collections.Counter()))
+        shapes[key]["launches"].update(conv_launches(torch, [call]))
+    rows = []
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for (_, (n, k), c_in, c_out, dtype), entry in shapes.items():
+        nbr = entry["nbr"]
+        name = "bfloat16" if dtype == torch.bfloat16 else "float32"
+        x = torch.randn((n, c_in), device="cuda", generator=gen).to(dtype)
+        w = torch.randn((k, c_in, c_out), device="cuda", generator=gen) / (k * c_in) ** 0.5
+        dy = torch.randn((n, c_out), device="cuda", generator=gen).to(dtype)
+        taps = torch.empty((-(-n // sc.TILE_ROWS), k), dtype=torch.uint8, device="cuda")
+        y = sc.subm_conv_gemm_fwd(x, nbr, w, tile_taps=taps)
+        want = sc._plain_conv(x, nbr, w, None)
+        dx = sc.subm_conv_gemm_dgrad(dy, nbr, w)
+        want_dx = sc._plain_conv(dy, nbr, sc.reflected_weight(w).contiguous(), None)
+        dw = sc.subm_conv_gemm_wgrad(x, nbr, dy, taps)
+        gathered = torch.cat([x, x.new_zeros((1, c_in))])[nbr.long()].reshape(n, k * c_in)
+        want_dw = (gathered.float().T @ dy.float()).reshape(k, c_in, c_out)
+        err = {key: ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+               for key, a, b in (("fwd", y, want), ("dgrad", dx, want_dx),
+                                 ("wgrad", dw, want_dw))}
+        tol = TOL_CONV[name]
+        if not all(e <= tol[key] for key, e in err.items()):
+            fail(f"conv kernels against the plain version at {(n, k, c_in, c_out, name)}: {err}")
+        pairs = int((nbr < n).sum().item())
+        size = x.element_size()
+        flops = 2 * pairs * c_in * c_out
+        table_bytes = n * k * 4
+        bounds = dict(
+            fwd=shape_bound(flops, (n * (c_in + c_out) + k * c_in * c_out) * size + table_bytes,
+                            name),
+            dgrad=shape_bound(flops, (n * (c_in + c_out) + k * c_in * c_out) * size
+                              + table_bytes, name),
+            wgrad=shape_bound(flops, n * (c_in + c_out) * size + k * c_in * c_out * 4
+                              + table_bytes, name))
+        times = dict(fwd=cuda_ms(torch, lambda: sc.subm_conv_gemm_fwd(x, nbr, w, tile_taps=taps)),
+                     dgrad=cuda_ms(torch, lambda: sc.subm_conv_gemm_dgrad(dy, nbr, w)),
+                     wgrad=cuda_ms(torch, lambda: sc.subm_conv_gemm_wgrad(x, nbr, dy, taps)))
+        xp, wp = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        plain_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+            sc._plain_conv(xp, nbr, wp, None), (xp, wp), dy), warmup=1, iters=3)
+        wf = w.to(dtype).reshape(k * c_in, c_out)
+        library_ms = cuda_ms(torch, lambda: gathered @ wf)
+        row = dict(n=n, k=k, c_in=c_in, c_out=c_out, dtype=name, pairs=pairs,
+                   tile_tap_share=sc.tile_tap_share(nbr), launches=dict(entry["launches"]),
+                   max_rel_err=err, ms=times,
+                   bound_ms={d: b["bound_ms"] for d, b in bounds.items()},
+                   bound_by={d: b["bound_by"] for d, b in bounds.items()},
+                   plain_fwd_bwd_ms=plain_ms, library_fwd_ms=library_ms)
+        print("conv shape " + json.dumps(row), flush=True)
+        rows.append(row)
+        del x, dy, gathered, y, want, dx, want_dx
+        torch.cuda.empty_cache()
+    return rows
+
+
+def conv_step_sums(rows):
+    """Per training step: the kernels' ms by kind, their bound, the plain
+    version's forward and backward and the dense yardstick's forward (f32
+    steps run the plain forward: their ``fwd_ms`` is 0)."""
+    out = {}
+    for kind in ("fwd", "dgrad", "wgrad"):
+        out[f"{kind}_ms"] = sum(r["ms"][kind] * r["launches"].get(kind, 0) for r in rows)
+        out[f"{kind}_bound_ms"] = sum(r["bound_ms"][kind] * r["launches"].get(kind, 0)
+                                      for r in rows)
+    # one weight gradient per conv of the step
+    out["plain_fwd_bwd_ms"] = sum(r["plain_fwd_bwd_ms"] * r["launches"]["wgrad"] for r in rows)
+    out["library_fwd_ms"] = sum(r["library_fwd_ms"] * r["launches"]["wgrad"] for r in rows)
+    return out
+
+
+def phase_conv(torch, conf, point, card):
+    """Phase 23: the submanifold conv's implicit-GEMM kernels at the
+    training cells' shapes. One training step each of SpUNet (f32, its
+    shipped config) and the flagship (bf16) counts the kernels' launches
+    (forward, input gradient, weight gradient) on the wrappers' counters,
+    set to 0 before the step, and holds them to the convs that forward
+    hooks saw run with their tables and widths: one weight gradient per
+    conv, an input gradient for all but the stems, a forward per conv in
+    bf16 and none in f32 (`subm_conv._forward`). Each distinct
+    shape (the f32 forward kernel included: the input gradient runs it) is
+    then checked against the plain
+    version and timed beside its bound, the plain version and the dense
+    yardstick; sums per step."""
+    from cdsegnet_torch.engine.state import make_train_step
+    from cdsegnet_torch.ops import subm_conv as sc
+
+    from cdsegnet_torch.engine.optimizer import build_optimizer
+    from cdsegnet_torch.models.builder import build_model, build_model_criteria
+
+    res = dict(card=card)
+    for name, c in (("spunet", load_config(SPARSE_CONFIGS["spunet"])), ("cdsegnet", conf)):
+        model_cfg = copy.deepcopy(dict(c["model"]))
+        model = build_model(model_cfg, device="cuda", generator=torch.Generator().manual_seed(0))
+        criteria = build_model_criteria(model_cfg)
+        opt = build_optimizer(dict(c["optimizer"]), model, dict(c["scheduler"]),
+                              total_steps=TRAIN_TOTAL_STEPS,
+                              param_dicts=[dict(p) for p in c.get("param_dicts", [])],
+                              clip_keywords=c.get("gredient_clip", []), device="cuda")
+        step = make_train_step(model, criteria, opt, seed=0, device="cuda")
+        step(point)  # the first step builds what it caches
+        torch.cuda.synchronize()
+        calls = []
+        for kind in CONV_KINDS:
+            getattr(sc, f"subm_conv_gemm_{kind}").launches = 0
+        with recorded_convs(sc, model, calls):
+            step(point)
+            torch.cuda.synchronize()
+        # the wrappers' own counters, against what the observed convs launch
+        counts = {kind: getattr(sc, f"subm_conv_gemm_{kind}").launches for kind in CONV_KINDS}
+        want = conv_launches(torch, calls)
+        tables = sorted({tuple(c[0].shape) for c in calls})
+        print(f"conv {name} launches per step {counts} (observed convs {dict(want)}), "
+              f"tables {tables}", flush=True)
+        # bf16 forwards through the kernel, f32 through gather + matmul
+        fwd = counts["wgrad"] if name == "cdsegnet" else 0
+        if counts != {kind: want[kind] for kind in CONV_KINDS} or not counts["wgrad"] \
+                or counts["fwd"] != fwd or not 0 < counts["dgrad"] <= counts["wgrad"]:
+            fail(f"{name}: conv launches per step {counts}, the observed convs {dict(want)}")
+        del step, opt, model, criteria
+        torch.cuda.empty_cache()
+        rows = conv_rows(torch, sc, calls)
+        res[name] = dict(launches=dict(counts), per_step=conv_step_sums(rows),
+                         shapes=len(rows))
+        print(f"conv {name} per step " + json.dumps(res[name]), flush=True)
+    print("conv " + json.dumps(res), flush=True)
+    return res
+
+
 def step_sums(rows, direction):
     """bf16 sums per training step in ``direction`` over the rows' launches,
     each timed on its level's real scene ids and validity."""
@@ -3987,8 +4202,12 @@ def main() -> int:
 
 def run_phases(torch, config: str, runtime: str, tmp: str, start: float) -> int:
     """Every phase, in order; ``tmp`` holds the tester's scene and outputs."""
-    from cdsegnet_torch.ops.flash_attention import BWD_KERNEL, KERNEL, SOURCES
+    from cdsegnet_torch.ops import subm_conv
+    from cdsegnet_torch.ops.flash_attention import BWD_KERNEL, KERNEL
+    from cdsegnet_torch.ops.flash_attention import SOURCES as ATTENTION_SOURCES
     from cdsegnet_torch.utils import cuda_build
+
+    sources = ATTENTION_SOURCES + (subm_conv.KERNEL,)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3997,8 +4216,8 @@ def run_phases(torch, config: str, runtime: str, tmp: str, start: float) -> int:
     print(f"card {card}", flush=True)
     clock = PhaseClock(start)
 
-    took = cuda_build.build(*SOURCES)
-    for name in SOURCES:
+    took = cuda_build.build(*sources)
+    for name in sources:
         print(f"build {name} in {took[name]:.1f} s", flush=True)
         for line in cuda_build.build_log(name).splitlines():
             if "registers" in line or "spill" in line or "entry function" in line:
@@ -4006,11 +4225,12 @@ def run_phases(torch, config: str, runtime: str, tmp: str, start: float) -> int:
             if re.search(r"[1-9]\d* bytes spill", line):
                 fail(f"{name} spills registers: {line.strip()}")
     hmma = {}
-    for name in SOURCES:
+    for name in sources:
         for fn, count in sorted(cuda_build.sass_counts(name, "HMMA").items()):
             print(f"build sass {name}: HMMA {count} in {fn}", flush=True)
             hmma[fn] = count
-    for kernel in ("fwd_mma_kernel", "bwd_dq_mma_kernel", "bwd_dkdv_mma_kernel"):
+    for kernel in ("fwd_mma_kernel", "bwd_dq_mma_kernel", "bwd_dkdv_mma_kernel",
+                   "subm_conv_gemm_fwd_mma", "subm_conv_gemm_wgrad_mma"):
         if not any(kernel in fn and count > 0 for fn, count in hmma.items()):
             fail(f"the bf16 {kernel} has no tensor-core instruction")
     clock("build")
@@ -4191,9 +4411,12 @@ def run_phases(torch, config: str, runtime: str, tmp: str, start: float) -> int:
     msc = phase_msc(torch, tmp, card)
     clock("msc")
     ppt = phase_ppt(torch, point, train_point, tmp, card)
-    del point, train_point
     torch.cuda.empty_cache()
     clock("ppt")
+    conv = phase_conv(torch, conf, train_point, card)
+    del point, train_point
+    torch.cuda.empty_cache()
+    clock("conv")
     host = phase_host(torch, config, cfg, tmp, ckpt, n_raw, c_scene, len(launches),
                       len(train_launches), card)
     del c_scene
@@ -4324,6 +4547,16 @@ def run_phases(torch, config: str, runtime: str, tmp: str, start: float) -> int:
                 zoo=dict(launches=zoo["attention_launches"][counted]),
                 ppt=dict(train_launch_sums(train_rows, train_launches, direction),
                          launches=ppt["dual"]["step_launches"][counted]))))
+    # the submanifold conv's kernels replace no TPU kernel (the JAX package
+    # gathers and multiplies through XLA): per training step of phase 23
+    for kind in ("fwd", "dgrad", "wgrad"):
+        kernels.append(dict(
+            name=f"subm_conv_gemm_{kind}", route="cuda",
+            source=f"cdsegnet_torch/csrc/{subm_conv.KERNEL}.cu", replaces=None,
+            paths={m: dict(launches=conv[m]["launches"].get(kind, 0),
+                           ms=conv[m]["per_step"][f"{kind}_ms"],
+                           bound_ms=conv[m]["per_step"][f"{kind}_bound_ms"])
+                   for m in ("spunet", "cdsegnet")}))
     print(f"wall time {time.perf_counter() - start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)

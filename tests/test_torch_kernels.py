@@ -264,3 +264,127 @@ def test_backward_kernels_are_deterministic_on_gpu(cuda_device, case, dtype):
                                                            b, m, patch, scale))
     for name, a, w in zip(("dq", "delta", "dk", "dv"), *runs):
         assert torch.equal(a, w), name
+
+
+# ---------------------------------------------------------------------------
+# the submanifold conv's implicit-GEMM kernels (csrc/subm_conv.cu)
+
+# (dtype, pyramid level, C_in, C_out, table): SpUNet's f32 convs (level 0
+# at 96 channels, the k125 stem from 6 channels, a pooled level with
+# padding tiles), the xCPE widths of the flagship's bf16 levels, and a bf16
+# k125 stem
+CONV_CASES = [("float32", 0, 96, 96, "k3"), ("float32", 0, 6, 32, "stem"),
+              ("float32", 1, 32, 32, "k3"), ("float32", 3, 256, 256, "k3"),
+              ("bfloat16", 0, 32, 32, "k3"), ("bfloat16", 0, 64, 64, "k3"),
+              ("bfloat16", 2, 128, 128, "k3"), ("bfloat16", 3, 256, 256, "k3"),
+              ("bfloat16", 4, 512, 512, "k3"), ("bfloat16", 0, 6, 48, "stem")]
+
+
+@pytest.fixture(scope="module")
+def conv_pyramid():
+    """SpUNet's pyramid of the 204,800-slot training bucket (2 scenes,
+    depth 12) on the GPU: its levels and the k125 stem table."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the kernel has no CPU mode)")
+    from cdsegnet_torch.models.spunet import SpUNet
+    from cdsegnet_torch.utils.synthetic import synthetic_point_batch
+
+    point = synthetic_point_batch(204800, 2, depth=12, seed=0, device="cuda")
+    return SpUNet().precompute_geometry(point)
+
+
+def conv_inputs(conv_pyramid, case, seed=0):
+    dtype, level, c_in, c_out, table = case
+    levels, stem = conv_pyramid
+    nbr = stem if table == "stem" else levels[level].point.neighbor_idx
+    mask = levels[level].point.mask
+    n, k = nbr.shape
+    g = torch.Generator("cuda").manual_seed(seed)
+    dt = getattr(torch, dtype)
+    x = (torch.randn((n, c_in), device="cuda", generator=g) * mask[:, None]).to(dt)
+    w = torch.randn((k, c_in, c_out), device="cuda", generator=g) / (k * c_in) ** 0.5
+    bias = torch.randn((c_out,), device="cuda", generator=g)
+    dy = (torch.randn((n, c_out), device="cuda", generator=g) * mask[:, None]).to(dt)
+    return nbr, mask, x, w, bias, dy
+
+
+def conv_counts():
+    from cdsegnet_torch.ops import subm_conv as sc
+
+    return (sc.subm_conv_gemm_fwd.launches, sc.subm_conv_gemm_dgrad.launches,
+            sc.subm_conv_gemm_wgrad.launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CONV_CASES)
+def test_conv_kernels_match_plain_on_gpu(conv_pyramid, case):
+    from cdsegnet_torch.ops import subm_conv as sc
+
+    nbr, mask, x, w, bias, dy = conv_inputs(conv_pyramid, case)
+    stem, f32 = case[4] == "stem", case[0] == "float32"
+    before = conv_counts()
+    leaves = [x.clone().requires_grad_(not stem), w.clone().requires_grad_(True),
+              bias.clone().requires_grad_(True)]
+    out = sc.subm_conv_apply(*leaves[:1], nbr, *leaves[1:])
+    grads = torch.autograd.grad(out, [t for t in leaves if t.requires_grad], dy)
+    torch.cuda.synchronize()
+    # a forward kernel in bf16 (f32 keeps the gather + matmul), one weight
+    # gradient, an input gradient only where the features need one (a
+    # stem's do not)
+    assert conv_counts() == (before[0] + int(not f32), before[1] + int(not stem),
+                             before[2] + 1)
+    d_x = None if stem else grads[0]
+    d_w, d_b = grads[-2:]
+
+    n, k = nbr.shape
+    rows = torch.cat([x, x.new_zeros((1, x.shape[1]))])[nbr.long()].reshape(n, -1)
+    want = sc._plain_conv(x, nbr, w, bias)
+    want_dw = (rows.float().T @ dy.float()).reshape(w.shape)
+
+    def err(a, b):
+        return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+
+    if f32:
+        assert torch.equal(out, want)
+    kernel = sc.subm_conv_gemm_fwd(x, nbr, w, bias)
+    # f32: f32 products on both sides, sums in another order; bf16: the
+    # plain version rounds before its bias add, the kernel after
+    for y in (out, kernel):
+        assert err(y, want) <= (1e-5 if f32 else 1e-2)
+        assert torch.isfinite(y).all()
+    assert torch.equal(kernel[~mask].float(), bias.to(x.dtype).float().expand(
+        int((~mask).sum()), -1)) if f32 else err(kernel[~mask], want[~mask]) <= 1e-2
+    assert err(d_w, want_dw) <= (1e-5 if f32 else 1e-3)
+    assert torch.allclose(d_b, dy.float().sum(0), rtol=1e-5, atol=1e-3)
+    if d_x is not None:
+        want_dx = sc._plain_conv(dy, nbr, sc.reflected_weight(w).contiguous(), None)
+        assert err(d_x, want_dx) <= (1e-5 if f32 else 1e-2)
+        assert (d_x[~mask] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [CONV_CASES[0], CONV_CASES[5]])
+def test_conv_kernels_are_deterministic_and_add_no_sync_on_gpu(conv_pyramid, case):
+    from cdsegnet_torch.ops import subm_conv as sc
+    from cdsegnet_torch.utils import tracing
+
+    nbr, _, x, w, bias, dy = conv_inputs(conv_pyramid, case, seed=1)
+    runs = []
+    for _ in range(2):
+        leaves = [t.clone().requires_grad_(True) for t in (x, w, bias)]
+        torch.cuda.synchronize()
+        with tracing.capture() as cap:
+            out = sc.subm_conv_apply(leaves[0], nbr, leaves[1], leaves[2])
+            runs.append((out,) + torch.autograd.grad(out, leaves, dy))
+        torch.cuda.synchronize()
+        assert cap.counters.get(tracing.SYNCS, 0) == 0
+        bf16 = int(x.dtype == torch.bfloat16)  # f32 forwards by gather + matmul
+        assert {k: v for k, v in cap.launches.items() if k.startswith("conv")} == dict(
+            conv_fwd=bf16, conv_dgrad=1, conv_wgrad=1)
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    # without a gradient: the forward alone, and the same value
+    with torch.no_grad():
+        before = conv_counts()
+        assert torch.equal(sc.subm_conv_apply(x, nbr, w, bias), runs[0][0])
+        assert conv_counts() == (before[0] + bf16,) + before[1:]

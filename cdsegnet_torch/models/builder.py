@@ -1,7 +1,8 @@
 """Config-dict factories for the ported models.
 
 Port of the `DefaultSegmentorV2`, `DefaultSegmentor`, `PT-v3m1`, NCF
-ablation, `DefaultClassifier`, `PT-v2m1`/`m2`/`m3` and sparse-conv
+ablation, `DefaultClassifier`, `PT-v2m1`/`m2`/`m3` (and Pointcept's
+published PT-v2m2 as `PT-v2m2-pointcept`) and sparse-conv
 (`SpUNet-v1m1`, `MinkUNet`, `SpUNet-v1m3`, `OACNNs`, `SPVCNN`, `CAC-v1m1`,
 `PointGroup`), PTv1 (`PT-v1`, `PointTransformer-Seg26`/`-Seg38`/`-Seg50`)
 and window-attention (`OctFormer-v1m1`, `StratifiedTransformer`(`-v1m1`),
@@ -27,6 +28,7 @@ from cdsegnet_torch.models.oacnns import OACNNs
 from cdsegnet_torch.models.octformer import OctFormer
 from cdsegnet_torch.models.pointgroup import PointGroup
 from cdsegnet_torch.models.ppt import PointPromptTraining, PointPromptTrainingDecoupled
+from cdsegnet_torch.models.ptv2 import POINTCEPT as PTV2_POINTCEPT
 from cdsegnet_torch.models.ptv2 import VARIANTS as PTV2_VARIANTS
 from cdsegnet_torch.models.ptv2 import build_ptv2
 from cdsegnet_torch.models.ptv1 import VARIANTS as PTV1_VARIANTS
@@ -138,7 +140,7 @@ def _build(cfg: Dict[str, Any]) -> torch.nn.Module:
         backbone = _build(cfg.pop("backbone"))
         kwargs = {k: v for k, v in cfg.items() if k in _SEGMENTOR_KEYS}
         return _ABLATIONS[kind](backbone=backbone, t_dim=cfg.get("T_dim", 128), **kwargs)
-    if kind in PTV2_VARIANTS:
+    if kind in PTV2_VARIANTS or kind == PTV2_POINTCEPT:
         _dtype(cfg)
         return build_ptv2(kind, **{k: tuple(v) if isinstance(v, list) else v
                                    for k, v in cfg.items()})

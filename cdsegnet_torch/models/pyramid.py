@@ -149,8 +149,9 @@ def build_metric_level(parent: Level, grid_size: float, capacity: int) -> Level:
     per-scene min`` at ``grid_size``, cluster equal voxels by one stable
     argsort of their int64 keys (scene, x, y, z), mean coords. The level has
     no codes, orders or neighbor tables: kNN models need coords and masks
-    only. ``dropped`` is the int32 count of valid parent points routed to
-    the overflow slot."""
+    only; their means repeat run to run (`segments.segment_reduce` sums
+    each cluster in order). ``dropped`` is the int32 count of valid parent
+    points routed to the overflow slot."""
     pp = parent.point
     mp, m, s = pp.num_points, capacity, pp.num_scenes
     dev = pp.coord.device

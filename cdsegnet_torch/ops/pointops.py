@@ -14,7 +14,9 @@ by `chip_smoke.py`'s check. `knn` computes only valid queries against the
 valid references of their own scene (each scene's points gathered in index
 order, then the results scattered back), which gives exactly the dense
 outputs at a fraction of the work when a bucket is mostly padding or holds
-several scenes. The dot products are elementwise chains of fused
+several scenes; it runs as span ``pointops.knn`` and counts ``knn.queries``
+and ``knn.pairs`` (`utils.tracing`) from the scene sizes it already holds
+on the host. The dot products are elementwise chains of fused
 multiply-adds, as XLA rounds them on the CPU, so both forms give the same
 bits on any device (no TF32, no tiling-dependent sums) and the same order
 among near-ties.
@@ -27,6 +29,7 @@ from typing import Optional, Tuple
 import torch
 
 from cdsegnet_torch.ops.subm_conv import _gather_rows
+from cdsegnet_torch.utils import tracing
 
 BIG = 1e30
 # distance elements per tile of `knn`: 2^26 float32 (256 MiB) and a few
@@ -166,6 +169,11 @@ def knn(query: torch.Tensor, ref: torch.Tensor, k: int,
     scene smaller than k) returns N and BIG. Each scene's valid queries are
     compared with its valid references only, in tiles of about 2^26
     distances (``chunk`` rows when given)."""
+    with tracing.span("pointops.knn"):
+        return _knn(query, ref, k, query_mask, ref_mask, chunk, query_batch, ref_batch)
+
+
+def _knn(query, ref, k, query_mask, ref_mask, chunk, query_batch, ref_batch):
     m, n = query.shape[0], ref.shape[0]
     dev = query.device
     qm, rm = _defaults(query, ref, query_mask, ref_mask)
@@ -183,6 +191,8 @@ def knn(query: torch.Tensor, ref: torch.Tensor, k: int,
         if scene not in r_runs:
             continue
         r0, r1 = r_runs[scene]
+        tracing.count("knn.queries", q1 - q0)
+        tracing.count("knn.pairs", (q1 - q0) * (r1 - r0))
         ri = r_order[r0:r1]
         r_pts = ref[ri]
         kk = min(k, r1 - r0)

@@ -31,6 +31,34 @@ def segment_any(
     return cnt > 0
 
 
+def _sum_in_order(values_sorted: torch.Tensor, seg_ids: torch.Tensor,
+                  num_segments: int, valid: Optional[torch.Tensor]) -> torch.Tensor:
+    """Per segment, the sum of its valid rows taken one after another in
+    their order on every device, so that it repeats from run to run (the
+    kNN tables of a metric level rank near-ties by its mean's bits). The
+    CPU's ``index_add_`` adds in order; on CUDA its atomics add in any
+    order, so the accumulating ``index_put_`` sorts the ids stably and sums
+    each run in one thread, bit-equal to the CPU. There an invalid row goes
+    to a row of its own past the segments, so that no long run of padding
+    is summed serially."""
+    if valid is not None:
+        values_sorted = torch.where(_bc(valid, values_sorted), values_sorted,
+                                    torch.zeros_like(values_sorted))
+    tail = tuple(values_sorted.shape[1:])
+    if not values_sorted.is_cuda:
+        s = torch.zeros((num_segments,) + tail, dtype=values_sorted.dtype,
+                        device=values_sorted.device)
+        return s.index_add_(0, seg_ids, values_sorted)
+    n = values_sorted.shape[0]
+    ids = seg_ids.long()
+    if valid is not None:
+        ids = torch.where(valid, ids,
+                          num_segments + torch.arange(n, device=values_sorted.device))
+    s = torch.zeros((num_segments + n,) + tail, dtype=values_sorted.dtype,
+                    device=values_sorted.device)
+    return s.index_put_((ids,), values_sorted, accumulate=True)[:num_segments]
+
+
 def segment_reduce(
     values_sorted: torch.Tensor,
     seg_ids: torch.Tensor,
@@ -65,14 +93,6 @@ def segment_reduce(
             out = torch.where(_bc(has, out), out, torch.zeros_like(out))
         return out
     if reduce == "mean":
-        if valid is not None:
-            values_sorted = torch.where(
-                _bc(valid, values_sorted), values_sorted,
-                torch.zeros_like(values_sorted),
-            )
-        s = torch.zeros(shape, dtype=values_sorted.dtype,
-                        device=values_sorted.device)
-        s.index_add_(0, seg_ids, values_sorted)
         ones = torch.ones(values_sorted.shape[:1], dtype=values_sorted.dtype,
                           device=values_sorted.device)
         if valid is not None:
@@ -80,6 +100,7 @@ def segment_reduce(
         cnt = torch.zeros(num_segments, dtype=values_sorted.dtype,
                           device=values_sorted.device)
         cnt.index_add_(0, seg_ids, ones)
+        s = _sum_in_order(values_sorted, seg_ids, num_segments, valid)
         return s / _bc(torch.clamp(cnt, min=1), s)
     raise ValueError(f"unsupported reduce {reduce!r}")
 

@@ -2,12 +2,18 @@
 
 Tracing is off unless a `capture` is open. Off, `span(name)` returns one
 shared object whose ``with`` does nothing, and `count` returns at once:
-each costs one read of a module global. On, a span records its id, the id
+each costs one read of a module global (a span also reads torch's
+profiler flag). On, a span records its id, the id
 of its root (the outermost span it runs under: one training step, one
 request, one trainer iteration), its parent's id (the innermost span open
 on the same thread when it began), its name, its thread and its start and
 end; a count adds to a named counter and remembers the innermost span open
 at the time. Nothing is written until the caller asks (`Capture.write`).
+
+While a `torch.profiler` runs, a span also marks a ``record_function``
+range of its name, with or without a capture, so that the profiler's trace
+can give the device time launched under it (the benchmark's
+``program_span`` metrics read it there).
 
 The clock is ``time.time_ns()``, which is the clock of a `torch.profiler`
 trace: an exported Chrome trace's ``ts`` (microseconds) plus its
@@ -28,12 +34,17 @@ Spans of the port (the layer each belongs to is in ``PERF.md`` §3):
 ``train.optimizer`` in `engine.state.make_train_step`; ``infer.request`` >
 ``infer.prepare``, ``infer.forward`` (> ``geometry``) in
 `engine.test.SemSegTester.predict_fragment`; ``geometry`` in
-`models.pyramid.build_pyramid`; ``trainer.iteration`` >
+`models.pyramid.build_pyramid` and PTv2's ``precompute_geometry``
+(> ``pointops.knn``, each table build in `ops.pointops.knn`);
+``ptv2.attention``, each grouped vector attention forward of
+`models.ptv2`; ``trainer.iteration`` >
 ``trainer.data_wait``, ``trainer.to_device``, ``trainer.metrics`` in
 `engine.train.Trainer.train`. Counters: ``host_syncs``,
 ``pyramid.dropped_l<i>`` (valid points lost to overflow at pooled level
-i), ``pyramid.sorted_build`` (the ``cond`` pyramid fell back to the sorted
-neighbour tables).
+i, serialization and metric pyramids), ``pyramid.sorted_build`` (the
+``cond`` pyramid fell back to the sorted neighbour tables), ``knn.queries``
+and ``knn.pairs`` (the valid queries of a `ops.pointops.knn` call, and the
+distances it computes: per scene, queries times references).
 
     with tracing.capture() as cap:
         step(point)
@@ -53,6 +64,7 @@ import warnings
 from typing import Dict, List, NamedTuple, Optional
 
 import torch
+import torch.autograd.profiler as _profiler
 
 SYNCS = "host_syncs"
 OUTSIDE = "(outside)"
@@ -87,9 +99,12 @@ _capture: Optional["Capture"] = None
 
 def span(name: str):
     """A context manager that records the block as span ``name`` while a
-    capture is open, and the shared no-op `OFF` otherwise."""
+    capture is open, and marks it as a profiler range of that name while a
+    `torch.profiler` runs; the shared no-op `OFF` when neither is on."""
     cap = _capture
-    return OFF if cap is None else _Open(cap, name)
+    if cap is None:
+        return _profiler.record_function(name) if _profiler._is_profiler_enabled else OFF
+    return _Open(cap, name)
 
 
 def count(name: str, n: int = 1) -> None:
@@ -106,12 +121,15 @@ def enabled() -> bool:
 
 
 class _Open:
-    __slots__ = ("cap", "name", "id", "root_id", "parent_id", "thread", "start")
+    __slots__ = ("cap", "name", "id", "root_id", "parent_id", "thread", "start", "range")
 
     def __init__(self, cap: "Capture", name: str):
         self.cap, self.name = cap, name
+        self.range = _profiler.record_function(name) if _profiler._is_profiler_enabled else None
 
     def __enter__(self):
+        if self.range is not None:
+            self.range.__enter__()
         self.thread = threading.get_ident()
         stack = self.cap._stacks.setdefault(self.thread, [])
         parent = stack[-1] if stack else None
@@ -128,6 +146,8 @@ class _Open:
         if stack and stack[-1] is self:
             stack.pop()
             self.cap._record(self, end)
+        if self.range is not None:
+            self.range.__exit__(*exc)
         return False
 
 

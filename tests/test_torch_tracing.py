@@ -1,7 +1,8 @@
 """`cdsegnet_torch.utils.tracing`: spans and counters off and on, their
 nesting and self time, the spans of the training step and of the tester's
-request on the tiny model, the clock against `torch.profiler`'s exported
-trace, and the written Chrome trace. The tests marked ``cuda`` count host
+request on the tiny model, PTv2's geometry, kNN and attention spans and
+counters, spans as profiler ranges, the clock against `torch.profiler`'s
+exported trace, and the written Chrome trace. The tests marked ``cuda`` count host
 syncs and place a span over its kernels on the card. No JAX here: the
 card's machine has none."""
 
@@ -222,6 +223,69 @@ def test_write_gives_a_chrome_trace(tmp_path):
     assert xs[1]["args"]["parent_id"] == xs[0]["args"]["id"]
     assert xs[0]["ts"] <= xs[1]["ts"] and xs[1]["ts"] + xs[1]["dur"] <= xs[0]["ts"] + xs[0]["dur"]
     assert [e["args"]["c"] for e in cs] == [2, 3]
+
+
+PTV2 = dict(type="DefaultSegmentor", backbone=dict(
+    type="PT-v2m2-pointcept", in_channels=6, num_classes=5, patch_embed_channels=8,
+    patch_embed_groups=2, enc_channels=(8, 16, 16, 16), enc_groups=(2, 4, 4, 4),
+    dec_channels=(8, 8, 16, 16), dec_groups=(2, 2, 4, 4), grid_sizes=(0.1, 0.2, 0.4, 0.8)),
+    criteria=[dict(type="CrossEntropyLoss", loss_weight=1.0, ignore_index=-1)])
+
+
+def test_ptv2_geometry_gives_a_knn_span_per_level_and_its_counts():
+    """The published PTv2's forward: one ``geometry`` with a
+    ``pointops.knn`` inside per level (5), one ``ptv2.attention`` per block
+    (17), the drop counters of the metric levels, and ``knn.queries`` and
+    ``knn.pairs`` equal to each level's valid points and the sum over its
+    scenes of their squares."""
+    torch.manual_seed(0)
+    model = build_model(dict(PTV2), device="cpu").train()
+    point = synthetic_point_batch(2048, 2, DEPTH, seed=1, device="cpu")
+    with tracing.capture() as cap:
+        out = model(point, generators=dict(dropout=torch.Generator().manual_seed(0)))
+    geometry = [s for s in cap.spans if s.name == "geometry"]
+    knns = [s for s in cap.spans if s.name == "pointops.knn"]
+    assert len(geometry) == 1 and len(knns) == 5
+    assert all(s.parent_id == geometry[0].id for s in knns)
+    assert len(names(cap, name="ptv2.attention")) == 17
+    levels, _ = model.backbone.precompute_geometry(point)
+    queries = pairs = 0
+    for lv in levels:
+        valid = lv.point.batch[lv.point.mask]
+        sizes = torch.bincount(valid.long())
+        queries += int(sizes.sum())
+        pairs += int((sizes * sizes).sum())
+    assert cap.counters["knn.queries"] == queries
+    assert cap.counters["knn.pairs"] == pairs > queries
+    assert cap.under("knn.pairs", "geometry") == pairs
+    assert {f"pyramid.dropped_l{i}": cap.counters[f"pyramid.dropped_l{i}"]
+            for i in range(1, 5)} == {f"pyramid.dropped_l{i}": d
+                                      for i, d in enumerate(out["pyramid_dropped"], 1)}
+
+
+def test_a_span_marks_a_profiler_range_and_is_off_without_one(tmp_path):
+    """While a torch profiler runs, a span is a ``user_annotation`` range of
+    its name on the trace, with a capture open or not; with neither, the
+    span is the shared `OFF`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    assert tracing.span("a") is tracing.OFF
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        assert tracing.span("probe") is not tracing.OFF
+        with tracing.span("probe"):
+            torch.randn(64, 64) @ torch.randn(64, 64)
+        with tracing.capture() as cap:
+            with tracing.span("captured"):
+                torch.randn(64, 64).sum()
+    assert tracing.span("a") is tracing.OFF
+    path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    ranges = {e["name"] for e in events
+              if e.get("ph") == "X" and e.get("cat") == "user_annotation"}
+    assert {"probe", "captured"} <= ranges
+    assert names(cap) == ["captured"]
 
 
 @pytest.fixture

@@ -11,30 +11,38 @@ and distance BIG; a slot with no in-scene valid reference returns N.
 `knn_dense` computes that definition as JAX does, every query against every
 reference in chunks of rows; it is the plain version, run by the tests and
 by `chip_smoke.py`'s check. `knn` computes only valid queries against the
-valid references of their own scene (each scene's points gathered in index
-order, then the results scattered back), which gives exactly the dense
-outputs at a fraction of the work when a bucket is mostly padding or holds
-several scenes; it runs as span ``pointops.knn`` and counts ``knn.queries``
-and ``knn.pairs`` (`utils.tracing`) from the scene sizes it already holds
-on the host. The dot products are elementwise chains of fused
-multiply-adds, as XLA rounds them on the CPU, so both forms give the same
-bits on any device (no TF32, no tiling-dependent sums) and the same order
-among near-ties.
+valid references of their own scene (each scene's points sorted in index
+order), which gives exactly the dense outputs at a fraction of the work
+when a bucket is mostly padding or holds several scenes; it runs as span
+``pointops.knn`` and counts ``knn.queries`` and ``knn.pairs``
+(`utils.tracing`) from the scene sizes it already holds on the host. On a
+CPU tensor each scene runs in tiles of distances and `k_smallest`; on a
+CUDA tensor one launch of `cdsegnet_torch/csrc/knn.cu` (`knn_fused`)
+computes every distance and keeps the k smallest in registers, writing no
+distance to device memory and reading nothing back to the host. The dot
+products are elementwise chains of fused multiply-adds, as XLA rounds them
+on the CPU, so both forms give the same bits on any device (no TF32, no
+tiling-dependent sums) and the same order among near-ties.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
 
 from cdsegnet_torch.ops.subm_conv import _gather_rows
 from cdsegnet_torch.utils import tracing
+from cdsegnet_torch.utils.cuda_build import load_library
 
 BIG = 1e30
-# distance elements per tile of `knn`: 2^26 float32 (256 MiB) and a few
-# temporaries of that size
+# distance elements per tile of `knn` on the CPU: 2^26 float32 (256 MiB)
+# and a few temporaries of that size
 _TILE = 1 << 26
+# the kernel's lengths of the sorted list each query keeps (`knn_slots`)
+SLOTS = (1, 4, 8, 16, 32, 64)
 
 
 def _dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -147,7 +155,7 @@ def _scene_runs(keys: torch.Tensor):
     order = torch.argsort(keys, stable=True)
     uniq, counts = torch.unique_consecutive(keys[order], return_counts=True)
     runs, start = {}, 0
-    for u, c in zip(uniq.tolist(), counts.tolist()):
+    for u, c in zip(*torch.stack([uniq, counts]).tolist()):
         if u >= 0:
             runs[u] = (start, start + c)
         start += c
@@ -167,15 +175,23 @@ def knn(query: torch.Tensor, ref: torch.Tensor, k: int,
     distance BIG. With ``query_batch``/``ref_batch`` scene ids, neighbors
     never cross scenes; a slot that found no valid in-scene reference (a
     scene smaller than k) returns N and BIG. Each scene's valid queries are
-    compared with its valid references only, in tiles of about 2^26
-    distances (``chunk`` rows when given)."""
+    compared with its valid references only: on the CPU in tiles of about
+    2^26 distances (``chunk`` rows when given), on CUDA by the kernel
+    (`knn_fused`; ``chunk`` is not used, k at most 64)."""
     with tracing.span("pointops.knn"):
         return _knn(query, ref, k, query_mask, ref_mask, chunk, query_batch, ref_batch)
 
 
-def _knn(query, ref, k, query_mask, ref_mask, chunk, query_batch, ref_batch):
+def _knn(query, ref, k, query_mask, ref_mask, chunk, query_batch, ref_batch, kernel=True):
+    # kernel=False keeps a CUDA tensor on the tiles (`chip_smoke.py` times
+    # that route beside the kernel)
     m, n = query.shape[0], ref.shape[0]
     dev = query.device
+    kernel = kernel and dev.type != "cpu"
+    if kernel:
+        knn_slots(k)  # refuse k before any work
+        if dev.type != "cuda":
+            raise ValueError(f"no kNN kernel for device {dev}")
     qm, rm = _defaults(query, ref, query_mask, ref_mask)
     query, ref = query.float(), ref.float()
     if query_batch is None:
@@ -185,14 +201,18 @@ def _knn(query, ref, k, query_mask, ref_mask, chunk, query_batch, ref_batch):
         rkey = torch.where(rm, ref_batch.long(), -1)
     q_order, q_runs = _scene_runs(qkey)
     r_order, r_runs = _scene_runs(rkey)
+    scenes = []  # (q0, q1, r0, r1) of each scene with queries and references
+    for scene, (q0, q1) in q_runs.items():
+        if scene in r_runs:
+            r0, r1 = r_runs[scene]
+            scenes.append((q0, q1, r0, r1))
+            tracing.count("knn.queries", q1 - q0)
+            tracing.count("knn.pairs", (q1 - q0) * (r1 - r0))
+    if kernel:
+        return knn_fused(query, ref, k, q_order, r_order, scenes, n)
     idx = torch.full((m, k), n, dtype=torch.int64, device=dev)
     dist = torch.full((m, k), BIG, dtype=torch.float32, device=dev)
-    for scene, (q0, q1) in q_runs.items():
-        if scene not in r_runs:
-            continue
-        r0, r1 = r_runs[scene]
-        tracing.count("knn.queries", q1 - q0)
-        tracing.count("knn.pairs", (q1 - q0) * (r1 - r0))
+    for q0, q1, r0, r1 in scenes:
         ri = r_order[r0:r1]
         r_pts = ref[ri]
         kk = min(k, r1 - r0)
@@ -203,6 +223,72 @@ def _knn(query, ref, k, query_mask, ref_mask, chunk, query_batch, ref_batch):
             idx[qi, :kk] = ri[j]
             dist[qi, :kk] = v
     return _finish(idx, dist, qm, n)
+
+
+# ---------------------------------------------------------------------------
+# the kernel's wrapper (CUDA tensors only)
+
+
+def knn_slots(k: int) -> int:
+    """The kernel's list length for ``k`` neighbours: the smallest of
+    `SLOTS` not below k. Raises for k outside 1..64."""
+    if not 1 <= k <= SLOTS[-1]:
+        raise ValueError(f"the kNN kernel takes 1 to {SLOTS[-1]} neighbours, not {k}")
+    return next(s for s in SLOTS if s >= k)
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel():
+    fn = load_library("knn").cdseg_knn_fused
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _packed(pts: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
+    """``(x, y, z, |p|^2)`` of the points ``order`` picks, (len, 4) float32,
+    the squared norm in `_dot3`'s rounding."""
+    p = pts.index_select(0, order)
+    return torch.cat([p, _dot3(p, p)[:, None]], 1).contiguous()
+
+
+def knn_fused(query: torch.Tensor, ref: torch.Tensor, k: int, q_order: torch.Tensor,
+              r_order: torch.Tensor, scenes, guard: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`knn`'s outputs on CUDA tensors from one launch of the kernel:
+    ``(idx (M, k) int32, dist (M, k) float32)``.
+
+    ``q_order``/``r_order`` list the valid queries and references sorted by
+    scene, ascending index within a scene; ``scenes`` holds each scene's
+    ``(q0, q1, r0, r1)`` runs in them (host ints); ``guard`` is N. Rows of
+    queries in no run keep index N and distance BIG. ``launches`` counts
+    the kernel's launches (one a call of up to 64 scenes)."""
+    slots = knn_slots(k)
+    if query.device.type != "cuda":
+        raise ValueError(f"the kNN kernel runs on CUDA tensors, not {query.device}")
+    for name, t in (("query", query), ("ref", ref)):
+        if t.dim() != 2 or t.shape[1] != 3 or t.dtype != torch.float32:
+            raise TypeError(f"knn_fused: {name} must be float32 (N, 3), got {t.dtype} "
+                            f"{tuple(t.shape)}")
+    m = query.shape[0]
+    idx = torch.full((m, k), guard, dtype=torch.int32, device=query.device)
+    dist = torch.full((m, k), BIG, dtype=torch.float32, device=query.device)
+    if not scenes:
+        return idx, dist
+    q_pack, r_pack = _packed(query, q_order), _packed(ref, r_order)
+    runs = (ctypes.c_int * (4 * len(scenes)))(*[v for sc in scenes for v in sc])
+    launched = ctypes.c_int(0)
+    err = _kernel()(q_pack.data_ptr(), r_pack.data_ptr(), q_order.data_ptr(),
+                    r_order.data_ptr(), idx.data_ptr(), dist.data_ptr(), runs, len(scenes),
+                    k, slots, guard, torch.cuda.current_stream(query.device).cuda_stream,
+                    ctypes.byref(launched))
+    knn_fused.launches += launched.value
+    if err != 0:
+        raise RuntimeError(f"knn_fused launch failed: CUDA error {err}")
+    return idx, dist
+
+
+knn_fused.launches = 0
 
 
 def ball_query(query: torch.Tensor, ref: torch.Tensor, radius: float, nsample: int,

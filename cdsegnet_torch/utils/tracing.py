@@ -153,6 +153,7 @@ class _Open:
 
 def _launches() -> Dict[str, int]:
     from cdsegnet_torch.ops import flash_attention as fa
+    from cdsegnet_torch.ops import pointops as po
     from cdsegnet_torch.ops import subm_conv as sc
 
     return dict(fwd=fa.patch_attention_fwd.launches,
@@ -161,7 +162,8 @@ def _launches() -> Dict[str, int]:
                 dkdv=fa.patch_attention_bwd_dkdv.launches,
                 conv_fwd=sc.subm_conv_gemm_fwd.launches,
                 conv_dgrad=sc.subm_conv_gemm_dgrad.launches,
-                conv_wgrad=sc.subm_conv_gemm_wgrad.launches)
+                conv_wgrad=sc.subm_conv_gemm_wgrad.launches,
+                knn=po.knn_fused.launches)
 
 
 class Capture:
@@ -169,7 +171,8 @@ class Capture:
     ``counters`` (totals by name), ``counts`` (each increment as ``(time,
     name, span id or None, n)``), ``launches`` (the kernels launched
     meanwhile: attention ``fwd``, ``fwd_lse``, ``dq``, ``dkdv``; the
-    submanifold conv's ``conv_fwd``, ``conv_dgrad``, ``conv_wgrad``),
+    submanifold conv's ``conv_fwd``, ``conv_dgrad``, ``conv_wgrad``; the
+    fused kNN's ``knn``),
     ``thread`` (the thread that opened it) and ``start_ns``/``end_ns``."""
 
     def __init__(self):

@@ -145,9 +145,14 @@ Phases, each fatal on failure:
    weights from a seed): one eval forward on phase 4's scene (3 warm-ups,
    median of 10), the config's training step (CE + Lovasz, AdamW +
    OneCycle) on phase 6's 204,800-slot bucket (3 warm-ups, median of 5,
-   peak memory), the compacted kNN against its dense plain version at every
-   level of that bucket (indices equal, distances within 1e-6 relative; both
-   timed per level), m1 and m3 (one condition) one eval forward each;
+   peak memory), one more step recorded (the fused kNN's launches on its
+   own counter, zeroed before the step, equal to the step's `knn` calls,
+   one a level; the kernel's device ms and bound for the kernels line),
+   at every level of that bucket the fused kNN kernel's route
+   of `knn` against its dense plain version (indices equal, distances equal
+   to the bit, one launch a call; the kernel's device ms, its bound, the
+   dense version's and the tile route's ms per level), m1 and m3 (one
+   condition) one eval forward each;
    everything finite, no metric level drops a point, no attention kernel
    launched;
 18. shapes: ModelNet40 classification and ShapeNetPart part segmentation
@@ -278,6 +283,11 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 NUM_POINTS = 104448  # the bench scene of the JAX package (bench.py)
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # H100 SXM, dense
 PEAK_BYTES = 3.35e12
+# FP32 instructions a pair of the fused kNN (`csrc/knn.cu`) needs: five for
+# the distance (a product, two multiply-adds, the -2 c multiply-add, the add
+# of rr) and one compare against the k-th value. The kernel's own
+# shared-memory load and loop are not counted: the bound is the function's
+KNN_PAIR_INSTRUCTIONS = 6
 # conv kernels against the plain version, of the largest |plain value|: f32
 # sums in another order; bf16 outputs rounded once (the plain version rounds
 # its product, then its bias add); weight gradients in f32 on both sides
@@ -364,6 +374,28 @@ def cuda_ms(torch, fn, warmup: int = 3, iters: int = 10) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def profiled_ms(prof, name: str) -> float:
+    """Device ms of the kernels whose name holds ``name`` in a finished
+    ``torch.profiler`` run."""
+    us = sum(getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)
+             for e in prof.key_averages() if name in e.key)
+    return us / 1e3
+
+
+def device_ms(torch, fn, name: str, iters: int = 3) -> float:
+    """Device ms per call of the kernels whose name holds ``name``, from the
+    profiler's CUDA activity over ``iters`` calls after one warm-up."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return profiled_ms(prof, name) / iters
 
 
 def attention_launches(backbone_cfg: dict, c_decoder: bool = False):
@@ -2677,15 +2709,25 @@ def phase_ptv2(torch, point, train_point, card):
     seed 0). One eval forward on phase 4's scene (3 warm-ups, median of
     10, geometry included); the training step of the config (CE + Lovasz,
     AdamW + OneCycle) on phase 6's 204,800-slot bucket (3 warm-ups, median
-    of 5; peak memory); at every level of that bucket the compacted `knn`
-    against its dense plain version (indices equal, distances within 1e-6
-    relative) with both timed; m1 and m3 (one condition): one eval forward
-    each. Everything finite; no metric level may drop a point; PTv2 runs
-    no attention kernel."""
+    of 5; peak memory), then one recorded step: the kernel's launches on
+    `knn_fused.launches`, set to 0 before it, must equal the `knn` calls
+    its spans show, one table a level, and the profiler gives the kernel's
+    device ms beside its bound (the step's pairs at `KNN_PAIR_INSTRUCTIONS`
+    each, at the card's FP32 issue rate of 67 TFLOP/s / 2); at every level
+    of that bucket `knn`, which runs the fused kernel (`csrc/knn.cu`),
+    against its dense plain version: indices equal, distances equal to the
+    bit, one launch a call; timed per level: `knn` (events), the kernel
+    alone (the profiler's device time), its bound, the dense version and
+    the tile route (`_knn(..., kernel=False)`: distance tiles and
+    `torch.topk`); m1 and m3 (one condition): one eval forward each.
+    Everything finite; no metric level may drop a point; PTv2 runs no
+    attention kernel."""
     from cdsegnet_torch.engine.state import make_train_step
     from cdsegnet_torch.models.builder import build_model
     from cdsegnet_torch.ops import flash_attention as fa
-    from cdsegnet_torch.ops.pointops import knn, knn_dense
+    from cdsegnet_torch.ops.pointops import _knn, knn, knn_dense, knn_fused
+    from cdsegnet_torch.utils import tracing
+    from torch.profiler import ProfilerActivity, profile
 
     start = time.perf_counter()
     conf = load_config(PTV2_CONFIG)
@@ -2725,6 +2767,17 @@ def phase_ptv2(torch, point, train_point, card):
         if i >= 3:
             times.append((time.perf_counter() - t0) * 1e3)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    # one recorded step: the kernel's own counter against the `knn` spans
+    knn_fused.launches = 0
+    with tracing.capture() as cap, profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step(train_point)
+        torch.cuda.synchronize()
+    step_knn = dict(launches=knn_fused.launches,
+                    calls=sum(s.name == "pointops.knn" for s in cap.spans),
+                    pairs=cap.counters["knn.pairs"], kernel_ms=profiled_ms(prof, "knn_fused"))
+    step_knn["bound_ms"] = knn_bound_ms(step_knn["pairs"])
+    print("ptv2 knn step " + json.dumps(step_knn), flush=True)
+    del cap, prof
     if not np.isfinite(losses).all() or bad:
         fail(f"PTv2 training: losses {losses}, parameters without a finite gradient "
              f"{bad[:5]}")
@@ -2741,15 +2794,23 @@ def phase_ptv2(torch, point, train_point, card):
         p = lv.point
         args = (p.coord, p.coord, bb.k_neighbors, p.mask, p.mask)
         ids = dict(query_batch=p.batch, ref_batch=p.batch)
-        ci, cd = knn(*args, **ids)
+        with tracing.capture() as cap:
+            ci, cd = knn(*args, **ids)
         di, dd = knn_dense(*args, **ids)
         torch.cuda.synchronize()
         rel = ((cd - dd).abs() / dd.abs().clamp(min=1e-30)).max().item()
         row = dict(slots=p.num_points, valid=int(p.mask.sum().item()),
-                   indices_equal=bool(torch.equal(ci, di)), max_rel_dist=rel,
+                   indices_equal=bool(torch.equal(ci, di)),
+                   dists_equal=bool(torch.equal(cd, dd)), max_rel_dist=rel,
+                   launches=cap.launches["knn"], pairs=cap.counters["knn.pairs"],
+                   host_syncs=cap.counters.get(tracing.SYNCS, 0),
                    ms=cuda_ms(torch, lambda: knn(*args, **ids), warmup=1, iters=3),
+                   kernel_ms=device_ms(torch, lambda: knn(*args, **ids), "knn_fused", 3),
                    dense_ms=cuda_ms(torch, lambda: knn_dense(*args, **ids), warmup=0,
-                                    iters=1))
+                                    iters=1),
+                   tiles_ms=cuda_ms(torch, lambda: _knn(*args, None, p.batch, p.batch,
+                                                        kernel=False), warmup=1, iters=1))
+        row["bound_ms"] = knn_bound_ms(row["pairs"])
         knn_rows.append(row)
         print(f"ptv2 knn level {len(knn_rows) - 1} " + json.dumps(row), flush=True)
         del ci, cd, di, dd
@@ -2785,13 +2846,22 @@ def phase_ptv2(torch, point, train_point, card):
         points_per_s=int(train_point.mask.sum().item()) / (step_ms / 1e3),
         peak_mem_gib=peak, train_levels=train_levels,
         knn_ms_per_level=[r["ms"] for r in knn_rows],
+        knn_kernel_ms_per_level=[r["kernel_ms"] for r in knn_rows],
+        knn_bound_ms_per_level=[r["bound_ms"] for r in knn_rows],
         knn_dense_ms_per_level=[r["dense_ms"] for r in knn_rows],
+        knn_tiles_ms_per_level=[r["tiles_ms"] for r in knn_rows],
+        knn_step=step_knn,
         knn_share_of_step=sum(r["ms"] for r in knn_rows) / step_ms,
         modes=modes, attention_launches=launches,
         phase_s=time.perf_counter() - start, card=card)
     print("ptv2 " + json.dumps(result), flush=True)
-    if any(not r["indices_equal"] or r["max_rel_dist"] > 1e-6 for r in knn_rows):
-        fail(f"the compacted kNN differs from its dense plain version: {knn_rows}")
+    if any(not (r["indices_equal"] and r["dists_equal"]) for r in knn_rows):
+        fail(f"the kNN kernel differs from its dense plain version: {knn_rows}")
+    if any(r["launches"] != 1 for r in knn_rows):
+        fail(f"a kNN call did not launch the kernel once: {knn_rows}")
+    if not step_knn["launches"] == step_knn["calls"] == len(knn_rows):
+        fail(f"the recorded step launched the kNN kernel {step_knn['launches']} times for "
+             f"{step_knn['calls']} `knn` calls and {len(knn_rows)} levels")
     if any(eval_levels["dropped"]) or any(train_levels["dropped"]) or any(drops):
         fail(f"PTv2's metric levels dropped points: eval {eval_levels['dropped']}, "
              f"train {train_levels['dropped']}, step {drops}")
@@ -2800,6 +2870,22 @@ def phase_ptv2(torch, point, train_point, card):
     if any(launches.values()):
         fail(f"PTv2 launched the attention kernels {launches}")
     return result
+
+
+def knn_bound_ms(pairs: int) -> float:
+    """The fused kNN's bound for ``pairs`` distances: FP32 issue."""
+    return pairs * KNN_PAIR_INSTRUCTIONS / (PEAK_FLOPS["float32"] / 2) * 1e3
+
+
+def knn_entry(ptv2):
+    """The kernels line's entry of the fused kNN: phase 17's recorded PTv2
+    training step (the wrapper's counter, the kernel's device ms, its
+    bound). It replaces no TPU kernel: the JAX package's kNN is XLA's
+    distances and `lax.top_k`."""
+    s = ptv2["knn_step"]
+    return dict(name="knn_fused_kernel", route="cuda", source="cdsegnet_torch/csrc/knn.cu",
+                replaces=None, paths=dict(ptv2=dict(launches=s["launches"], ms=s["kernel_ms"],
+                                                    bound_ms=s["bound_ms"])))
 
 
 def phase_shapes(torch, tmp, card):
@@ -4397,7 +4483,7 @@ def run_phases(torch, config: str, runtime: str, tmp: str, start: float) -> int:
     del gap_point, frag_point
     torch.cuda.empty_cache()
     clock("ablations")
-    phase_ptv2(torch, point, train_point, card)
+    ptv2 = phase_ptv2(torch, point, train_point, card)
     torch.cuda.empty_cache()
     clock("ptv2")
     phase_shapes(torch, tmp, card)
@@ -4557,6 +4643,7 @@ def run_phases(torch, config: str, runtime: str, tmp: str, start: float) -> int:
                            ms=conv[m]["per_step"][f"{kind}_ms"],
                            bound_ms=conv[m]["per_step"][f"{kind}_bound_ms"])
                    for m in ("spunet", "cdsegnet")}))
+    kernels.append(knn_entry(ptv2))
     print(f"wall time {time.perf_counter() - start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -113,7 +113,7 @@ def test_nesting_ids_roots_counters_and_self_time():
     assert cap.counted_by_span("n") == {tracing.OUTSIDE: 1, "a.inner": 2, "b": 4}
     assert cap.under("n", "root") == 6 and cap.under("n", "a") == 2
     assert cap.launches == dict(fwd=0, fwd_lse=0, dq=0, dkdv=0, conv_fwd=0, conv_dgrad=0,
-                                conv_wgrad=0)
+                                conv_wgrad=0, knn=0)
 
 
 def test_a_second_capture_cannot_open_inside_the_first():
@@ -213,7 +213,7 @@ def test_write_gives_a_chrome_trace(tmp_path):
         data = json.load(f)
     assert data["baseTimeNanoseconds"] == cap.start_ns
     assert data["counters"] == {"c": 3} and set(data["launches"]) == {
-        "fwd", "fwd_lse", "dq", "dkdv", "conv_fwd", "conv_dgrad", "conv_wgrad"}
+        "fwd", "fwd_lse", "dq", "dkdv", "conv_fwd", "conv_dgrad", "conv_wgrad", "knn"}
     xs = [e for e in data["traceEvents"] if e["ph"] == "X"]
     cs = [e for e in data["traceEvents"] if e["ph"] == "C"]
     assert [e["name"] for e in xs] == ["a", "b"]

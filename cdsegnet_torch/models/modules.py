@@ -267,9 +267,14 @@ class SubMConv(nn.Module):
     """Submanifold conv over a precomputed neighbor table.
 
     ``stem_mode`` picks the formulation of a k125 or k27 conv: ``"gather"``
-    (one (N, K) row gather), ``"blocked"`` (27 or 8 block-row gathers through
-    the stride-2 parity structure; exact only without overflow) or
-    ``"cond"`` (blocked when ``no_overflow``, else gather).
+    and ``"cond"`` run `subm_conv_apply`, ``"blocked"`` the stride-2 parity
+    form through ``blocked_geom`` (27 or 8 block-row gathers, JAX's
+    ``"blocked"``: exact only where no pooled level overflowed). JAX's
+    ``"cond"`` takes the parity form where nothing overflowed and the
+    gather elsewhere. Here ``"cond"`` always gathers: exact wherever the
+    parity form is, it keeps no block rows for the backward and leaves one
+    path; on an H100 the dual k5 stem's kernels are slower than the blocked
+    products (half of its block-diagonal weight's products are on zeros).
     """
 
     def __init__(self, in_channels: int, out_channels: int, kernel_volume: int,
@@ -280,14 +285,13 @@ class SubMConv(nn.Module):
         self.weight = conv_weight(kernel_volume, in_channels, out_channels)
         self.bias = nn.Parameter(torch.zeros(out_channels)) if use_bias else None
 
-    def forward(self, feat, neighbor_idx, blocked_geom=None,
-                no_overflow: Optional[bool] = None, stem_mode: str = "gather"):
+    def forward(self, feat, neighbor_idx, blocked_geom=None, stem_mode: str = "gather"):
         f = feat.to(self.dtype)
         mode = stem_mode if (blocked_geom is not None
                              and self.kernel_volume in (27, 125)) else "gather"
         if mode not in ("gather", "blocked", "cond"):
             raise ValueError(f"unknown conv mode {mode!r}")
-        if mode == "gather" or (mode == "cond" and not no_overflow):
+        if mode != "blocked":
             return subm_conv_apply(f, neighbor_idx, self.weight, self.bias)
         grid_coord, pmask, parent_inverse, child_nbr = blocked_geom
         if self.kernel_volume == 27:

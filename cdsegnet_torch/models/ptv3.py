@@ -19,8 +19,9 @@ bias, through the plain attention, as JAX computes it in XLA), ``proj_drop``
 (dropout after each attention projection and in the MLPs, drawn from the
 dropout generator), FreeU factors (``b_factor``/``s_factor``, n-decoder),
 ``tm_restomer``, ``tm_bidirectional``, gated ``tm_feat`` and ``xcpe_mode``
-"blocked"/"cond" (the parity-blocked k27 xCPE; the coarsest level always
-gathers).
+"blocked" (the parity-blocked k27 xCPE; the coarsest level always gathers).
+``stem_mode`` and ``xcpe_mode`` "cond" compute the gather, exact wherever JAX's
+"cond" would take the parity form (`SubMConv` says why, and what it costs).
 """
 
 from __future__ import annotations
@@ -160,13 +161,11 @@ class Block(nn.Module):
                 t_emb: Optional[torch.Tensor] = None, generator=None,
                 blocked=None) -> torch.Tensor:
         """``generator`` draws the stochastic-depth and dropout masks in
-        training; ``blocked`` is the level's ``(blocked_geom, no_overflow)``
-        for the blocked xCPE, or None (the gather)."""
+        training; ``blocked`` is the level's ``blocked_geom`` for the blocked
+        xCPE, or None (the gather)."""
         det = not self.training
-        geom, no_overflow = blocked if blocked is not None else (None, None)
         f = self.cpe_norm(self.cpe_fc(self.cpe_conv(
-            feat, point.neighbor_idx, blocked_geom=geom, no_overflow=no_overflow,
-            stem_mode=self.conv_mode)))
+            feat, point.neighbor_idx, blocked_geom=blocked, stem_mode=self.conv_mode)))
         feat = feat + f
         if self.t_mlp is not None and t_emb is not None:
             feat = feat + self.t_mlp(t_emb)
@@ -187,23 +186,21 @@ class Embedding(nn.Module):
                                   use_bias=False, dtype=dtype)
         self.norm = MaskedBatchNorm(embed_channels, dtype=dtype)
 
-    def forward(self, feat, mask, stem_neighbor, blocked_geom=None,
-                no_overflow=None):
+    def forward(self, feat, mask, stem_neighbor, blocked_geom=None):
         f = self.stem_conv(feat, stem_neighbor, blocked_geom=blocked_geom,
-                           no_overflow=no_overflow, stem_mode=self.stem_mode)
+                           stem_mode=self.stem_mode)
         return F.gelu(self.norm(f, mask))
 
 
 class DualEmbedding(nn.Module):
     """Fused n+c stems: both branches share the k5 table, so one gather
     serves both (block-diagonal weights). ``stem_mode`` as in `SubMConv`:
-    "cond" takes the blocked form when no pooled level overflowed."""
+    "gather" and "cond" run `dual_subm_conv_apply`, "blocked" the parity
+    form (`blocked_stem_apply`)."""
 
     def __init__(self, n_in: int, c_in: int, n_embed: int, c_embed: int,
                  dtype: torch.dtype = torch.float32, stem_mode: str = "gather"):
         super().__init__()
-        if stem_mode not in ("gather", "blocked", "cond"):
-            raise ValueError(f"unknown stem_mode {stem_mode!r}")
         self.dtype = dtype
         self.stem_mode = stem_mode
         self.n_weight = conv_weight(125, n_in, n_embed)
@@ -211,11 +208,9 @@ class DualEmbedding(nn.Module):
         self.n_norm = MaskedBatchNorm(n_embed, dtype=dtype)
         self.c_norm = MaskedBatchNorm(c_embed, dtype=dtype)
 
-    def forward(self, n_feat, c_feat, mask, stem_neighbor, blocked_geom=None,
-                no_overflow=None):
+    def forward(self, n_feat, c_feat, mask, stem_neighbor, blocked_geom=None):
         nf, cf = n_feat.to(self.dtype), c_feat.to(self.dtype)
-        mode = self.stem_mode if blocked_geom is not None else "gather"
-        if mode == "gather" or (mode == "cond" and not no_overflow):
+        if self.stem_mode != "blocked" or blocked_geom is None:
             fn, fc = dual_subm_conv_apply(nf, cf, stem_neighbor,
                                           self.n_weight, self.c_weight)
         else:
@@ -559,8 +554,9 @@ class PointTransformerV3(nn.Module):
         unknown = set(layout_knobs) - set(LAYOUT_KNOBS)
         if unknown:
             raise TypeError(f"unknown PointTransformerV3 fields: {sorted(unknown)}")
-        if xcpe_mode not in ("gather", "blocked", "cond"):
-            raise ValueError(f"unknown xcpe_mode {xcpe_mode!r}")
+        for name, mode in (("stem_mode", stem_mode), ("xcpe_mode", xcpe_mode)):
+            if mode not in ("gather", "blocked", "cond"):
+                raise ValueError(f"unknown {name} {mode!r}")
         if len(n_enc_depths) != len(n_stride) + 1:
             raise ValueError("n_enc_depths needs one more stage than n_stride")
         self.shuffle_orders = shuffle_orders  # permutes curves in training
@@ -573,6 +569,7 @@ class PointTransformerV3(nn.Module):
         self.condition = condition
         self.num_classes = num_classes
         self.t_dim = t_dim
+        self.stem_mode = stem_mode
         self.xcpe_mode = xcpe_mode
         self.n_shifts = _cumshift(n_stride)
         self.c_shifts = _cumshift(c_stride)
@@ -706,30 +703,27 @@ class PointTransformerV3(nn.Module):
         if self.condition and self.t_dim != -1 and t_emb is not None:
             t = swish(self.fc_t2(swish(self.fc_t1(t_emb))))
 
-        # blocked-stem operands: level-1 cluster structure and the overflow
-        # predicate, a Python bool from the pyramid's one host read
-        blocked_geom = no_overflow = None
-        if len(levels) > 1 and levels[1].parent_inverse is not None:
-            blocked_geom = (levels[0].point.grid_coord, levels[0].point.mask,
-                            levels[1].parent_inverse, levels[1].point.neighbor_idx)
-            no_overflow = sum(int(lv.dropped) for lv in levels[1:]) == 0
-        # per-level operands of the blocked k27 xCPE: level l's taps resolve
-        # in level l+1's cluster structure; None at the coarsest level and
-        # when the xCPE gathers
+        # operands of the blocked forms: level l's taps resolve in level
+        # l+1's cluster structure (the stem's at level 0); None at the
+        # coarsest level and wherever the conv gathers
+        clustered = len(levels) > 1 and levels[1].parent_inverse is not None
+
+        def blocked_geom(lv):
+            return (levels[lv].point.grid_coord, levels[lv].point.mask,
+                    levels[lv + 1].parent_inverse, levels[lv + 1].point.neighbor_idx)
+
+        stem_geom = blocked_geom(0) if clustered and self.stem_mode == "blocked" else None
         xcpe = [None] * len(levels)
-        if no_overflow is not None and self.xcpe_mode != "gather":
-            xcpe = [((levels[lv].point.grid_coord, levels[lv].point.mask,
-                      levels[lv + 1].parent_inverse, levels[lv + 1].point.neighbor_idx),
-                     no_overflow) for lv in range(len(levels) - 1)] + [None]
+        if clustered and self.xcpe_mode == "blocked":
+            xcpe = [blocked_geom(lv) for lv in range(len(levels) - 1)] + [None]
         mask0 = levels[0].point.mask
         if self.condition:
             if c_feat is None:
                 raise ValueError("the dual-branch backbone needs c_feat")
             n_feat, c_feat = self.dual_embedding(
-                n_point.feat, c_feat, mask0, stem_nbr, blocked_geom, no_overflow)
+                n_point.feat, c_feat, mask0, stem_nbr, stem_geom)
         else:
-            n_feat = self.n_embedding(n_point.feat, mask0, stem_nbr,
-                                      blocked_geom, no_overflow)
+            n_feat = self.n_embedding(n_point.feat, mask0, stem_nbr, stem_geom)
 
         # ---- n encoder ----
         n_skips = []

@@ -17,40 +17,34 @@ tensor the plain version runs instead, under ordinary autograd.
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Optional
 
 import torch
 
 from cdsegnet_torch.ops.attention import patch_attention
-from cdsegnet_torch.utils.cuda_build import load_library
+from cdsegnet_torch.utils.cuda_build import (
+    DTYPE_CODES,
+    bind,
+    check_launch,
+    register_launches,
+    stream,
+)
 
 KERNEL = "patch_attention_fwd"
 BWD_KERNEL = "patch_attention_bwd"
 SOURCES = (KERNEL, BWD_KERNEL)
 HEAD_DIMS = (16, 32)
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
-
-
-def _bind(source: str, symbol: str, n_ptrs: int):
-    fn = getattr(load_library(source), symbol)
-    fn.argtypes = [_P] * n_ptrs + [_I] * 4 + [ctypes.c_float, _I, _P]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-@functools.lru_cache(maxsize=None)
-def _kernel(symbol: str):
-    if symbol == "fwd":
-        return _bind(KERNEL, "cdseg_patch_attention_fwd", 7)
-    return _bind(BWD_KERNEL, f"cdseg_patch_attention_bwd_{symbol}", 10)
+# after the pointers: N, H, D, patch size, scale, dtype code, stream
+_SHAPE_ARGS = (_I,) * 4 + (ctypes.c_float, _I, _P)
+_FWD_ARGS = (_P,) * 7 + _SHAPE_ARGS
+_BWD_ARGS = (_P,) * 10 + _SHAPE_ARGS
 
 
 def _check(q, k, v, batch_sorted, valid_sorted, patch_size, *more):
     """Raise on inputs the kernels do not take. ``more`` are further
     ``(name, tensor)`` pairs that must match q (o and g in the backward)."""
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k, v must all be float32 or bfloat16, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape:
@@ -79,26 +73,17 @@ def _check(q, k, v, batch_sorted, valid_sorted, patch_size, *more):
             raise ValueError(f"{name} must be contiguous")
 
 
-def _stream(x: torch.Tensor) -> int:
-    return torch.cuda.current_stream(x.device).cuda_stream
-
-
-def _raise_on(err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what} launch failed: CUDA error {err}")
-
-
 def _launch_fwd(q, k, v, batch_sorted, valid_sorted, patch_size, scale,
                 with_lse: bool):
     """The forward kernel: ``(out, lse)``, lse (N, H) f32 or None."""
     n, h, d = q.shape
     out = torch.empty_like(v)
     lse = torch.empty((n, h), dtype=torch.float32, device=q.device) if with_lse else None
-    _raise_on(_kernel("fwd")(
+    check_launch(bind(KERNEL, "cdseg_patch_attention_fwd", _FWD_ARGS)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), batch_sorted.data_ptr(),
         valid_sorted.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(), n, h, d, patch_size,
-        float(scale), _DTYPES[q.dtype], _stream(q)), KERNEL)
+        float(scale), DTYPE_CODES[q.dtype], stream(q)), KERNEL)
     patch_attention_fwd.launches += 1
     patch_attention_fwd.lse_launches += int(with_lse)
     return out, lse
@@ -112,11 +97,11 @@ def patch_attention_bwd_dq(q, k, v, out, g, lse, batch_sorted, valid_sorted,
     n, h, d = q.shape
     dq = torch.empty_like(q)
     delta = torch.empty((n, h), dtype=torch.float32, device=q.device)
-    _raise_on(_kernel("dq")(
+    check_launch(bind(BWD_KERNEL, "cdseg_patch_attention_bwd_dq", _BWD_ARGS)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), g.data_ptr(),
         lse.data_ptr(), batch_sorted.data_ptr(), valid_sorted.data_ptr(),
         dq.data_ptr(), delta.data_ptr(), n, h, d, patch_size, float(scale),
-        _DTYPES[q.dtype], _stream(q)), "patch_attention_bwd_dq")
+        DTYPE_CODES[q.dtype], stream(q)), "patch_attention_bwd_dq")
     patch_attention_bwd_dq.launches += 1
     return dq, delta
 
@@ -128,17 +113,13 @@ def patch_attention_bwd_dkdv(q, k, v, g, lse, delta, batch_sorted, valid_sorted,
     _check(q, k, v, batch_sorted, valid_sorted, patch_size, ("g", g))
     n, h, d = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _raise_on(_kernel("dkdv")(
+    check_launch(bind(BWD_KERNEL, "cdseg_patch_attention_bwd_dkdv", _BWD_ARGS)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), batch_sorted.data_ptr(), valid_sorted.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), n, h, d, patch_size, float(scale),
-        _DTYPES[q.dtype], _stream(q)), "patch_attention_bwd_dkdv")
+        DTYPE_CODES[q.dtype], stream(q)), "patch_attention_bwd_dkdv")
     patch_attention_bwd_dkdv.launches += 1
     return dk, dv
-
-
-for _fn in (patch_attention_bwd_dq, patch_attention_bwd_dkdv):
-    _fn.launches = 0
 
 
 class _PatchAttention(torch.autograd.Function):
@@ -199,16 +180,10 @@ def patch_attention_fwd(
                        with_lse=False)[0]
 
 
-patch_attention_fwd.launches = 0
-patch_attention_fwd.lse_launches = 0
-
-
-def reset_launch_counts() -> None:
-    """Set every kernel's launch count to 0."""
-    patch_attention_fwd.launches = 0
-    patch_attention_fwd.lse_launches = 0
-    patch_attention_bwd_dq.launches = 0
-    patch_attention_bwd_dkdv.launches = 0
+register_launches("fwd", patch_attention_fwd)
+register_launches("fwd_lse", patch_attention_fwd, "lse_launches")
+register_launches("dq", patch_attention_bwd_dq)
+register_launches("dkdv", patch_attention_bwd_dkdv)
 
 
 def attention_impl(use_pallas: Optional[bool] = None):

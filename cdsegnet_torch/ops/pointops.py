@@ -28,14 +28,13 @@ tiling-dependent sums) and the same order among near-ties.
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Optional, Tuple
 
 import torch
 
 from cdsegnet_torch.ops.subm_conv import _gather_rows
 from cdsegnet_torch.utils import tracing
-from cdsegnet_torch.utils.cuda_build import load_library
+from cdsegnet_torch.utils.cuda_build import bind, check_launch, register_launches, stream
 
 BIG = 1e30
 # distance elements per tile of `knn` on the CPU: 2^26 float32 (256 MiB)
@@ -182,12 +181,10 @@ def knn(query: torch.Tensor, ref: torch.Tensor, k: int,
         return _knn(query, ref, k, query_mask, ref_mask, chunk, query_batch, ref_batch)
 
 
-def _knn(query, ref, k, query_mask, ref_mask, chunk, query_batch, ref_batch, kernel=True):
-    # kernel=False keeps a CUDA tensor on the tiles (`chip_smoke.py` times
-    # that route beside the kernel)
+def _knn(query, ref, k, query_mask, ref_mask, chunk, query_batch, ref_batch):
     m, n = query.shape[0], ref.shape[0]
     dev = query.device
-    kernel = kernel and dev.type != "cpu"
+    kernel = dev.type != "cpu"
     if kernel:
         knn_slots(k)  # refuse k before any work
         if dev.type != "cuda":
@@ -237,13 +234,8 @@ def knn_slots(k: int) -> int:
     return next(s for s in SLOTS if s >= k)
 
 
-@functools.lru_cache(maxsize=None)
-def _kernel():
-    fn = load_library("knn").cdseg_knn_fused
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
-                   + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)])
-    fn.restype = ctypes.c_int
-    return fn
+_KNN_ARGS = ((ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 4
+             + (ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)))
 
 
 def _packed(pts: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
@@ -278,17 +270,16 @@ def knn_fused(query: torch.Tensor, ref: torch.Tensor, k: int, q_order: torch.Ten
     q_pack, r_pack = _packed(query, q_order), _packed(ref, r_order)
     runs = (ctypes.c_int * (4 * len(scenes)))(*[v for sc in scenes for v in sc])
     launched = ctypes.c_int(0)
-    err = _kernel()(q_pack.data_ptr(), r_pack.data_ptr(), q_order.data_ptr(),
-                    r_order.data_ptr(), idx.data_ptr(), dist.data_ptr(), runs, len(scenes),
-                    k, slots, guard, torch.cuda.current_stream(query.device).cuda_stream,
-                    ctypes.byref(launched))
+    err = bind("knn", "cdseg_knn_fused", _KNN_ARGS)(
+        q_pack.data_ptr(), r_pack.data_ptr(), q_order.data_ptr(), r_order.data_ptr(),
+        idx.data_ptr(), dist.data_ptr(), runs, len(scenes), k, slots, guard, stream(query),
+        ctypes.byref(launched))
     knn_fused.launches += launched.value
-    if err != 0:
-        raise RuntimeError(f"knn_fused launch failed: CUDA error {err}")
+    check_launch(err, "knn_fused")
     return idx, dist
 
 
-knn_fused.launches = 0
+register_launches("knn", knn_fused)
 
 
 def ball_query(query: torch.Tensor, ref: torch.Tensor, radius: float, nsample: int,

@@ -29,13 +29,21 @@ import numpy as np
 import torch
 
 from cdsegnet_torch.models.structure import _parity_bits, _parity_select_tables
-from cdsegnet_torch.utils.cuda_build import load_library
+from cdsegnet_torch.utils.cuda_build import (
+    DTYPE_CODES,
+    bind,
+    check_launch,
+    register_launches,
+    stream,
+)
 
 KERNEL = "subm_conv"
 TILE_ROWS = 64  # rows of a tile whose taps a launch skips together
 MAX_TAPS = 128
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_FWD_ARGS = (_P,) * 7 + (_I,) * 7 + (_P,)
+_WGRAD_ARGS = (_P,) * 5 + (_I,) * 6 + (_P,)
+_SPLITS_ARGS = (_I,) * 6  # N, K, C_in, C_out, dtype code, SMs
 
 
 class _GatherRows(torch.autograd.Function):
@@ -143,32 +151,13 @@ def _forward(feat, neighbor_idx, weight, bias, taps):
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel(symbol: str):
-    fn = getattr(load_library(KERNEL), f"cdseg_subm_conv_gemm_{symbol}")
-    fn.argtypes = {"fwd": [_P] * 7 + [_I] * 7 + [_P],
-                   "wgrad": [_P] * 5 + [_I] * 6 + [_P],
-                   "fwd_splits": [_I] * 6, "splits": [_I] * 6}[symbol]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-@functools.lru_cache(maxsize=None)
 def _sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _stream(x: torch.Tensor) -> int:
-    return torch.cuda.current_stream(x.device).cuda_stream
-
-
-def _raise_on(err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what} launch failed: CUDA error {err}")
-
-
 def _check(x, neighbor_idx, c_in, what):
     """Raise on inputs the kernels do not take; ``x`` is (N, c_in)."""
-    if x.dtype not in _DTYPES:
+    if x.dtype not in DTYPE_CODES:
         raise TypeError(f"{what}: features must be float32 or bfloat16, got {x.dtype}")
     if x.dim() != 2 or x.shape[1] != c_in:
         raise ValueError(f"{what}: features {tuple(x.shape)} do not have {c_in} channels")
@@ -196,19 +185,20 @@ def _launch_fwd(x, neighbor_idx, w, bias, tile_taps):
         return torch.empty((n, c_out), dtype=x.dtype, device=x.device)
     if bias is not None:
         bias = bias.to(device=x.device, dtype=torch.float32).contiguous()
-    is_bf16, sms = _DTYPES[x.dtype], _sms(x.device.index or 0)
-    splits = _kernel("fwd_splits")(n, k, c_in, c_out, is_bf16, sms)
+    is_bf16, sms = DTYPE_CODES[x.dtype], _sms(x.device.index or 0)
+    splits = bind(KERNEL, "cdseg_subm_conv_gemm_fwd_splits", _SPLITS_ARGS)(
+        n, k, c_in, c_out, is_bf16, sms)
     y = partial = None
     if splits > 1:
         partial = torch.empty((splits, n, c_out), dtype=torch.float32, device=x.device)
     else:
         y = torch.empty((n, c_out), dtype=x.dtype, device=x.device)
-    _raise_on(_kernel("fwd")(
+    check_launch(bind(KERNEL, "cdseg_subm_conv_gemm_fwd", _FWD_ARGS)(
         x.data_ptr(), neighbor_idx.data_ptr(), w.data_ptr(),
         None if bias is None else bias.data_ptr(), None if y is None else y.data_ptr(),
         None if partial is None else partial.data_ptr(),
         None if tile_taps is None else tile_taps.data_ptr(), n, k, c_in, c_out, splits,
-        is_bf16, sms, _stream(x)), "subm_conv_gemm_fwd")
+        is_bf16, sms, stream(x)), "subm_conv_gemm_fwd")
     return y if partial is None else partial.sum(0).to(x.dtype)
 
 
@@ -242,19 +232,21 @@ def subm_conv_gemm_wgrad(feat, neighbor_idx, grad_out, tile_taps):
         raise TypeError(f"gradient {grad_out.dtype} and features {feat.dtype} differ")
     if n == 0:
         return torch.zeros((k, c_in, c_out), dtype=torch.float32, device=feat.device)
-    is_bf16 = _DTYPES[feat.dtype]
-    splits = _kernel("splits")(n, k, c_in, c_out, is_bf16, _sms(feat.device.index or 0))
+    is_bf16 = DTYPE_CODES[feat.dtype]
+    splits = bind(KERNEL, "cdseg_subm_conv_gemm_splits", _SPLITS_ARGS)(
+        n, k, c_in, c_out, is_bf16, _sms(feat.device.index or 0))
     partial = torch.empty((splits, k, c_in, c_out), dtype=torch.float32, device=feat.device)
-    _raise_on(_kernel("wgrad")(
+    check_launch(bind(KERNEL, "cdseg_subm_conv_gemm_wgrad", _WGRAD_ARGS)(
         feat.data_ptr(), neighbor_idx.data_ptr(), grad_out.data_ptr(), tile_taps.data_ptr(),
-        partial.data_ptr(), n, k, c_in, c_out, splits, is_bf16, _stream(feat)),
+        partial.data_ptr(), n, k, c_in, c_out, splits, is_bf16, stream(feat)),
         "subm_conv_gemm_wgrad")
     subm_conv_gemm_wgrad.launches += 1
     return partial.sum(0)
 
 
-for _fn in (subm_conv_gemm_fwd, subm_conv_gemm_dgrad, subm_conv_gemm_wgrad):
-    _fn.launches = 0
+register_launches("conv_fwd", subm_conv_gemm_fwd)
+register_launches("conv_dgrad", subm_conv_gemm_dgrad)
+register_launches("conv_wgrad", subm_conv_gemm_wgrad)
 
 
 class _SubMConvGemm(torch.autograd.Function):

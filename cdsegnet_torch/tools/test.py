@@ -46,9 +46,11 @@ def load_state(cfg, checkpoint: str,
     one layout, unrolled and unfused, for training and serving, so the
     checkpoint loads as saved and needs no restack. Of the JAX tool's
     serving knobs only the stem has a counterpart here: ``serve_stem_mode``
-    ("cond" by default: the blocked k125 stem when no pyramid level
-    overflows, the gather stem otherwise). Remat, fused gathers and gather
-    padding are layout knobs the port does not have.
+    ("cond" by default, which here computes the gather stem: it is exact
+    wherever JAX's "cond" takes the blocked k125 stem and keeps less
+    memory, though on an H100 it is slower, `SubMConv`; "blocked" is the
+    parity form as in JAX). Remat, fused gathers and gather padding are
+    layout knobs the port does not have.
     """
     model_cfg = dict(cfg.model)
     backbone = model_cfg.get("backbone")

@@ -1,14 +1,20 @@
-"""Build the port's CUDA sources with ``nvcc`` and load them with ctypes.
+"""Build the port's CUDA sources with ``nvcc``, load and bind them with
+ctypes, and keep the kernels' launch counters.
 
 Each ``cdsegnet_torch/csrc/<name>.cu`` has a plain C interface and compiles
 into ``cdsegnet_torch/_build/<name>-<hash>.so``, where the hash covers the
 source, the shared headers (``csrc/*.cuh``) and the compiler flags, so an
 edited source or header builds anew. Builds happen at first use.
+
+The kernel wrappers (`cdsegnet_torch.ops`) launch through `bind`, `stream`,
+`DTYPE_CODES` and `check_launch`, and list their launch counters (attributes
+of their own functions) with `register_launches`.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import re
@@ -16,7 +22,9 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Tuple
+
+import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -26,7 +34,11 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+# the dtype argument of the attention and conv kernels
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
 _LOADED: Dict[str, ctypes.CDLL] = {}
+_COUNTERS: Dict[str, Tuple[object, str]] = {}
 
 
 def _nvcc() -> str:
@@ -116,3 +128,42 @@ def load_library(name: str) -> ctypes.CDLL:
         build(name)
         lib = _LOADED[name] = ctypes.CDLL(str(library_path(name)))
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def bind(name: str, symbol: str, argtypes: Tuple[type, ...]):
+    """The C function ``symbol`` of ``csrc/<name>.cu`` (built if missing),
+    taking ``argtypes`` (ctypes types) and returning an ``int``."""
+    fn = getattr(load_library(name), symbol)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def stream(x: torch.Tensor) -> int:
+    """The handle of the current CUDA stream of ``x``'s device."""
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def check_launch(err: int, what: str) -> None:
+    """Raise if a kernel's C entry point returned a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: CUDA error {err}")
+
+
+def register_launches(name: str, owner, attr: str = "launches") -> None:
+    """Set ``owner.<attr>``, a wrapper's launch count, to 0 and list it as
+    counter ``name`` of `launch_counts`."""
+    setattr(owner, attr, 0)
+    _COUNTERS[name] = (owner, attr)
+
+
+def launch_counts() -> Dict[str, int]:
+    """Every registered launch counter by name."""
+    return {name: getattr(owner, attr) for name, (owner, attr) in _COUNTERS.items()}
+
+
+def reset_launch_counts() -> None:
+    """Set every registered launch counter to 0."""
+    for owner, attr in _COUNTERS.values():
+        setattr(owner, attr, 0)

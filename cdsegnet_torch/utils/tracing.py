@@ -66,6 +66,8 @@ from typing import Dict, List, NamedTuple, Optional
 import torch
 import torch.autograd.profiler as _profiler
 
+from cdsegnet_torch.utils.cuda_build import launch_counts
+
 SYNCS = "host_syncs"
 OUTSIDE = "(outside)"
 _SYNC_WARNING = re.compile(r".*synchronizing CUDA operation", re.I)
@@ -151,29 +153,14 @@ class _Open:
         return False
 
 
-def _launches() -> Dict[str, int]:
-    from cdsegnet_torch.ops import flash_attention as fa
-    from cdsegnet_torch.ops import pointops as po
-    from cdsegnet_torch.ops import subm_conv as sc
-
-    return dict(fwd=fa.patch_attention_fwd.launches,
-                fwd_lse=fa.patch_attention_fwd.lse_launches,
-                dq=fa.patch_attention_bwd_dq.launches,
-                dkdv=fa.patch_attention_bwd_dkdv.launches,
-                conv_fwd=sc.subm_conv_gemm_fwd.launches,
-                conv_dgrad=sc.subm_conv_gemm_dgrad.launches,
-                conv_wgrad=sc.subm_conv_gemm_wgrad.launches,
-                knn=po.knn_fused.launches)
-
-
 class Capture:
     """What one `capture` recorded: ``spans`` (`Span`, by start),
     ``counters`` (totals by name), ``counts`` (each increment as ``(time,
-    name, span id or None, n)``), ``launches`` (the kernels launched
-    meanwhile: attention ``fwd``, ``fwd_lse``, ``dq``, ``dkdv``; the
-    submanifold conv's ``conv_fwd``, ``conv_dgrad``, ``conv_wgrad``; the
-    fused kNN's ``knn``),
-    ``thread`` (the thread that opened it) and ``start_ns``/``end_ns``."""
+    name, span id or None, n)``), ``launches`` (the launches meanwhile of
+    each counter of `cuda_build.launch_counts` registered by the end, so of
+    the wrappers imported by then: this module imports none; one registered
+    while open counts from 0), ``thread`` (the thread that opened it) and
+    ``start_ns``/``end_ns``."""
 
     def __init__(self):
         self.spans: List[Span] = []
@@ -192,7 +179,7 @@ class Capture:
         if _capture is not None:
             raise RuntimeError("a capture is already open")
         self.thread = threading.get_ident()
-        self._launch0 = _launches()
+        self._launch0 = launch_counts()
         if torch.cuda.is_available() and torch.cuda.is_initialized():
             self._watch_syncs()
         self._open = True
@@ -217,8 +204,8 @@ class Capture:
             torch.cuda.set_sync_debug_mode(mode)
             guard.__exit__(None, None, None)
             self._syncs = None
-        after = _launches()
-        self.launches = {k: after[k] - self._launch0[k] for k in after}
+        after = launch_counts()
+        self.launches = {k: n - self._launch0.get(k, 0) for k, n in after.items()}
         self.spans.sort(key=lambda s: (s.start, s.id))
         return self
 

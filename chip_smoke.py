@@ -128,7 +128,8 @@ Phases, each fatal on failure:
    take 32 kernel launches per SSI and 36 + 36 + 36 per step and no plain
    attention; (c) launches nothing: every self-attention takes the biased
    plain route (32 per SSI, 36 per step). Then the shipped model's SSI ms
-   with the gather, blocked and cond xCPE, blocked against gather within
+   with the gather and the blocked xCPE ("cond" computes the gather),
+   blocked against gather within
    ``TOL_TEST`` in bf16 and within 1e-5 of max |logits| in f32;
 16. ablations: ③ ContinuousDM, ④ CCDM, ⑤ DiscreteDM, ⑥ CDDM and DM, the
    ScanNet model with its type swapped and the labels' branch given 20
@@ -150,8 +151,8 @@ Phases, each fatal on failure:
    one a level; the kernel's device ms and bound for the kernels line),
    at every level of that bucket the fused kNN kernel's route
    of `knn` against its dense plain version (indices equal, distances equal
-   to the bit, one launch a call; the kernel's device ms, its bound, the
-   dense version's and the tile route's ms per level), m1 and m3 (one
+   to the bit, one launch a call; the kernel's device ms, its bound and the
+   dense version's ms per level), m1 and m3 (one
    condition) one eval forward each;
    everything finite, no metric level drops a point, no attention kernel
    launched;
@@ -308,7 +309,9 @@ TOL_SSI = {"shipped": (0.053, 0.967), "f32_softmax": (0.047, 0.968),
            "float32": (3.5e-6, 0.9999)}
 # training step, kernel route vs plain route on one scene (loss gap / loss,
 # max |dg| / max |g| over all parameters), about 3x the gaps read on an H100
-# (f32: 9.6e-8, one ulp of the loss, and 2.5e-6; shipped: 1.07e-4 and 0.0123)
+# (f32: 9.6e-8, one ulp of the loss, and 2.5e-6; shipped: 1.07e-4 and 0.0123);
+# with both routes' max poolings on the kernel route's rows (`phase_train_gap`)
+# an H100 read f32 9.6e-8 and 3.5e-7, shipped 1.7e-4 and 0.0050
 TOL_TRAIN = {"float32": (3e-7, 8e-6), "shipped": (3.2e-4, 0.037)}
 # phase 5's boundary layouts (N, H, D, patch, scene sizes): scenes crossing
 # patches and the backward's 16-row and 8-column fragments at offsets that
@@ -811,6 +814,7 @@ def train_setup(torch, conf, cfg, device="cuda", **backbone):
 def phase_train(torch, conf, cfg, point, n_launches, card):
     from cdsegnet_torch.engine.state import make_train_step
     from cdsegnet_torch.ops import flash_attention as fa
+    from cdsegnet_torch.utils import cuda_build
 
     model, criteria, opt = train_setup(torch, conf, cfg)
     step = make_train_step(model, criteria, opt, seed=0, device="cuda")
@@ -820,7 +824,7 @@ def phase_train(torch, conf, cfg, point, n_launches, card):
     before = {n: named[n].detach().clone() for n in probe.values()}
     stats0 = {n: b.clone() for n, b in model.named_buffers()}
 
-    fa.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     metrics = step(point)
     torch.cuda.synchronize()
     counts = dict(fwd=fa.patch_attention_fwd.launches,
@@ -869,9 +873,61 @@ def phase_train(torch, conf, cfg, point, n_launches, card):
     return result
 
 
+def max_picks(torch, values, level):
+    """Per segment and channel of a max pooling, the lowest sorted row whose
+    valid value equals the segment's max; ``len(values)`` where the segment
+    has no valid row."""
+    from cdsegnet_torch.ops import segments as seg_ops
+
+    top = seg_ops.segment_reduce(values, level.pool_seg, level.size, "max",
+                                 level.pool_valid)
+    n = values.shape[0]
+    seg = level.pool_seg.long()[:, None].expand_as(values)
+    rows = torch.arange(n, device=values.device)[:, None].expand_as(values)
+    hit = (values == top.gather(0, seg)) & level.pool_valid[:, None]
+    picks = torch.full(top.shape, n, dtype=torch.int64, device=values.device)
+    return picks.scatter_reduce_(0, seg, torch.where(hit, rows, n), "amin")
+
+
+def pinned_max_pooling(torch, picks, flips):
+    """``make`` for `patched` over `pyramid.pool_features`: a max pooling
+    that reads one row per segment and channel, so that its gradient reaches
+    that row alone. With ``picks`` empty it records its own maxima there
+    (`max_picks`); with them full it reads the recorded rows call by call
+    and appends to ``flips`` how many of its own maxima lie elsewhere. Two
+    routes that round a near-tie apart so send their gradients to the same
+    rows."""
+    replay = bool(picks)
+
+    def make(original):
+        calls = iter(picks) if replay else None
+
+        def pool(feat, level, reduce="max"):
+            if reduce != "max":
+                return original(feat, level, reduce)
+            values = feat[level.pool_sort]
+            with torch.no_grad():
+                own = max_picks(torch, values, level)
+            if replay:
+                pick = next(calls)
+                flips.append(int((own != pick).sum().item()))
+            else:
+                pick = own
+                picks.append(own)
+            padded = torch.cat([values, values.new_zeros((1,) + values.shape[1:])])
+            return padded.gather(0, pick)
+        return pool
+    return make
+
+
 def phase_train_gap(torch, conf, cfg):
     """One step's loss and gradients, kernel route against plain route, on
-    one scene: drop_path 0, no shuffle, the same t, noise and MSE mask."""
+    one scene: drop_path 0, no shuffle, the same t, noise and MSE mask. The
+    max poolings of both routes take the rows that the kernel route's own
+    maxima chose (`pinned_max_pooling`): where the routes round a near-tie
+    apart, a segment's gradient would otherwise go to another row, and the
+    gap would measure where such a flip lands, not the attention kernel."""
+    from cdsegnet_torch.models import pyramid as pyr
     from cdsegnet_torch.utils.synthetic import synthetic_point_batch
 
     point = synthetic_point_batch(GAP_POINTS, 1, depth=12, seed=1, device="cuda")
@@ -881,19 +937,24 @@ def phase_train_gap(torch, conf, cfg):
                   mse_valid=point.mask & (torch.rand(GAP_POINTS, generator=gen,
                                                      device="cuda") < 0.25))
 
-    def grads(dtype, use_pallas):
+    def grads(dtype, use_pallas, picks, flips):
         model, criteria, _ = train_setup(torch, conf, cfg, drop_path=0.0,
                                          shuffle_orders=False, dtype=dtype,
                                          use_pallas=use_pallas)
-        loss = criteria(model(point, **inject), mode="train")
-        params = [p for _, p in model.named_parameters()]
-        gs = torch.autograd.grad(loss, params)
+        with patched((pyr, "pool_features", pinned_max_pooling(torch, picks, flips))):
+            loss = criteria(model(point, **inject), mode="train")
+            params = [p for _, p in model.named_parameters()]
+            gs = torch.autograd.grad(loss, params)
         return loss.item(), [g.float() for g in gs]
 
     gaps = {}
     for name, dtype in (("float32", "float32"), ("shipped", cfg["backbone"]["dtype"])):
-        lk, gk = grads(dtype, None)
-        lp, gp = grads(dtype, False)
+        picks, flips = [], []
+        lk, gk = grads(dtype, None, picks, flips)
+        lp, gp = grads(dtype, False, picks, flips)
+        if not picks or len(flips) != len(picks):
+            fail(f"training step ({name}): the plain route pooled {len(flips)} times, "
+                 f"the kernel route {len(picks)}")
         max_g = max(g.abs().max().item() for g in gp)
         max_dg = max((a - b).abs().max().item() for a, b in zip(gk, gp))
         worst = max((a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
@@ -901,7 +962,7 @@ def phase_train_gap(torch, conf, cfg):
         gaps[name] = dict(loss_kernel=lk, loss_plain=lp,
                           loss_gap=abs(lk - lp) / abs(lp), max_abs_dg=max_dg,
                           max_abs_g=max_g, dg_rel=max_dg / max_g,
-                          worst_tensor_dg_rel=worst,
+                          worst_tensor_dg_rel=worst, pinned_flips=flips,
                           finite=all(torch.isfinite(g).all().item() for g in gk))
         del gk, gp
         torch.cuda.empty_cache()
@@ -998,6 +1059,7 @@ def phase_test(torch, config, cfg, tmp, n_raw, scene, n_launches, card):
     from cdsegnet_torch.models.ptv3 import PointTransformerV3
     from cdsegnet_torch.ops import flash_attention as fa
     from cdsegnet_torch.tools import test as test_tool
+    from cdsegnet_torch.utils import cuda_build
 
     save = os.path.join(tmp, "exp")
     model = build_model(cfg, device="cuda", generator=torch.Generator().manual_seed(0))
@@ -1035,15 +1097,14 @@ def phase_test(torch, config, cfg, tmp, n_raw, scene, n_launches, card):
                    (SemSegTester, "predict_fragment", timed("fragments", sync=True)),
                    (SemSegTester, "forward_fragment", recording_forward(
                        torch, frags, plain_calls, lambda: dict(drops=drops[0])))]
-    fa.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     with patched(*instruments):
         tester = test_tool.main(argv)
     launches = fa.patch_attention_fwd.launches
     n_frag = len(scene["fragment_list"])
     paths = {}
     for f in frags:
-        path = ("parity tables, blocked stem" if sum(f["drops"]) == 0
-                else "sorted tables, gather stem")
+        path = "parity tables" if sum(f["drops"]) == 0 else "sorted tables"
         paths[path] = paths.get(path, 0) + 1
     runs = []  # consecutive fragments of one augmentation often repeat
     for f in frags:
@@ -1085,7 +1146,7 @@ def phase_test(torch, config, cfg, tmp, n_raw, scene, n_launches, card):
         fail(f"metrics out of [0, 1]: {result}")
 
     # the cached rerun reads result/<scene>_pred.npy and launches nothing
-    fa.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     plain_calls[0] = 0
     with patched(instruments[0]):
         rerun = test_tool.main(argv)
@@ -1172,6 +1233,7 @@ def phase_train_cli(torch, config, tmp, n_launches, n_eval_launches, card):
     from cdsegnet_torch.engine.checkpoint import CheckpointManager
     from cdsegnet_torch.ops import flash_attention as fa
     from cdsegnet_torch.tools import train as train_tool
+    from cdsegnet_torch.utils import cuda_build
     from cdsegnet_torch.utils.synthetic import room_scene
 
     start = time.perf_counter()
@@ -1283,7 +1345,7 @@ def phase_train_cli(torch, config, tmp, n_launches, n_eval_launches, card):
     runs = {}
     with patched(*instruments):
         for name, extra in (("interrupted", []), ("resumed", ["resume=True"])):
-            fa.reset_launch_counts()
+            cuda_build.reset_launch_counts()
             plain_calls[0] = 0
             t0 = time.perf_counter()
             try:
@@ -1494,6 +1556,7 @@ def phase_variants(torch, ssi_point, gap_point, train_point, nus, card):
     from cdsegnet_torch.models.builder import build_model, build_model_criteria
     from cdsegnet_torch.models.segmentor import CNFSegmentor
     from cdsegnet_torch.ops import flash_attention as fa
+    from cdsegnet_torch.utils import cuda_build
 
     _, nus_train, nus_ssi = nus
     plain_calls = [0]
@@ -1521,7 +1584,7 @@ def phase_variants(torch, ssi_point, gap_point, train_point, nus, card):
                 return model.inference(pt, noise=nz)["seg_logits"]
             return model(pt)["n_pred"]
 
-        fa.reset_launch_counts()
+        cuda_build.reset_launch_counts()
         plain_calls[0] = 0
         with patched((fa, "patch_attention", counting_plain(plain_calls))):
             logits = ssi(point, noise)
@@ -1567,7 +1630,7 @@ def phase_variants(torch, ssi_point, gap_point, train_point, nus, card):
                               clip_keywords=conf.get("gredient_clip", []), device="cuda")
         step = make_train_step(model, build_model_criteria(cfg), opt, seed=0, device="cuda")
         tp = nus_train if on_sweep else train_point
-        fa.reset_launch_counts()
+        cuda_build.reset_launch_counts()
         plain_calls[0] = 0
         with patched((fa, "patch_attention", counting_plain(plain_calls))):
             torch.cuda.reset_peak_memory_stats()
@@ -1707,9 +1770,10 @@ def phase_time(torch, config, root, ckpt, n_launches, card):
     from cdsegnet_torch.ops import flash_attention as fa
     from cdsegnet_torch.tools import test as test_tool
     from cdsegnet_torch.tools import test_time
+    from cdsegnet_torch.utils import cuda_build
 
     plain_calls = [0]
-    fa.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     with patched((fa, "patch_attention", counting_plain(plain_calls))):
         timing = test_time.main(["--config-file", config])
     timing.update(launches=fa.patch_attention_fwd.launches, plain=plain_calls[0])
@@ -1779,6 +1843,7 @@ def phase_ddim(torch, config, cfg, tmp, ckpt, n_launches, card):
     from cdsegnet_torch.engine.test import SemSegTester
     from cdsegnet_torch.ops import flash_attention as fa
     from cdsegnet_torch.tools import test as test_tool
+    from cdsegnet_torch.utils import cuda_build
 
     conf = load_config("scannet/cdsegnet.py")
     first_aug = [copy.deepcopy(conf.data.test.test_cfg.aug_transform[0])]
@@ -1796,7 +1861,7 @@ def phase_ddim(torch, config, cfg, tmp, ckpt, n_launches, card):
             return fn(self, frag, index, *args, **kwargs)
         return p
 
-    fa.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     t0 = time.perf_counter()
     with patched((fa, "patch_attention", counting_plain(plain_calls)),
                  (SemSegTester, "predict_fragment", predict),
@@ -1824,7 +1889,7 @@ def phase_ddim(torch, config, cfg, tmp, ckpt, n_launches, card):
     n_frag, point, noise = tester._prepare_fragment(firsts[0], 0, None)
     msfi_tester = SemSegTester(copy.deepcopy(tester.cfg), model=tester.model, device="cuda")
     msfi_tester.inference_mode = "MSFI"
-    fa.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     t0 = time.perf_counter()
     final = msfi_tester.forward_fragment(point, noise)
     torch.cuda.synchronize()
@@ -1858,6 +1923,7 @@ def phase_micro(torch, conf, cfg, micros, n_launches, peak_mb1, card):
     beside phase 6's at microbatch 1 (``peak_mb1``)."""
     from cdsegnet_torch.engine.state import make_train_step
     from cdsegnet_torch.ops import flash_attention as fa
+    from cdsegnet_torch.utils import cuda_build
 
     start = time.perf_counter()
     torch.cuda.empty_cache()
@@ -1869,7 +1935,7 @@ def phase_micro(torch, conf, cfg, micros, n_launches, peak_mb1, card):
     times, losses, per_step = [], [], []
     with patched((fa, "patch_attention", counting_plain(plain_calls))):
         for i in range(8):  # 3 warm-ups, then 5 timed steps
-            fa.reset_launch_counts()
+            cuda_build.reset_launch_counts()
             plain_calls[0] = 0
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1997,6 +2063,7 @@ def rank_test(argv, out_dir, tag):
     from cdsegnet_torch.ops import flash_attention as fa
     from cdsegnet_torch.parallel import dist
     from cdsegnet_torch.tools import test as test_tool
+    from cdsegnet_torch.utils import cuda_build
 
     forwarded = []
 
@@ -2006,7 +2073,7 @@ def rank_test(argv, out_dir, tag):
             return fn(self, point, noise)
         return run
 
-    fa.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     with patched((SemSegTester, "forward_fragment", counting)), \
             warnings_recorded() as caught:
         tester = test_tool.main(argv)
@@ -2061,6 +2128,7 @@ def phase_ranks(torch, config, cfg, tmp, ckpt, n_train_launches, n_launches, car
     from cdsegnet_torch.ops import flash_attention as fa
     from cdsegnet_torch.parallel import dist
     from cdsegnet_torch.tools import test as test_tool
+    from cdsegnet_torch.utils import cuda_build
     from cdsegnet_torch.utils.synthetic import room_scene
 
     start = time.perf_counter()
@@ -2189,7 +2257,7 @@ def phase_ranks(torch, config, cfg, tmp, ckpt, n_train_launches, n_launches, car
 
     ones = {}  # one process's run of each mode: records, result, launches
     for mode in modes:
-        fa.reset_launch_counts()
+        cuda_build.reset_launch_counts()
         deterministic(torch, True)
         try:
             one = test_tool.main(test_argv(os.path.join(tmp, f"ranks_one_{mode}"), mode))
@@ -2366,13 +2434,15 @@ def phase_options(torch, conf, cfg, point, gap_point, train_point, card):
     36 per step, no plain attention; (c): no kernel launch, every
     self-attention through the biased plain route (32 per SSI, 36 per step
     forward). Then the xCPE formulations of the shipped model on phase 4's
-    scene: SSI ms of "gather", "blocked" and "cond"; blocked against gather
+    scene: SSI ms of "gather" and "blocked" ("cond" computes the gather);
+    blocked against gather
     within ``TOL_TEST`` in bf16 and within 1e-5 of max |logits| with the
     whole model in f32."""
     from cdsegnet_torch.engine.optimizer import build_optimizer
     from cdsegnet_torch.engine.state import make_train_step
     from cdsegnet_torch.models.builder import build_model, build_model_criteria
     from cdsegnet_torch.ops import flash_attention as fa
+    from cdsegnet_torch.utils import cuda_build
 
     plain_calls, biased_calls = [0], [0]
     results = {}
@@ -2387,7 +2457,7 @@ def phase_options(torch, conf, cfg, point, gap_point, train_point, card):
         n_step = len(attention_launches(c["backbone"], c_decoder=True))
         model = build_model(c, device="cuda", generator=torch.Generator().manual_seed(0))
         ssi = lambda pt, nz: model.inference(pt, noise=nz)["seg_logits"]
-        fa.reset_launch_counts()
+        cuda_build.reset_launch_counts()
         plain_calls[0] = biased_calls[0] = 0
         with patched(*route_counters(torch, plain_calls, biased_calls)):
             torch.cuda.reset_peak_memory_stats()
@@ -2412,7 +2482,7 @@ def phase_options(torch, conf, cfg, point, gap_point, train_point, card):
                               param_dicts=[dict(p) for p in conf["param_dicts"]],
                               clip_keywords=conf.get("gredient_clip", []), device="cuda")
         step = make_train_step(model, build_model_criteria(c), opt, seed=0, device="cuda")
-        fa.reset_launch_counts()
+        cuda_build.reset_launch_counts()
         plain_calls[0] = biased_calls[0] = 0
         with patched(*route_counters(torch, plain_calls, biased_calls)):
             torch.cuda.reset_peak_memory_stats()
@@ -2456,7 +2526,7 @@ def phase_options(torch, conf, cfg, point, gap_point, train_point, card):
     # the xCPE formulations of the shipped model, one set of weights
     model = build_model(cfg, device="cuda", generator=torch.Generator().manual_seed(0))
     xcpe, logits = {}, {}
-    for mode in ("gather", "blocked", "cond"):
+    for mode in ("gather", "blocked"):
         set_xcpe_mode(model, mode)
         logits[mode] = model.inference(point, noise=noise)["seg_logits"]
         xcpe[mode] = timed_ms(torch, lambda: model.inference(point, noise=noise), 5)
@@ -2503,6 +2573,7 @@ def phase_ablations(torch, config, conf, cfg, tmp, point, gap_point, train_point
     from cdsegnet_torch.models.ablation_segmentors import inference_multistep
     from cdsegnet_torch.models.builder import build_model, build_model_criteria
     from cdsegnet_torch.ops import flash_attention as fa
+    from cdsegnet_torch.utils import cuda_build
 
     plain_calls, biased_calls = [0], [0]
     results = {}
@@ -2517,7 +2588,7 @@ def phase_ablations(torch, config, conf, cfg, tmp, point, gap_point, train_point
             g = torch.Generator(device="cuda").manual_seed(seed)
             return model.inference(pt, generator=g)["seg_logits"]
 
-        fa.reset_launch_counts()
+        cuda_build.reset_launch_counts()
         plain_calls[0] = biased_calls[0] = 0
         with patched(*route_counters(torch, plain_calls, biased_calls)):
             logits = ssi(point, 7)
@@ -2538,7 +2609,7 @@ def phase_ablations(torch, config, conf, cfg, tmp, point, gap_point, train_point
                               param_dicts=[dict(p) for p in conf["param_dicts"]],
                               clip_keywords=conf.get("gredient_clip", []), device="cuda")
         step = make_train_step(model, build_model_criteria(c), opt, seed=0, device="cuda")
-        fa.reset_launch_counts()
+        cuda_build.reset_launch_counts()
         plain_calls[0] = biased_calls[0] = 0
         with patched(*route_counters(torch, plain_calls, biased_calls)):
             torch.cuda.reset_peak_memory_stats()
@@ -2555,7 +2626,7 @@ def phase_ablations(torch, config, conf, cfg, tmp, point, gap_point, train_point
         msai = {}
         for mode in ("avg", "final"):
             g = torch.Generator(device="cuda").manual_seed(9)
-            fa.reset_launch_counts()
+            cuda_build.reset_launch_counts()
             plain_calls[0] = 0
             with patched(*route_counters(torch, plain_calls, biased_calls)):
                 torch.cuda.synchronize()
@@ -2603,6 +2674,7 @@ def ablation_clis(torch, config, conf, cfg, tmp, n_raw, card):
     from cdsegnet_torch.ops import flash_attention as fa
     from cdsegnet_torch.tools import test as test_tool
     from cdsegnet_torch.tools import train as train_tool
+    from cdsegnet_torch.utils import cuda_build
 
     kind = "CDDMSegmentor"
     c = ablation_cfg(cfg, kind)
@@ -2621,7 +2693,7 @@ def ablation_clis(torch, config, conf, cfg, tmp, n_raw, card):
             f"data.train.data_root={data_root}", f"data.val.data_root={data_root}",
             *model_opts]
     plain_calls, biased_calls = [0], [0]
-    fa.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     t0 = time.perf_counter()
     with patched(*route_counters(torch, plain_calls, biased_calls)):
         trainer = train_tool.main(argv)
@@ -2656,7 +2728,7 @@ def ablation_clis(torch, config, conf, cfg, tmp, n_raw, card):
     from cdsegnet_torch.engine.test import SemSegTester
 
     frags, plain = [], [0]
-    fa.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     t0 = time.perf_counter()
     with patched((fa, "patch_attention", counting_plain(plain)),
                  (SemSegTester, "forward_fragment", recording_forward(torch, frags, plain))):
@@ -2717,22 +2789,21 @@ def phase_ptv2(torch, point, train_point, card):
     of that bucket `knn`, which runs the fused kernel (`csrc/knn.cu`),
     against its dense plain version: indices equal, distances equal to the
     bit, one launch a call; timed per level: `knn` (events), the kernel
-    alone (the profiler's device time), its bound, the dense version and
-    the tile route (`_knn(..., kernel=False)`: distance tiles and
-    `torch.topk`); m1 and m3 (one condition): one eval forward each.
+    alone (the profiler's device time), its bound and the dense version;
+    m1 and m3 (one condition): one eval forward each.
     Everything finite; no metric level may drop a point; PTv2 runs no
     attention kernel."""
     from cdsegnet_torch.engine.state import make_train_step
     from cdsegnet_torch.models.builder import build_model
     from cdsegnet_torch.ops import flash_attention as fa
-    from cdsegnet_torch.ops.pointops import _knn, knn, knn_dense, knn_fused
-    from cdsegnet_torch.utils import tracing
+    from cdsegnet_torch.ops.pointops import knn, knn_dense, knn_fused
+    from cdsegnet_torch.utils import cuda_build, tracing
     from torch.profiler import ProfilerActivity, profile
 
     start = time.perf_counter()
     conf = load_config(PTV2_CONFIG)
     cfg = copy.deepcopy(dict(conf.model))
-    fa.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     model = build_model(cfg, device="cuda", generator=torch.Generator().manual_seed(0))
     levels, _ = model.backbone.precompute_geometry(point)
     eval_levels = dict(sizes=[lv.size for lv in levels],
@@ -2807,9 +2878,7 @@ def phase_ptv2(torch, point, train_point, card):
                    ms=cuda_ms(torch, lambda: knn(*args, **ids), warmup=1, iters=3),
                    kernel_ms=device_ms(torch, lambda: knn(*args, **ids), "knn_fused", 3),
                    dense_ms=cuda_ms(torch, lambda: knn_dense(*args, **ids), warmup=0,
-                                    iters=1),
-                   tiles_ms=cuda_ms(torch, lambda: _knn(*args, None, p.batch, p.batch,
-                                                        kernel=False), warmup=1, iters=1))
+                                    iters=1))
         row["bound_ms"] = knn_bound_ms(row["pairs"])
         knn_rows.append(row)
         print(f"ptv2 knn level {len(knn_rows) - 1} " + json.dumps(row), flush=True)
@@ -2849,7 +2918,6 @@ def phase_ptv2(torch, point, train_point, card):
         knn_kernel_ms_per_level=[r["kernel_ms"] for r in knn_rows],
         knn_bound_ms_per_level=[r["bound_ms"] for r in knn_rows],
         knn_dense_ms_per_level=[r["dense_ms"] for r in knn_rows],
-        knn_tiles_ms_per_level=[r["tiles_ms"] for r in knn_rows],
         knn_step=step_knn,
         knn_share_of_step=sum(r["ms"] for r in knn_rows) / step_ms,
         modes=modes, attention_launches=launches,
@@ -3168,11 +3236,12 @@ def phase_sparse(torch, point, train_point, tmp, card):
     from cdsegnet_torch.data.datasets import build_dataset
     from cdsegnet_torch.ops import flash_attention as fa
     from cdsegnet_torch.tools import test as test_tool
+    from cdsegnet_torch.utils import cuda_build
     from cdsegnet_torch.utils.synthetic import (lidar_sweep, room_scene,
                                                 write_semantic_kitti)
 
     start = time.perf_counter()
-    fa.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     confs = {k: load_config(v) for k, v in SPARSE_CONFIGS.items()}
     res = dict(card=card)
     spunet_cfg = dict(confs["spunet"].model)
@@ -3315,10 +3384,11 @@ def phase_zoo(torch, point, train_point, tmp, n_raw, card):
     from cdsegnet_torch.models.builder import build_model
     from cdsegnet_torch.tools import test as test_tool
     from cdsegnet_torch.tools import train as train_tool
+    from cdsegnet_torch.utils import cuda_build
     from cdsegnet_torch.utils.synthetic import synthetic_point_batch
 
     start = time.perf_counter()
-    fa.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     confs = {k: load_config(v) for k, v in ZOO_CONFIGS.items()}
     res = dict(card=card)
 
@@ -3472,8 +3542,9 @@ def phase_msc(torch, tmp, card):
     from cdsegnet_torch.tools import train as train_tool
 
     from cdsegnet_torch.ops import flash_attention as fa
+    from cdsegnet_torch.utils import cuda_build
 
-    fa.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     conf = load_config(MSC_CONFIG)
     cfg = copy.deepcopy(dict(conf.model))
     keys = tuple(conf.pair_feat_keys)
@@ -3596,8 +3667,9 @@ def phase_ppt(torch, point, train_point, tmp, card):
     from cdsegnet_torch.models.builder import build_model, build_model_criteria
     from cdsegnet_torch.ops import flash_attention as fa
     from cdsegnet_torch.tools import train as train_tool
+    from cdsegnet_torch.utils import cuda_build
 
-    fa.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     conf = load_config(PPT_CONFIG)
     res = dict(card=card)
     # MultiDatasetTrainer through the CLI: Structured3D (ratio 2), ScanNet,
@@ -3682,7 +3754,7 @@ def phase_ppt(torch, point, train_point, tmp, card):
     n_params = sum(p.numel() for p in model.parameters())
     bb = dual_cfg["backbone"]
     n_launches = len(attention_launches(bb, c_decoder=True))
-    fa.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     gen = torch.Generator("cuda").manual_seed(7)
     with torch.no_grad():
         out = model(point, condition=1, generators=dict(diffusion=gen))
@@ -3703,7 +3775,7 @@ def phase_ppt(torch, point, train_point, tmp, card):
     step = make_train_step(model, build_model_criteria(dual_cfg), opt, seed=0,
                            device="cuda", model_kwargs=dict(condition=1))
     torch.cuda.reset_peak_memory_stats()
-    fa.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     m = step(train_point)
     torch.cuda.synchronize()
     counts = dict(fwd=fa.patch_attention_fwd.launches,
@@ -3799,6 +3871,7 @@ def phase_host(torch, config, cfg, tmp, ckpt, n_raw, scene, n_launches, n_train_
     from cdsegnet_torch.tools import test as test_tool
     from cdsegnet_torch.tools import train as train_tool
     from cdsegnet_torch.tools import visualize
+    from cdsegnet_torch.utils import cuda_build
     from cdsegnet_torch.utils.visualization import read_ply, remap_to_origin, save_segmentation
 
     start = time.perf_counter()
@@ -3815,7 +3888,7 @@ def phase_host(torch, config, cfg, tmp, ckpt, n_raw, scene, n_launches, n_train_
             return fn(self, frag, index, *args, **kwargs)
         return run
 
-    fa.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     t0 = time.perf_counter()
     with patched((fa, "patch_attention", counting_plain(plain_calls)),
                  (SemSegTester, "predict_fragment", mark),
@@ -3961,7 +4034,7 @@ def phase_host(torch, config, cfg, tmp, ckpt, n_raw, scene, n_launches, n_train_
     old_dir = os.environ.get("CDSEG_CACHE_DIR")
     os.environ["CDSEG_CACHE_DIR"] = cache_dir
     try:
-        fa.reset_launch_counts()
+        cuda_build.reset_launch_counts()
         t0 = time.perf_counter()
         with patched((train_mod, "make_train_step", timed_step),
                      (datasets.DefaultDataset, "_load", timed_load)):
@@ -4041,8 +4114,8 @@ def recorded_convs(sc, model, calls):
     the kernels, from forward hooks (the launch path is left as it is):
     ``(table, C_in, C_out, dtype, input needs a gradient)`` in ``calls``.
     A `SubMConv` ran them when its output comes from the kernels' autograd
-    Function (the blocked forms gather); a `DualEmbedding` (bf16) when the
-    forward kernel's counter moved."""
+    Function; a `DualEmbedding` (bf16) when the forward kernel's counter
+    moved."""
     from cdsegnet_torch.models.modules import SubMConv
     from cdsegnet_torch.models.ptv3 import DualEmbedding
 
@@ -4180,8 +4253,9 @@ def phase_conv(torch, conf, point, card):
     (forward, input gradient, weight gradient) on the wrappers' counters,
     set to 0 before the step, and holds them to the convs that forward
     hooks saw run with their tables and widths: one weight gradient per
-    conv, an input gradient for all but the stems, a forward per conv in
-    bf16 and none in f32 (`subm_conv._forward`). Each distinct
+    conv, an input gradient for all but the stems (the flagship's dual
+    stem among them: one weight gradient more than input gradients), a
+    forward per conv in bf16 and none in f32 (`subm_conv._forward`). Each distinct
     shape (the f32 forward kernel included: the input gradient runs it) is
     then checked against the plain
     version and timed beside its bound, the plain version and the dense
@@ -4191,6 +4265,7 @@ def phase_conv(torch, conf, point, card):
 
     from cdsegnet_torch.engine.optimizer import build_optimizer
     from cdsegnet_torch.models.builder import build_model, build_model_criteria
+    from cdsegnet_torch.utils import cuda_build
 
     res = dict(card=card)
     for name, c in (("spunet", load_config(SPARSE_CONFIGS["spunet"])), ("cdsegnet", conf)):
@@ -4205,8 +4280,7 @@ def phase_conv(torch, conf, point, card):
         step(point)  # the first step builds what it caches
         torch.cuda.synchronize()
         calls = []
-        for kind in CONV_KINDS:
-            getattr(sc, f"subm_conv_gemm_{kind}").launches = 0
+        cuda_build.reset_launch_counts()
         with recorded_convs(sc, model, calls):
             step(point)
             torch.cuda.synchronize()
@@ -4221,6 +4295,10 @@ def phase_conv(torch, conf, point, card):
         if counts != {kind: want[kind] for kind in CONV_KINDS} or not counts["wgrad"] \
                 or counts["fwd"] != fwd or not 0 < counts["dgrad"] <= counts["wgrad"]:
             fail(f"{name}: conv launches per step {counts}, the observed convs {dict(want)}")
+        # the flagship's dual stem ("cond") runs the kernels too: its one
+        # conv whose inputs need no gradient
+        if name == "cdsegnet" and counts["wgrad"] - counts["dgrad"] != 1:
+            fail(f"cdsegnet: the stem did not run the conv kernels: {counts}")
         del step, opt, model, criteria
         torch.cuda.empty_cache()
         rows = conv_rows(torch, sc, calls)

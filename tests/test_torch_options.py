@@ -379,8 +379,9 @@ def test_blocked_xcpe_matches_jax_and_gather(geo, level):
 
 @pytest.mark.parametrize("batch", ["fit", "overflow"])
 def test_cond_xcpe_matches_jax(geo, batch):
-    """`SubMConv` in ``"cond"`` mode against JAX's: the blocked form where
-    nothing dropped, the gather where a level overflowed."""
+    """`SubMConv` in ``"cond"`` mode against JAX's, which takes the blocked
+    form where nothing dropped and the gather where a level overflowed (the
+    port's "cond" gathers on both)."""
     g = geo[batch]
     dropped = sum(int(lv.dropped) for lv in g["jax"][1:])
     assert (dropped > 0) == (batch == "overflow")
@@ -399,5 +400,5 @@ def test_cond_xcpe_matches_jax(geo, batch):
     tgeom = (tops["grid_coord"], tops["mask"], tops["parent_inverse"], tops["child_nbr"])
     with torch.no_grad():
         got = tm(T(feat), g["port"][0].point.neighbor_idx, blocked_geom=tgeom,
-                 no_overflow=dropped == 0, stem_mode="cond").numpy()
+                 stem_mode="cond").numpy()
     assert_close(got, want, np.asarray(g["jax"][0].point.mask))

@@ -7,14 +7,17 @@ skip empty taps, summed in row splits. Here every table the port's pyramid
 builds is checked to be symmetric, and the plain versions of both
 gradients are held to autograd through the gather + matmul form in
 float64. The kernels themselves are compared with these plain versions on
-the GPU in `test_torch_kernels.py`.
+the GPU in `test_torch_kernels.py`. A tiny PTv3 in ``"cond"`` runs this
+conv, never the parity-blocked forms, at its stem and its xCPEs.
 """
 
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from cdsegnet_torch.models import modules, ptv3  # noqa: E402
 from cdsegnet_torch.models import pyramid as pyr  # noqa: E402
+from cdsegnet_torch.models.builder import build_model  # noqa: E402
 from cdsegnet_torch.ops.subm_conv import (  # noqa: E402
     TILE_ROWS,
     _check,
@@ -187,3 +190,76 @@ def test_other_devices_are_refused():
     nbr = torch.full((4, 27), 4, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         subm_conv_apply(torch.zeros((4, 8), device="meta"), nbr, torch.zeros((27, 8, 8)))
+
+
+TINY_PTV3 = dict(
+    type="PT-v3m1", c_in_channels=6, n_in_channels=6,
+    order=("z", "z-trans", "hilbert", "hilbert-trans"), c_stride=(4, 4),
+    c_enc_depths=(1, 1, 1), c_enc_channels=(8, 16, 16), c_enc_num_head=(1, 2, 2),
+    c_enc_patch_size=(64, 64, 64), c_dec_depths=(1, 1), c_dec_channels=(8, 8),
+    c_dec_num_head=(1, 1), c_dec_patch_size=(64, 64), n_stride=(2, 2, 2, 2),
+    n_enc_depths=(1, 1, 1, 1, 1), n_enc_channels=(8, 16, 16, 16, 16),
+    n_enc_num_head=(1, 2, 2, 2, 2), n_enc_patch_size=(64, 64, 64, 64, 64),
+    n_dec_depths=(1, 1, 1, 1), n_dec_channels=(8, 8, 16, 16), n_dec_num_head=(1, 1, 2, 2),
+    n_dec_patch_size=(64, 64, 64, 64), mlp_ratio=2, drop_path=0.0, num_classes=5, T_dim=16,
+    condition=True, skip_connection_mode="cat", skip_connection_scale=True)
+
+
+def tiny_cdsegnet(modes, capacity_div):
+    return dict(
+        type="DefaultSegmentorV2",
+        backbone=dict(TINY_PTV3, capacity_div=capacity_div, **modes),
+        criteria=[dict(type="MSELoss", loss_weight=1.0)], loss_type="GLS", task_num=2,
+        num_classes=5, T=20, beta_start=0, beta_end=1000, noise_schedule="cosine",
+        T_dim=16, dm=True, dm_input="xt", dm_target="noise", condition=True,
+        c_in_channels=6)
+
+
+def ssi_and_gradients(model, point):
+    """SSI logits, then the gradients of one training forward's outputs
+    (every draw fed in), by parameter name."""
+    g = torch.Generator().manual_seed(3)
+    noise = torch.randn(point.feat.shape, generator=g)
+    model.eval()
+    logits = model.inference(point, noise=noise)["seg_logits"]
+    model.train()
+    out = model(point, ts_scene=torch.tensor([4, 11]), noise=noise,
+                mse_valid=point.mask)
+    mask = point.mask[:, None]
+    loss = (out["n_pred"] * mask).square().sum() + (out["c_pred"] * mask).square().sum()
+    model.zero_grad()
+    loss.backward()
+    return logits, {n: p.grad.clone() for n, p in model.named_parameters() if p.grad is not None}
+
+
+@pytest.mark.parametrize("capacity_div,dropped", [
+    ((1, 2, 4, 8, 8), False), ((1, 16, 64, 256, 256), True)], ids=["fit", "overflow"])
+def test_cond_stem_and_xcpe_compute_the_gather(monkeypatch, capacity_div, dropped):
+    """``stem_mode`` and ``xcpe_mode`` "cond" give the SSI logits and first
+    gradients of "gather" with the same weights, bit for bit, on a batch
+    whose pooled levels keep every point and on one where they drop
+    points; no blocked form runs in either."""
+    point = synthetic_point_batch(2048, 2, depth=7, seed=1, device="cpu")
+    gather = build_model(tiny_cdsegnet(dict(stem_mode="gather", xcpe_mode="gather"),
+                                       capacity_div),
+                         device="cpu", generator=torch.Generator().manual_seed(0))
+    cond = build_model(tiny_cdsegnet(dict(stem_mode="cond", xcpe_mode="cond"), capacity_div),
+                       device="cpu", generator=torch.Generator().manual_seed(1))
+    cond.load_state_dict(gather.state_dict())
+    levels, _ = cond.backbone.precompute_geometry(point)
+    assert levels[1].parent_inverse is not None  # the blocked forms had their operands
+    assert (sum(lv.dropped for lv in levels[1:]) > 0) == dropped
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a blocked form ran")
+
+    monkeypatch.setattr(ptv3, "blocked_stem_apply", refuse)
+    monkeypatch.setattr(modules, "blocked_k3_conv_apply", refuse)
+    monkeypatch.setattr(modules, "blocked_subm_conv_apply", refuse)
+    want_logits, want_grads = ssi_and_gradients(gather, point)
+    got_logits, got_grads = ssi_and_gradients(cond, point)
+    assert torch.equal(got_logits, want_logits)
+    assert got_grads.keys() == want_grads.keys()
+    assert "backbone.dual_embedding.n_weight" in got_grads
+    for name, grad in want_grads.items():
+        assert torch.equal(got_grads[name], grad), name

@@ -9,6 +9,9 @@ card's machine has none."""
 from __future__ import annotations
 
 import json
+import os
+import subprocess
+import sys
 import threading
 import time
 import warnings
@@ -21,7 +24,7 @@ from cdsegnet_torch.engine.optimizer import build_optimizer
 from cdsegnet_torch.engine.state import make_train_step
 from cdsegnet_torch.engine.test import SemSegTester
 from cdsegnet_torch.models.builder import build_model, build_model_criteria
-from cdsegnet_torch.utils import tracing
+from cdsegnet_torch.utils import cuda_build, tracing
 from cdsegnet_torch.utils.synthetic import synthetic_arrays, synthetic_point_batch
 
 BACKBONE = dict(
@@ -114,6 +117,44 @@ def test_nesting_ids_roots_counters_and_self_time():
     assert cap.under("n", "root") == 6 and cap.under("n", "a") == 2
     assert cap.launches == dict(fwd=0, fwd_lse=0, dq=0, dkdv=0, conv_fwd=0, conv_dgrad=0,
                                 conv_wgrad=0, knn=0)
+
+
+def test_a_launch_counter_registered_during_a_capture_counts_from_zero(monkeypatch):
+    def kernel():
+        kernel.launches += 1
+
+    kernel.launches = 5  # what the attribute held before it was registered
+    monkeypatch.setattr(cuda_build, "_COUNTERS", dict(cuda_build._COUNTERS))
+    with tracing.capture() as cap:
+        cuda_build.register_launches("late", kernel)
+        kernel()
+        kernel()
+    assert cap.launches["late"] == 2 and cap.launches["fwd"] == 0
+    assert set(cap.launches) == {"fwd", "fwd_lse", "dq", "dkdv", "conv_fwd", "conv_dgrad",
+                                 "conv_wgrad", "knn", "late"}
+    cuda_build.reset_launch_counts()
+    assert kernel.launches == 0 and cuda_build.launch_counts()["late"] == 0
+
+
+def test_a_capture_reports_only_the_kernels_imported_by_its_end():
+    """`tracing` imports no kernel wrapper: in a fresh process a capture
+    reports no launch counter until a wrapper module has registered its
+    own."""
+    code = (
+        "import json, sys\n"
+        "from cdsegnet_torch.utils import tracing\n"
+        "ops = sorted(m for m in sys.modules if m.startswith('cdsegnet_torch.ops'))\n"
+        "with tracing.capture() as bare:\n"
+        "    pass\n"
+        "with tracing.capture() as late:\n"
+        "    from cdsegnet_torch.ops import subm_conv\n"
+        "print(json.dumps([ops, bare.launches, late.launches]))\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True,
+                         text=True, timeout=120, check=True).stdout
+    ops, bare, late = json.loads(out.strip().splitlines()[-1])
+    assert ops == [] and bare == {}
+    assert late == {"conv_fwd": 0, "conv_dgrad": 0, "conv_wgrad": 0}
 
 
 def test_a_second_capture_cannot_open_inside_the_first():
